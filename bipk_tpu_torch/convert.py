@@ -1,0 +1,67 @@
+"""Carry a model and a particle carry across from the JAX package, as numpy.
+
+The port never imports JAX. A caller that holds the JAX package's
+``VehicleModel`` exports its arrays with ``np.asarray`` into the plain
+dictionary :func:`vehicle_model_from_arrays` reads, and the two packages
+then compute the same thing from the same inputs:
+
+==================  ==========================================================
+key                 JAX source
+==================  ==========================================================
+sqrt_eigenvalues    ``model.basis.sqrt_eigenvalues`` ``(m, d)``
+centers             ``model.basis.centers`` ``(d,)``
+half_widths         ``model.basis.half_widths`` ``(d,)``
+spectral_density    ``model.basis.spectral_density`` ``(m,)``
+priors              ``[gp.prior for gp in model.gps]`` as ``(T0, T1, T2, T3)``
+process_noise       ``model.ssm.process_noise``
+output_noise        ``model.ssm.output_noise``
+init_cov            ``model.gps[0].init_cov``
+x0, p0              ``model.x0``, ``model.p0``
+==================  ==========================================================
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bipk_tpu_torch.models import vehicle
+from bipk_tpu_torch.ops import basis as basis_ops
+from bipk_tpu_torch.ops import mniw
+
+
+def vehicle_model_from_arrays(config: dict, arrays: dict) -> vehicle.VehicleModel:
+    """The port's vehicle model from the JAX model's configuration fields
+    (``dataclasses.asdict``) and arrays (see the module docstring)."""
+    f64 = {k: v for k, v in arrays.items() if k != "priors"}
+    f64 = {k: np.asarray(v, np.float64) for k, v in f64.items()}
+    hb = basis_ops.HilbertBasis(
+        f64["sqrt_eigenvalues"], f64["centers"], f64["half_widths"],
+        f64["spectral_density"],
+    )
+    priors = tuple(
+        mniw.MNIW(*(np.asarray(p, np.float64) for p in prior))
+        for prior in arrays["priors"]
+    )
+    return vehicle.model_from_parts(
+        vehicle.VehicleConfig(**config), hb, priors,
+        process_noise=f64["process_noise"], output_noise=f64["output_noise"],
+        init_cov=f64["init_cov"], x0=f64["x0"], p0=f64["p0"],
+    )
+
+
+def packed_carry_from_arrays(log_weights, state, int_vars, stats, dtype, device):
+    """A particle carry ``(log_weights (N,), state (dx, N), int_vars,
+    stats)`` with structured batch-last statistics ``(T0 (m, n, N), T1,
+    T2, T3)`` per GP, given as numpy, -> the port's carry with the
+    statistics packed (``mniw.pack_stats_bl``)."""
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return (
+        t(log_weights),
+        t(state),
+        tuple(t(iv) for iv in int_vars),
+        tuple(mniw.pack_stats_bl(mniw.MNIW(*(t(a) for a in st))) for st in stats),
+    )

@@ -1,0 +1,76 @@
+"""Build the port's CUDA kernels into one shared library.
+
+ONE ``nvcc`` call compiles every ``bipk_tpu_torch/csrc/*.cu`` for
+``sm_90a`` into one ``.so`` with a plain C interface, loaded with
+``ctypes``. The sources include no PyTorch header: a file that does takes
+minutes to compile where this takes seconds, and PyTorch's extension loader
+also needs ``ninja``. The library's file name carries a hash of the
+sources and flags, so a stale build is never loaded. The build runs at
+first use, inside the checkout (``bipk_tpu_torch/_build/``, ignored by
+git); a failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME/bin")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libbipk_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if needed; return the library's path.
+
+    The compiler's register and spill report (``-Xptxas -v``) is kept
+    beside the library as ``<name>.ptxas.txt``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out

@@ -1,0 +1,298 @@
+"""Wrappers, loader and launch counters of the port's CUDA kernels.
+
+Each wrapper is named after the TPU launcher in
+``bipk_tpu/ops/pallas_kernels.py`` whose work it does, and takes the same
+arguments minus the TPU's tiling plan:
+
+==================================  ===========================
+wrapper                             CUDA source
+==================================  ===========================
+``factorize_project_packed``        ``csrc/packed_mniw.cu``
+``systematic_ancestors_blocks``     ``csrc/systematic.cu``
+``draw_update_packed_blocks``       ``csrc/packed_mniw.cu``
+``draw_update_gather_packed_blocks`` ``csrc/packed_mniw.cu``
+==================================  ===========================
+
+Each wrapper's plain version is the ``*_plain`` function beside it (a thin
+adapter over :mod:`~bipk_tpu_torch.ops.mniw` / :mod:`~bipk_tpu_torch.ops.
+resampling`). A wrapper given CPU tensors computes its plain version; given
+CUDA tensors it launches its kernel (building the library on first use) or
+raises — there is no fallback on the card. Callers that want the plain
+versions on the card (to hold the kernels against them) call the
+``*_plain`` functions themselves. Each wrapper counts its kernel launches
+in its ``launches`` attribute. The kernels take f32 only, launch on the
+current stream and never synchronise; the wrapper allocates the outputs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+from bipk_tpu_torch.ops import _build, mniw, resampling
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "bipk_factorize_project_packed": [
+        _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
+    ],
+    "bipk_draw_update_packed": [
+        _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
+    ],
+    "bipk_systematic_ancestors": [_P, _P, _I, _P, _P, _P],
+}
+MAX_M = 48
+MAX_N = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build.build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def _on_cuda(name: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise otherwise."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _require(name: str, device, dtype, **tensors) -> None:
+    for arg, (t, shape) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _check_mn(name: str, S: torch.Tensor, m: int, n: int) -> None:
+    if not (1 <= m <= MAX_M and 1 <= n <= MAX_N):
+        raise ValueError(f"{name}: needs 1 <= m <= {MAX_M}, 1 <= n <= {MAX_N}; got m={m}, n={n}")
+    if S.dim() != 2 or S.shape[0] != mniw.packed_rows(m, n):
+        raise ValueError(f"{name}: S must be (packed_rows(m, n), N); got {tuple(S.shape)}")
+
+
+def _prior_buffer(name, prior, m, n, S):
+    """The unbatched prior ``(P0, P1, P2)`` as one ``[P0|P1|P2]`` f32
+    buffer on S's device, or None."""
+    if prior is None:
+        return None
+    P0, P1, P2 = prior
+    _require(name, S.device, torch.float32,
+             P0=(P0, (m, n)), P1=(P1, (m, m)), P2=(P2, (n, n)))
+    return torch.cat([P0.reshape(-1), P1.reshape(-1), P2.reshape(-1)])
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _prior_mniw(prior, p3, like):
+    if prior is None:
+        return None
+    return mniw.MNIW(*prior, torch.as_tensor(p3, dtype=like.dtype, device=like.device))
+
+
+def factorize_project_packed_plain(S, phi, jitter, lam=1.0, prior=None, m=0, n=0):
+    """Plain PyTorch version of :func:`factorize_project_packed`."""
+    fp = mniw.factorize_project_packed_bl(
+        S, phi, prior=_prior_mniw(prior, 0.0, S), lam=lam, m=m, n=n,
+        jitter=jitter,
+    )
+    return fp[:5]
+
+
+def factorize_project_packed(
+    S: torch.Tensor, phi: torch.Tensor, jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
+):
+    """Factor ``prior + lam * S`` per particle and project at ``phi``.
+
+    ``S (rows, N)`` packed statistics, ``phi (m, N)``, ``prior`` the
+    unbatched ``(P0, P1, P2)`` or None -> ``(mean (n, N), col_scale (N,),
+    row_scale (n, n, N), logdet_T1 (N,), logdet_Psi (N,))``.
+    """
+    name = "factorize_project_packed"
+    _check_mn(name, S, m, n)
+    if not _on_cuda(name, S):
+        return factorize_project_packed_plain(S, phi, jitter, lam, prior, m, n)
+    N = S.shape[1]
+    _require(name, S.device, torch.float32, S=(S, S.shape), phi=(phi, (m, N)))
+    pbuf = _prior_buffer(name, prior, m, n, S)
+    mean = torch.empty((n, N), dtype=S.dtype, device=S.device)
+    col = torch.empty((N,), dtype=S.dtype, device=S.device)
+    row = torch.empty((n, n, N), dtype=S.dtype, device=S.device)
+    ld = torch.empty((2, N), dtype=S.dtype, device=S.device)
+    rc = _lib().bipk_factorize_project_packed(
+        S.data_ptr(), phi.data_ptr(), _ptr(pbuf), N, m, n, float(jitter),
+        float(lam), mean.data_ptr(), col.data_ptr(), row.data_ptr(),
+        ld.data_ptr(), _stream(S.device),
+    )
+    factorize_project_packed.launches += 1
+    _check(rc, name)
+    return mean, col, row, ld[0], ld[1]
+
+
+def systematic_ancestors_blocks_plain(w, u, n):
+    """Plain PyTorch version of :func:`systematic_ancestors_blocks`."""
+    return resampling.systematic(w, u)
+
+
+def systematic_ancestors_blocks(w: torch.Tensor, u: torch.Tensor, n: int):
+    """Sorted systematic-resampling ancestors ``(n,)`` int32 from the
+    unnormalized non-log weights ``w (n,)`` and the uniform ``u`` (a
+    one-element tensor on w's device)."""
+    name = "systematic_ancestors_blocks"
+    if w.dim() != 1 or w.shape[0] != n or n < 1:
+        raise ValueError(f"{name}: w must be ({n},); got {tuple(w.shape)}")
+    if not _on_cuda(name, w):
+        return systematic_ancestors_blocks_plain(w, u, n)
+    _require(name, w.device, torch.float32, w=(w, (n,)), u=(u.reshape(1), (1,)))
+    cc = torch.empty((n,), dtype=torch.int32, device=w.device)
+    anc = torch.empty((n,), dtype=torch.int32, device=w.device)
+    u1 = u.reshape(1)
+    rc = _lib().bipk_systematic_ancestors(
+        w.data_ptr(), u1.data_ptr(), n, cc.data_ptr(), anc.data_ptr(),
+        _stream(w.device),
+    )
+    systematic_ancestors_blocks.launches += 1
+    _check(rc, name)
+    return anc
+
+
+def _draw_update(name, S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
+    n_in = S.shape[1]
+    n_out = n_in if anc is None else anc.shape[0]
+    _require(
+        name, S.device, torch.float32, S=(S, S.shape), phi=(phi, (m, n_out)),
+        u=(u, (n, n_out)), v=(v, (n, n_out)),
+    )
+    if anc is not None:
+        _require(name, S.device, torch.int32, ancestors=(anc, (n_out,)))
+    pbuf = _prior_buffer(name, prior, m, n, S)
+    S_new = torch.empty((S.shape[0], n_out), dtype=S.dtype, device=S.device)
+    y = torch.empty((n, n_out), dtype=S.dtype, device=S.device)
+    ld = torch.empty((2, n_out), dtype=S.dtype, device=S.device)
+    rc = _lib().bipk_draw_update_packed(
+        S.data_ptr(), n_in, _ptr(anc), n_out, phi.data_ptr(), u.data_ptr(),
+        v.data_ptr(), _ptr(pbuf), float(p3), m, n, float(jitter), float(lam),
+        S_new.data_ptr(), y.data_ptr(), ld.data_ptr(), _stream(S.device),
+    )
+    return rc, (S_new, y, ld[0], ld[1])
+
+
+def draw_update_packed_blocks_plain(
+    S, phi, u, v, jitter, lam=1.0, prior=None, p3=0.0, m=0, n=0
+):
+    """Plain PyTorch version of :func:`draw_update_packed_blocks`."""
+    return mniw.draw_update_packed_bl(
+        u, v, S, phi, prior=_prior_mniw(prior, p3, S), lam=lam, m=m, n=n,
+        jitter=jitter,
+    )
+
+
+def draw_update_packed_blocks(
+    S: torch.Tensor, phi: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+    jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None, p3: float = 0.0,
+    m: int = 0, n: int = 0,
+):
+    """Matrix-t predictive draw + rank-1 statistics update.
+
+    ``S (rows, N)``, ``phi (m, N)``, raw uniforms ``u, v (n, N)``, prior
+    ``(P0, P1, P2)`` and its scalar ``p3`` -> ``(S_new (rows, N), y (n, N),
+    logdet_T1 (N,), logdet_Psi (N,))``; ``S_new`` is a new buffer.
+    """
+    name = "draw_update_packed_blocks"
+    _check_mn(name, S, m, n)
+    if not _on_cuda(name, S):
+        return draw_update_packed_blocks_plain(
+            S, phi, u, v, jitter, lam, prior, p3, m, n
+        )
+    rc, out = _draw_update(name, S, None, phi, u, v, jitter, lam, prior, p3, m, n)
+    draw_update_packed_blocks.launches += 1
+    _check(rc, name)
+    return out
+
+
+def draw_update_gather_packed_blocks_plain(
+    S, ancestors, phi, u, v, jitter, lam=1.0, prior=None, p3=0.0, m=0, n=0
+):
+    """Plain PyTorch version of :func:`draw_update_gather_packed_blocks`."""
+    return mniw.draw_update_gather_packed_bl(
+        u, v, S, ancestors, phi, prior=_prior_mniw(prior, p3, S), lam=lam,
+        m=m, n=n, jitter=jitter,
+    )
+
+
+def draw_update_gather_packed_blocks(
+    S: torch.Tensor, ancestors: torch.Tensor, phi: torch.Tensor,
+    u: torch.Tensor, v: torch.Tensor, jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None, p3: float = 0.0,
+    m: int = 0, n: int = 0,
+):
+    """:func:`draw_update_packed_blocks` on ``S[:, ancestors]``, the gather
+    done inside the kernel. ``ancestors (N_out,)`` int32, sorted, with
+    values in ``[0, N_in)``; ``phi, u, v`` and the outputs have ``N_out``
+    columns."""
+    name = "draw_update_gather_packed_blocks"
+    _check_mn(name, S, m, n)
+    if not _on_cuda(name, S):
+        return draw_update_gather_packed_blocks_plain(
+            S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n
+        )
+    rc, out = _draw_update(name, S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n)
+    draw_update_gather_packed_blocks.launches += 1
+    _check(rc, name)
+    return out
+
+
+WRAPPERS = (
+    factorize_project_packed,
+    systematic_ancestors_blocks,
+    draw_update_packed_blocks,
+    draw_update_gather_packed_blocks,
+)
+PLAIN = {
+    factorize_project_packed: factorize_project_packed_plain,
+    systematic_ancestors_blocks: systematic_ancestors_blocks_plain,
+    draw_update_packed_blocks: draw_update_packed_blocks_plain,
+    draw_update_gather_packed_blocks: draw_update_gather_packed_blocks_plain,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+reset_launch_counts()

@@ -1,0 +1,325 @@
+"""Matrix-normal-inverse-Wishart (MNIW) algebra over the packed
+batch-last statistics (port of the packed subset of
+``bipk_tpu/ops/mniw.py``).
+
+Natural parameters / sufficient statistics ``(T0 (m, n), T1 (m, m),
+T2 (n, n), T3 ())`` per particle, carried as ONE packed matrix per GP with
+rows ``[T0 | col-major tril(T1) | tril(T2) | T3]`` and the particle axis
+last — the JAX package's layout, so arrays compare element for element.
+
+The packed entry points :func:`factorize_project_packed_bl`,
+:func:`draw_update_packed_bl` and :func:`draw_update_gather_packed_bl` are
+the plain PyTorch versions of the CUDA kernels in
+:mod:`bipk_tpu_torch.ops.cuda_kernels`. Every random draw is an input
+(``u, v`` uniforms), so each is a deterministic function.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from bipk_tpu_torch.ops import batched_linalg as bla
+from bipk_tpu_torch.ops.gaussian import student_t
+
+
+class MNIW(NamedTuple):
+    """Natural parameters (or additive sufficient statistics) of an MNIW."""
+
+    T0: torch.Tensor  # (m, n)
+    T1: torch.Tensor  # (m, m)
+    T2: torch.Tensor  # (n, n)
+    T3: torch.Tensor  # ()
+
+
+class MNIWFactor(NamedTuple):
+    """Cholesky factorization of ``sym(T1)`` with derived quantities."""
+
+    chol: torch.Tensor  # (m, m, N) lower
+    white_T0: torch.Tensor  # (m, n, N)
+    row_scale: torch.Tensor  # (n, n, N) = T2 - white^T white
+    df: torch.Tensor  # (N,)
+
+
+class ProjectedFactor(NamedTuple):
+    """Per-particle matrix-t predictive pieces at one basis vector plus the
+    log-determinants of the factored MNIW: ``mean (n, N)``, ``col_scale
+    (N,)``, ``row_scale (n, n, N)``, ``logdet_T1 (N,)``, ``logdet_Psi
+    (N,)``, ``df (N,)``."""
+
+    mean: torch.Tensor
+    col_scale: torch.Tensor
+    row_scale: torch.Tensor
+    logdet_T1: torch.Tensor
+    logdet_Psi: torch.Tensor
+    df: torch.Tensor
+
+
+def _default_jitter(dtype) -> float:
+    """Relative Cholesky jitter: none in f64, ``1e-9`` otherwise."""
+    return 0.0 if dtype == torch.float64 else 1e-9
+
+
+# ---------------------------------------------------------------------------
+# Flat and packed layouts.
+# ---------------------------------------------------------------------------
+
+
+def to_flat_bl(nat: MNIW) -> MNIW:
+    """Structured batch-last leaves -> flat rows ``(m*n, N)`` etc."""
+    last = nat.T0.shape[-1]
+    return MNIW(
+        nat.T0.reshape(-1, last), nat.T1.reshape(-1, last),
+        nat.T2.reshape(-1, last), nat.T3,
+    )
+
+
+def from_flat_bl(nat: MNIW, m: int, n: int) -> MNIW:
+    """Flat rows -> structured batch-last leaves."""
+    last = nat.T0.shape[-1]
+    return MNIW(
+        nat.T0.reshape(m, n, last), nat.T1.reshape(m, m, last),
+        nat.T2.reshape(n, n, last), nat.T3,
+    )
+
+
+def _tri_pack_idx(m: int):
+    """Flat indices (into an ``(m*m,)`` square) of the lower triangle in
+    COLUMN-major order, plus the transposed entries' indices."""
+    j, i = np.triu_indices(m)  # row <= col, row-major == lower col-major
+    return i * m + j, j * m + i
+
+
+def _tri_unpack_idx(m: int):
+    """For each entry of the flattened square, the triangular row that
+    holds its value (column-major packing)."""
+    i, j = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
+    hi, lo = np.maximum(i, j), np.minimum(i, j)
+    return (lo * m - (lo * (lo - 1)) // 2 + hi - lo).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _index_tensors(m: int, device: torch.device):
+    lower, upper = _tri_pack_idx(m)
+    return tuple(
+        torch.as_tensor(a, dtype=torch.long, device=device)
+        for a in (lower, upper, _tri_unpack_idx(m))
+    )
+
+
+def sym_to_tri_rows(X: torch.Tensor, m: int) -> torch.Tensor:
+    """``(m*m, ...)`` square rows -> ``(m(m+1)/2, ...)`` triangular rows
+    of the symmetrized matrix ``0.5 (X + X^T)``."""
+    lower, upper, _ = _index_tensors(m, X.device)
+    return 0.5 * (X.index_select(0, lower) + X.index_select(0, upper))
+
+
+def tri_to_sym_rows(Xt: torch.Tensor, m: int, dim: int = 0) -> torch.Tensor:
+    """Triangular rows -> full ``(m*m, ...)`` square rows along ``dim``."""
+    return Xt.index_select(dim, _index_tensors(m, Xt.device)[2])
+
+
+def packed_rows(m: int, n: int) -> int:
+    """Row count of the packed statistics layout."""
+    return m * n + m * (m + 1) // 2 + n * (n + 1) // 2 + 1
+
+
+def _offsets(m: int, n: int):
+    o1 = m * n
+    o2 = o1 + m * (m + 1) // 2
+    return o1, o2, o2 + n * (n + 1) // 2
+
+
+def pack_stats_bl(stats: MNIW) -> torch.Tensor:
+    """Batch-last MNIW statistics (structured or flat) -> packed matrix."""
+    if stats.T1.dim() != 2:
+        stats = to_flat_bl(stats)
+    m = int(round(stats.T1.shape[0] ** 0.5))
+    n = int(round(stats.T2.shape[0] ** 0.5))
+    return torch.cat(
+        [
+            stats.T0,
+            sym_to_tri_rows(stats.T1, m),
+            sym_to_tri_rows(stats.T2, n),
+            stats.T3[None],
+        ],
+        0,
+    )
+
+
+def unpack_stats_bl(S: torch.Tensor, m: int, n: int) -> MNIW:
+    """Packed matrix -> flat batch-last MNIW statistics (T1/T2 mirrored
+    back to full squares)."""
+    o1, o2, o3 = _offsets(m, n)
+    return MNIW(
+        S[:o1], tri_to_sym_rows(S[o1:o2], m), tri_to_sym_rows(S[o2:o3], n),
+        S[o3],
+    )
+
+
+def unpack_reduced(red: torch.Tensor, m: int, n: int) -> MNIW:
+    """Importance-weight-reduced packed columns ``(..., rows)`` ->
+    structured MNIW with leaves ``(..., m, n)``, ``(..., m, m)``,
+    ``(..., n, n)``, ``(...)``."""
+    o1, o2, o3 = _offsets(m, n)
+    lead = red.shape[:-1]
+    d = red.dim() - 1
+    return MNIW(
+        red[..., :o1].reshape(*lead, m, n),
+        tri_to_sym_rows(red[..., o1:o2], m, dim=d).reshape(*lead, m, m),
+        tri_to_sym_rows(red[..., o2:o3], n, dim=d).reshape(*lead, n, n),
+        red[..., o3],
+    )
+
+
+def suff_stat_bl(y: torch.Tensor, phi: torch.Tensor) -> MNIW:
+    """Rank-1 statistics, structured batch-last: ``y (n, N)``, ``phi (m, N)``."""
+    return MNIW(
+        phi[:, None, :] * y[None, :, :],
+        phi[:, None, :] * phi[None, :, :],
+        y[:, None, :] * y[None, :, :],
+        torch.ones(y.shape[-1], dtype=phi.dtype, device=phi.device),
+    )
+
+
+def suff_stat_flat_bl(y: torch.Tensor, phi: torch.Tensor) -> MNIW:
+    """Rank-1 statistics in flat layout (row ``i*n + c`` of T0 is
+    ``phi_i y_c``)."""
+    return to_flat_bl(suff_stat_bl(y, phi))
+
+
+# ---------------------------------------------------------------------------
+# Factorization and the matrix-t predictive.
+# ---------------------------------------------------------------------------
+
+
+def _gram_bl(W: torch.Tensor) -> torch.Tensor:
+    """``(m, n, N) -> (n, n, N)`` Gram matrix ``W^T W`` over axis 0."""
+    return (W[:, :, None, :] * W[:, None, :, :]).sum(0)
+
+
+def factorize_bl(nat: MNIW, jitter: float | None = None) -> MNIWFactor:
+    """Factor batch-last ``nat``: symmetrize ``T1``, add the relative
+    jitter ``jitter * trace/m`` to its diagonal, Cholesky, whiten ``T0``
+    and form the Schur complement ``T2 - white^T white``."""
+    if jitter is None:
+        jitter = _default_jitter(nat.T1.dtype)
+    T1s = 0.5 * (nat.T1 + nat.T1.transpose(0, 1))
+    if jitter:
+        m = T1s.shape[0]
+        trace = torch.diagonal(T1s, 0, 0, 1).sum(-1) / m
+        eye = torch.eye(m, dtype=T1s.dtype, device=T1s.device)[:, :, None]
+        T1s = T1s + (jitter * trace) * eye
+    L = bla.chol_lower_bl(T1s)
+    white = bla.solve_lower_bl(L, nat.T0)
+    return MNIWFactor(L, white, nat.T2 - _gram_bl(white), nat.T3)
+
+
+def factorize_scaled_bl(
+    stats: MNIW, prior: MNIW | None = None, lam: float = 1.0,
+    jitter: float | None = None,
+) -> MNIWFactor:
+    """Factor ``prior + lam * stats``; ``prior`` is UNbatched."""
+    df = stats.T3 * lam + (prior.T3 if prior is not None else 0.0)
+    nat = MNIW(stats.T0 * lam, stats.T1 * lam, stats.T2 * lam, df)
+    if prior is not None:
+        nat = MNIW(
+            nat.T0 + prior.T0[..., None], nat.T1 + prior.T1[..., None],
+            nat.T2 + prior.T2[..., None], df,
+        )
+    return factorize_bl(nat, jitter=jitter)
+
+
+def _logdet_psi(psi: torch.Tensor) -> torch.Tensor:
+    n = psi.shape[0]
+    if n == 1:
+        return torch.log(psi[0, 0])
+    if n == 2:
+        off = 0.5 * (psi[0, 1] + psi[1, 0])
+        return torch.log(psi[0, 0] * psi[1, 1] - off * off)
+    sym = 0.5 * (psi + psi.transpose(0, 1))
+    return bla.logdet_from_chol_bl(bla.chol_lower_bl(sym))
+
+
+def factorize_project_bl(
+    stats: MNIW, phi: torch.Tensor, prior: MNIW | None = None,
+    lam: float = 1.0, jitter: float | None = None,
+) -> ProjectedFactor:
+    """Factor ``prior + lam * stats`` (structured batch-last) and project
+    at ``phi (m, N)``: ``mean = white^T L^{-1} phi``, ``col = |L^{-1}
+    phi|^2 + 1``, ``Psi``, and the two log-determinants."""
+    f = factorize_scaled_bl(stats, prior=prior, lam=lam, jitter=jitter)
+    v = bla.solve_lower_bl(f.chol, phi)
+    mean = (f.white_T0 * v[:, None, :]).sum(0)
+    col = (v * v).sum(0) + 1.0
+    return ProjectedFactor(
+        mean, col, f.row_scale, bla.logdet_from_chol_bl(f.chol),
+        _logdet_psi(f.row_scale), f.df,
+    )
+
+
+def sample_projected_bl(
+    fp: ProjectedFactor, u: torch.Tensor, v: torch.Tensor
+) -> torch.Tensor:
+    """Matrix-t draw ``y = mean + chol(Psi/df_pred) t sqrt(col)`` with
+    ``t`` polar Student-t from the uniforms ``u, v (n, N)`` and
+    ``df_pred = df + 1 - n``."""
+    n = fp.row_scale.shape[0]
+    df_pred = fp.df + (1.0 - n)
+    chol_row = bla.chol_lower_bl(fp.row_scale / df_pred)
+    t = student_t(df_pred, u, v)
+    scaled = (chol_row * t[None, :, :]).sum(1)
+    return fp.mean + scaled * torch.sqrt(fp.col_scale)
+
+
+# ---------------------------------------------------------------------------
+# Packed entry points: the plain versions of the CUDA kernels.
+# ---------------------------------------------------------------------------
+
+
+def factorize_project_packed_bl(
+    S: torch.Tensor, phi: torch.Tensor, prior: MNIW | None = None,
+    lam: float = 1.0, m: int = 0, n: int = 0, jitter: float | None = None,
+) -> ProjectedFactor:
+    """:func:`factorize_project_bl` over the packed statistics ``S (rows,
+    N)``."""
+    return factorize_project_bl(
+        from_flat_bl(unpack_stats_bl(S, m, n), m, n), phi, prior=prior,
+        lam=lam, jitter=jitter,
+    )
+
+
+def draw_update_packed_bl(
+    u: torch.Tensor, v: torch.Tensor, S: torch.Tensor, phi: torch.Tensor,
+    prior: MNIW | None = None, lam: float = 1.0, m: int = 0, n: int = 0,
+    jitter: float | None = None,
+):
+    """Matrix-t predictive draw + rank-1 statistics update over the packed
+    layout: returns ``(S_new, y, logdet_T1, logdet_Psi)`` with
+    ``S_new = lam * S + suff(y, phi)``. ``u, v (n, N)`` are the raw
+    uniforms of the polar Student-t draw."""
+    stats = unpack_stats_bl(S, m, n)
+    fp = factorize_project_bl(
+        from_flat_bl(stats, m, n), phi, prior=prior, lam=lam, jitter=jitter
+    )
+    y = sample_projected_bl(fp, u, v)
+    suff = suff_stat_flat_bl(y, phi)
+    new = MNIW(*(s * lam + d for s, d in zip(stats, suff)))
+    return pack_stats_bl(new), y, fp.logdet_T1, fp.logdet_Psi
+
+
+def draw_update_gather_packed_bl(
+    u: torch.Tensor, v: torch.Tensor, S: torch.Tensor,
+    ancestors: torch.Tensor, phi: torch.Tensor, prior: MNIW | None = None,
+    lam: float = 1.0, m: int = 0, n: int = 0, jitter: float | None = None,
+):
+    """Resampling gather + :func:`draw_update_packed_bl`: the result is
+    ``draw_update_packed_bl(u, v, S[:, ancestors], ...)``; ``u, v, phi``
+    and the outputs have ``len(ancestors)`` columns."""
+    return draw_update_packed_bl(
+        u, v, S.index_select(1, ancestors), phi, prior=prior, lam=lam,
+        m=m, n=n, jitter=jitter,
+    )

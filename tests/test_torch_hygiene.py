@@ -1,0 +1,104 @@
+"""Guards of the PyTorch port: what it imports, where it runs, how it is
+built and packaged."""
+
+import ast
+import subprocess
+import sys
+import tomllib
+from pathlib import Path
+
+import pytest
+import torch
+from setuptools import find_packages
+
+from bipk_tpu_torch import resolve_device
+from bipk_tpu_torch.models import vehicle as tveh
+from bipk_tpu_torch.ops import _build
+from bipk_tpu_torch.ops import cuda_kernels as ck
+from bipk_tpu_torch.parallel.sharded import build_sharded_apf
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "bipk_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "bipk_tpu"), (path, mod)
+
+
+def test_port_imports_with_jax_absent():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['bipk_tpu'] = None\n"
+        "import bipk_tpu_torch, bipk_tpu_torch.convert\n"
+        "import bipk_tpu_torch.parallel.sharded, bipk_tpu_torch.ops.cuda_kernels\n"
+        "print('ok')"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_cuda_entry_point_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    cfg = tveh.VehicleConfig(t_end=0.1)
+    model = tveh.make_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_sharded_apf(model.ssm, model.gps, 64)  # default device: cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tveh.simulate(torch.Generator().manual_seed(0), cfg)
+
+
+def test_unported_modes_raise():
+    model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
+    for kwargs in (dict(n_devices=4), dict(resampling_scheme="exact"),
+                   dict(chunk_size=32), dict(window=8)):
+        with pytest.raises(NotImplementedError):
+            build_sharded_apf(model.ssm, model.gps, 64, device="cpu", **kwargs)
+
+
+def test_wrappers_refuse_other_devices_and_bad_shapes():
+    S = torch.zeros((232, 8), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ck.factorize_project_packed(S, torch.zeros((20, 8), device="meta"), 0.0, m=20, n=1)
+    with pytest.raises(ValueError, match="packed_rows"):
+        ck.draw_update_packed_blocks(torch.zeros((231, 8)), None, None, None, 0.0, m=20, n=1)
+    with pytest.raises(ValueError, match="m <= 48"):
+        ck.factorize_project_packed(torch.zeros((1, 8)), None, 0.0, m=49, n=1)
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+
+
+def test_library_name_tracks_the_sources(monkeypatch, tmp_path):
+    before = _build.library_path()
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in _build.sources():
+        (src / f.name).write_bytes(f.read_bytes() + b"\n// edited\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    assert _build.library_path() != before
+    assert _build.library_path().name.startswith("libbipk_kernels_")
+
+
+def test_packaging_names_both_packages():
+    cfg = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"]
+    found = set(find_packages(str(REPO), include=cfg["packages"]["find"]["include"]))
+    assert {"bipk_tpu", "bipk_tpu_torch", "bipk_tpu_torch.ops"} <= found
+    assert "csrc/*.cu" in cfg["package-data"]["bipk_tpu_torch"]
