@@ -1,6 +1,6 @@
-"""Algorithm 1 building blocks: the online auxiliary particle filter with
-per-particle MNIW statistics (port of the packed-path subset of
-``bipk_tpu/algorithms/apf.py`` ``APFKernel``).
+"""Algorithm 1: the online auxiliary particle filter with per-particle
+MNIW statistics (port of the packed path of ``bipk_tpu/algorithms/apf.py``:
+``APFKernel`` and ``build_apf``).
 
 Every per-particle tensor is batch-last: ``state (dx, N)``, interface
 variables ``(n_i, N)``, one packed statistics matrix ``(rows, N)`` per GP.
@@ -11,16 +11,32 @@ JAX package's draws.
 
 from __future__ import annotations
 
-import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from bipk_tpu_torch._device import resolve_device
 from bipk_tpu_torch.models.ssm import GPNode, SSM
-from bipk_tpu_torch.ops import batched_linalg as bla
 from bipk_tpu_torch.ops import cuda_kernels as ck
 from bipk_tpu_torch.ops import mniw
+from bipk_tpu_torch.ops.gaussian import mvn_logpdf_chol
+
+
+class StepDraws(NamedTuple):
+    """The random numbers one filter step consumes."""
+
+    u_res: torch.Tensor  # (1,) systematic-resampling offset
+    z: torch.Tensor  # (dx, N) process-noise normals
+    uvs: tuple  # per GP, (u, v) uniforms (n_i, N) of the matrix-t draw
+
+
+def as_tensor(x, dtype, device) -> torch.Tensor:
+    """A tensor or an array (numpy, or anything ``np.array`` reads) as a
+    tensor of ``dtype`` on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
 class APFKernel:
@@ -41,8 +57,8 @@ class APFKernel:
         self.n_gp = len(self.gps)
         self.dtype = dtype
         self.device = torch.device(device)
-        priors = tuple(gp.prior_as(dtype, self.device) for gp in self.gps)
-        self.prior_blocks = tuple((p.T0, p.T1, p.T2) for p in priors)
+        self.priors = tuple(gp.prior_as(dtype, self.device) for gp in self.gps)
+        self.prior_blocks = tuple((p.T0, p.T1, p.T2) for p in self.priors)
         # host floats: reading a device scalar per call would synchronise
         self.p3 = tuple(float(np.asarray(gp.prior.T3)) for gp in self.gps)
         self.ms = tuple(gp.basis_dim for gp in self.gps)
@@ -60,6 +76,7 @@ class APFKernel:
         self._factorize_project = pick(ck.factorize_project_packed)
         self._systematic = pick(ck.systematic_ancestors_blocks)
         self._draw_update_gather = pick(ck.draw_update_gather_packed_blocks)
+        self._logdets = pick(ck.log_base_measure_packed_logdets)
 
     # -- model evaluation ------------------------------------------------
 
@@ -74,11 +91,26 @@ class APFKernel:
 
     def log_lik_all(self, obs, state, inp, int_vars):
         """Gaussian observation log density per particle ``(N,)``."""
-        resid = self.output_all(state, inp, int_vars) - obs[:, None]
-        white = bla.solve_lower_bl(self.output_chol, resid)
-        dy = white.shape[0]
-        quad = (white * white).sum(0)
-        return -0.5 * (dy * math.log(2.0 * math.pi) + quad) - self._out_logdet
+        return mvn_logpdf_chol(obs[:, None], self.output_all(state, inp, int_vars),
+                               self.output_chol, log_det_chol=self._out_logdet)
+
+    def trace_outputs(self, obs, inputs, states, int_vars):
+        """Model outputs and observation log densities at every entry of
+        batch-last traces: ``obs (T, dy)``, ``inputs (T, du)``, ``states
+        (T, dx, M)``, ``int_vars`` each ``(T, n_i, M)`` -> ``(outputs (T, M,
+        dy), log_lik (T, M))``, in one batched call with the inputs and
+        observations repeated per column."""
+        T, M = states.shape[0], states.shape[-1]
+
+        def cols(x):  # (T, d, M) -> (d, T*M), time-major columns
+            return x.permute(1, 0, 2).reshape(x.shape[1], T * M)
+
+        out = self.output_all(
+            cols(states), inputs.T.repeat_interleave(M, 1),
+            tuple(cols(iv) for iv in int_vars),
+        )
+        ll = mvn_logpdf_chol(obs.T.repeat_interleave(M, 1), out, self.output_chol)
+        return out.reshape(-1, T, M).permute(1, 2, 0), ll.reshape(T, M)
 
     def propagate_all(self, z, state, inp, int_vars):
         """Transition plus Gaussian process noise ``chol(Q) z``."""
@@ -87,7 +119,20 @@ class APFKernel:
             return nxt
         return nxt + self.process_chol @ z
 
-    # -- init ------------------------------------------------------------
+    # -- draws and init --------------------------------------------------
+
+    def step_draws(self, generator, n_particles) -> StepDraws:
+        """One filter step's draws from ``generator``: the resampling
+        offset, the process noise, each GP's matrix-t uniforms."""
+        opts = dict(generator=generator, dtype=self.dtype, device=self.device)
+        u_res = torch.rand((1,), **opts)
+        z = torch.randn((self.ssm.state_dim, n_particles), **opts)
+        uvs = tuple(
+            (torch.rand((n, n_particles), **opts),
+             torch.rand((n, n_particles), **opts))
+            for n in self.ns
+        )
+        return StepDraws(u_res, z, uvs)
 
     def init_particles(self, generator, n_particles, inputs0, init_mean, init_cov):
         """Initial ``(log_weights, state, int_vars, Ss)``: Gaussian states
@@ -120,13 +165,27 @@ class APFKernel:
 
     def projected_all_packed(self, Ss, lam, basis):
         """Per-GP fused factorization + predictive projection over the
-        packed carry: ``(mean, col, row, logdet_T1, logdet_Psi)`` each."""
+        packed carry: one :class:`~bipk_tpu_torch.ops.mniw.ProjectedFactor`
+        per GP, its ``df = lam * T3 + prior T3``."""
         return tuple(
-            self._factorize_project(
-                Ss[i], basis[i], self.jitter, lam, self.prior_blocks[i],
-                m=self.ms[i], n=self.ns[i],
+            mniw.ProjectedFactor(
+                *self._factorize_project(
+                    Ss[i], basis[i], self.jitter, lam, self.prior_blocks[i],
+                    m=self.ms[i], n=self.ns[i],
+                ),
+                torch.add(self.priors[i].T3, Ss[i][-1], alpha=lam),
             )
             for i in range(self.n_gp)
+        )
+
+    def log_base_measure_packed(self, i, S, prior_eff):
+        """GP ``i``'s MNIW log base measure of ``prior_eff + S`` per
+        particle, the log-determinants from the kernel (``prior_eff``
+        unbatched, e.g. the prior plus the cSMC reference's future
+        statistics)."""
+        return mniw.log_base_measure_packed_bl(
+            S, prior_eff, self.ms[i], self.ns[i], jitter=self.jitter,
+            logdets=self._logdets,
         )
 
     def auxiliary_fused_packed(
@@ -140,7 +199,7 @@ class APFKernel:
             self.basis_all(i, aux_state, inp_cur) for i in range(self.n_gp)
         )
         fps = self.projected_all_packed(Ss, lam, basis)
-        aux_iv = tuple(fp[0] for fp in fps)
+        aux_iv = tuple(fp.mean for fp in fps)
         ll_aux = self.log_lik_all(obs, aux_state, inp_cur, aux_iv)
         return aux_state, aux_iv, ll_aux + log_weights, ll_aux, fps
 
@@ -184,3 +243,127 @@ class APFKernel:
     def weighted_stats_packed(self, Ss, weights):
         """Importance-weighted packed statistics ``(rows,)`` per GP."""
         return tuple(S @ weights for S in Ss)
+
+
+class APFResult(NamedTuple):
+    """Full-trace result of :func:`build_apf`, the JAX ``APFResult``'s
+    fields and layouts."""
+
+    states: torch.Tensor  # (T, N, dx)
+    int_vars: tuple  # each (T, N, n_i)
+    stats_mean: tuple  # each MNIW with leading (T, ...), weighted means
+    weights: torch.Tensor  # (T, N) normalized
+    ancestors: torch.Tensor  # (T-1, N) int32
+    final_stats: tuple  # each MNIW with leading (N, ...)
+    outputs: torch.Tensor  # (T, N, dy)
+    log_likelihood: torch.Tensor  # (T, N)
+    ess: torch.Tensor  # (T,)
+
+
+class APF:
+    """The online APF sweep with full traces (the JAX ``build_apf``). Call
+    it as ``apf(generator, observations, inputs, init_state_mean,
+    init_state_cov)``; :meth:`init`, :meth:`step` and ``kern.step_draws``
+    expose one step with injected draws."""
+
+    def __init__(self, kern: APFKernel, n_particles: int, forgetting_factor: float):
+        self.kern = kern
+        self.n_particles = n_particles
+        self.lam = forgetting_factor
+
+    def init(self, generator, inputs0, init_mean, init_cov):
+        """Initial carry ``(log_weights, state, int_vars, Ss)``."""
+        return self.kern.init_particles(
+            generator, self.n_particles, inputs0, init_mean, init_cov
+        )
+
+    def step(self, carry, obs, inp_prev, inp_cur, draws: StepDraws):
+        """One filter step; returns ``(carry, ancestors)``."""
+        kern, lam = self.kern, self.lam
+        log_weights, state, int_vars, Ss = carry
+        _, _, lw_aux, ll_aux, _ = kern.auxiliary_fused_packed(
+            Ss, lam, state, int_vars, inp_prev, inp_cur, obs, log_weights,
+        )
+        ancestors = kern.resample(torch.softmax(lw_aux, 0), draws.u_res)
+        state_g, *iv_g, ll_aux_g = kern.packed_gather(
+            [state, *int_vars, ll_aux], ancestors
+        )
+        new_state = kern.propagate_all(draws.z, state_g, inp_prev, iv_g)
+        Ss_new, new_iv, _, _ = kern.draw_update_gather_all_packed(
+            draws.uvs, Ss, ancestors, lam, new_state, inp_cur,
+        )
+        new_log_weights = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_g
+        return (new_log_weights, new_state, new_iv, Ss_new), ancestors
+
+    def __call__(
+        self, generator: torch.Generator, observations, inputs,
+        init_state_mean, init_state_cov,
+    ) -> APFResult:
+        kern = self.kern
+        obs = as_tensor(observations, kern.dtype, kern.device)
+        obs = obs.reshape(obs.shape[0], -1)
+        inputs = as_tensor(inputs, kern.dtype, kern.device)
+        carry = self.init(generator, inputs[0], init_state_mean, init_state_cov)
+        draws = (kern.step_draws(generator, self.n_particles)
+                 for _ in range(obs.shape[0] - 1))
+        return self.run(carry, obs, inputs, draws)
+
+    def run(self, carry, obs, inputs, draws) -> APFResult:
+        """The sweep from the initial ``carry`` over ``obs (T, dy)`` and
+        ``inputs (T, du)`` (tensors on the kernel's device), taking one
+        :class:`StepDraws` per step from the iterable ``draws``."""
+        kern = self.kern
+        log_ws, states, ivs, ancestors, reduced, ess = [], [], [], [], [], []
+
+        def keep(carry):
+            w = torch.softmax(carry[0], 0)
+            log_ws.append(carry[0])
+            states.append(carry[1])
+            ivs.append(carry[2])
+            reduced.append(kern.weighted_stats_packed(carry[3], w))
+            ess.append(1.0 / (w * w).sum())
+
+        keep(carry)
+        for t, step_draws in zip(range(obs.shape[0] - 1), draws):
+            carry, anc = self.step(carry, obs[t + 1], inputs[t], inputs[t + 1], step_draws)
+            keep(carry)
+            ancestors.append(anc)
+        states = torch.stack(states)
+        ivs = tuple(torch.stack([iv[i] for iv in ivs]) for i in range(kern.n_gp))
+        outputs, log_lik = kern.trace_outputs(obs, inputs, states, ivs)
+        final_stats = tuple(
+            mniw.MNIW(*(leaf.movedim(-1, 0) for leaf in mniw.from_flat_bl(
+                mniw.unpack_stats_bl(S, kern.ms[i], kern.ns[i]), kern.ms[i], kern.ns[i],
+            )))
+            for i, S in enumerate(carry[3])
+        )
+        return APFResult(
+            states=states.transpose(1, 2),
+            int_vars=tuple(iv.transpose(1, 2) for iv in ivs),
+            stats_mean=tuple(
+                mniw.unpack_reduced(torch.stack([r[i] for r in reduced]),
+                                    kern.ms[i], kern.ns[i])
+                for i in range(kern.n_gp)
+            ),
+            weights=torch.softmax(torch.stack(log_ws), 1),
+            ancestors=torch.stack(ancestors),
+            final_stats=final_stats,
+            outputs=outputs,
+            log_likelihood=log_lik,
+            ess=torch.stack(ess),
+        )
+
+
+def build_apf(
+    ssm: SSM,
+    gps: Sequence[GPNode],
+    n_particles: int,
+    forgetting_factor: float = 1.0,
+    dtype=torch.float32,
+    device: str | torch.device = "cuda",
+) -> APF:
+    """Build the online APF sweep with full traces on one device (the
+    JAX package's GSPMD ``mesh=`` is not ported). ``device`` defaults to
+    CUDA and raises if no card is present."""
+    device = resolve_device(device)
+    return APF(APFKernel(ssm, gps, dtype, device), n_particles, forgetting_factor)

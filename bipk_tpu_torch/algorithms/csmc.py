@@ -1,0 +1,296 @@
+"""Algorithm 3: conditional SMC with ancestor sampling, GP parameters
+marginalized (port of the direct path of ``bipk_tpu/algorithms/csmc.py``,
+``step_direct`` and ``run``).
+
+An APF sweep with the forgetting factor pinned to 1 in which the last
+particle follows the reference trajectory. Each step:
+
+1. the auxiliary look-ahead (one factorize+project kernel per GP);
+2. systematic resampling on the first-stage weights (one kernel);
+3. the reference's ancestor, drawn with parameter-marginalized weights:
+   the log base measure of each particle's statistics without the
+   reference's future (from the look-ahead's log-determinants) minus the
+   one with it (one log-determinant kernel per GP, the future statistics
+   folded into its prior), plus the transition density to the reference;
+4. a gather of the small payloads with the patched ancestors, the RK4
+   propagation, and the fused gather + matrix-t draw + rank-1 update (one
+   kernel per GP) with the SORTED, unpatched ancestors; the reference's
+   column and interface variables are then written over the kernel's
+   fresh output;
+5. the reference's contribution at this step leaves its future statistics.
+
+The step keeps every value on the device: the reference's ancestor is a
+0-d device tensor, never read back. Random draws are inputs
+(:class:`CSMCDraws`), so the tests can feed the JAX package's draws.
+The rank-1 factor-carry formulation (``rank1=True``) and the GSPMD
+``mesh=`` are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+
+from bipk_tpu_torch._device import resolve_device
+from bipk_tpu_torch.algorithms.apf import APFKernel, as_tensor
+from bipk_tpu_torch.models.ssm import GPNode, SSM
+from bipk_tpu_torch.ops import mniw, resampling
+from bipk_tpu_torch.ops.gaussian import mvn_logpdf_chol
+
+
+class CSMCResult(NamedTuple):
+    state_traj: torch.Tensor  # (T, dx)
+    int_var_traj: tuple  # each (T, n_i)
+    ess: torch.Tensor  # (T-1,)
+    log_weights: torch.Tensor  # (N,) final
+
+
+class CSMCDraws(NamedTuple):
+    """The random numbers one cSMC step consumes."""
+
+    u_res: torch.Tensor  # (1,) systematic-resampling offset
+    u_ref: torch.Tensor  # (1,) the reference ancestor's uniform
+    z: torch.Tensor  # (dx, N) process-noise normals
+    uvs: tuple  # per GP, (u, v) uniforms (n_i, N) of the matrix-t draw
+
+
+class CSMCTrace(NamedTuple):
+    """Batch-last traces of one sweep."""
+
+    states: torch.Tensor  # (T, dx, N)
+    int_vars: tuple  # each (T, n_i, N)
+    ancestors: torch.Tensor  # (T-1, N) int32, the reference's patched in
+    ess: torch.Tensor  # (T-1,)
+    final_log_weights: torch.Tensor  # (N,)
+
+
+def ref_contributions(gps, ref_state, ref_int_vars, inputs) -> tuple:
+    """Rank-1 statistics of the reference at every time point: per GP an
+    MNIW with leaves ``(T, m, n)``, ``(T, m, m)``, ``(T, n, n)``, ``(T,)``.
+    ``ref_state (T, dx)``, ``ref_int_vars`` each ``(T, n_i)``, ``inputs
+    (T, du)``; the basis is evaluated for all time points in one call,
+    one input column per time point."""
+    out = []
+    for gp, iv in zip(gps, ref_int_vars):
+        phi = gp.basis_fn_bl(ref_state.T, inputs.T)
+        st = mniw.suff_stat_bl(iv.reshape(iv.shape[0], -1).T, phi)
+        out.append(mniw.MNIW(*(leaf.movedim(-1, 0) for leaf in st)))
+    return tuple(out)
+
+
+def _at(stats: tuple, t: int) -> tuple:
+    """Time point ``t`` of :func:`ref_contributions`."""
+    return tuple(mniw.MNIW(*(leaf[t] for leaf in st)) for st in stats)
+
+
+class CSMC:
+    """The conditional SMC sweep with ancestor sampling on one device.
+
+    Call it as ``csmc(generator, observations, inputs, init_state_mean,
+    init_state_cov, ref_state, ref_int_vars, ref_summed_stats)``;
+    :meth:`init`, :meth:`pin_initial`, :meth:`draws` and :meth:`step`
+    expose the pieces with injected draws.
+    """
+
+    def __init__(self, kern: APFKernel, n_particles: int):
+        self.kern = kern
+        self.n_particles = n_particles
+        if kern.process_chol is not None:
+            self._q_logdet = torch.log(torch.diagonal(kern.process_chol)).sum()
+
+    def draws(self, generator: torch.Generator) -> CSMCDraws:
+        """A filter step's draws plus the reference ancestor's uniform."""
+        k = self.kern
+        d = k.step_draws(generator, self.n_particles)
+        u_ref = torch.rand((1,), generator=generator, dtype=k.dtype, device=k.device)
+        return CSMCDraws(d.u_res, u_ref, d.z, d.uvs)
+
+    def pin_initial(self, particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats):
+        """Pin the last initial particle to the reference at t = 0 and
+        start the reference's future statistics (its summed statistics
+        without t = 0). ``particles`` is ``APFKernel.init_particles``'
+        carry, ``ref_T0`` the reference's contribution at t = 0 per GP.
+        Returns the carry ``(log_weights, state, int_vars, Ss,
+        ref_stats)``."""
+        log_w0, state0, iv0, Ss0 = particles
+        state0 = state0.clone()
+        state0[:, -1] = ref_x0
+        iv0 = tuple(iv.clone() for iv in iv0)
+        Ss0 = tuple(S.clone() for S in Ss0)
+        for i in range(self.kern.n_gp):
+            iv0[i][:, -1] = ref_iv0[i]
+            Ss0[i][:, -1] = mniw.pack_stats_bl(
+                mniw.MNIW(*(leaf[..., None] for leaf in ref_T0[i]))
+            )[:, 0]
+        ref_stats = tuple(
+            mniw.MNIW(*(s - t for s, t in zip(ref_summed_stats[i], ref_T0[i])))
+            for i in range(self.kern.n_gp)
+        )
+        return log_w0, state0, iv0, Ss0, ref_stats
+
+    def init(self, generator, inputs0, init_mean, init_cov, ref_x0, ref_iv0,
+             ref_T0, ref_summed_stats):
+        particles = self.kern.init_particles(
+            generator, self.n_particles, inputs0, init_mean, init_cov
+        )
+        return self.pin_initial(particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats)
+
+    def _transition_logpdf_to_ref(self, aux_state, ref_x):
+        """Gaussian transition density from each look-ahead state to the
+        reference state; zero for a deterministic transition."""
+        if self.kern.process_chol is None:
+            return torch.zeros_like(aux_state[0])
+        return mvn_logpdf_chol(ref_x[:, None], aux_state, self.kern.process_chol,
+                               log_det_chol=self._q_logdet)
+
+    def step(self, carry, obs, inp_prev, inp_cur, ref_x, ref_iv, ref_T,
+             draws: CSMCDraws):
+        """One step; ``ref_x (dx,)``, ``ref_iv`` per GP ``(n_i,)`` and
+        ``ref_T`` per GP the reference's contribution at this step.
+        Returns ``(carry, (ancestors, ess))`` with the reference's ancestor
+        patched into ``ancestors``."""
+        kern = self.kern
+        log_weights, state, int_vars, Ss, ref_stats = carry
+        aux_state, _, lw_aux, ll_aux, fps = kern.auxiliary_fused_packed(
+            Ss, 1.0, state, int_vars, inp_prev, inp_cur, obs, log_weights,
+        )
+        ancestors_sorted = kern.resample(torch.softmax(lw_aux, 0), draws.u_res)
+
+        # ancestor weights: the marginal likelihood without the reference's
+        # future statistics minus with them (prior + future folded into
+        # the kernel's prior), plus the transition density to the reference
+        g_diff = torch.zeros_like(lw_aux)
+        for i in range(kern.n_gp):
+            prior_eff = mniw.MNIW(*(p + r for p, r in zip(kern.priors[i], ref_stats[i])))
+            with_future = kern.log_base_measure_packed(i, Ss[i], prior_eff)
+            without_future = mniw.log_base_measure_from_projected_bl(fps[i], kern.ms[i])
+            g_diff = g_diff + without_future - with_future
+        h_x = self._transition_logpdf_to_ref(aux_state, ref_x)
+        ref_idx = resampling.categorical_from_weights(
+            torch.softmax(log_weights + g_diff + h_x, 0), draws.u_ref
+        )
+        # the kernel gathers with the sorted ancestors: patch a copy
+        ancestors = ancestors_sorted.clone()
+        ancestors[-1:] = ref_idx.view(1)
+
+        state_g, *iv_g, ll_aux_g = kern.packed_gather(
+            [state, *int_vars, ll_aux], ancestors
+        )
+        new_state = kern.propagate_all(draws.z, state_g, inp_prev, iv_g)
+        new_state[:, -1] = ref_x
+        Ss_new, new_iv, new_basis, _ = kern.draw_update_gather_all_packed(
+            draws.uvs, Ss, ancestors_sorted, 1.0, new_state, inp_cur,
+        )
+        # the reference's column: its ancestor's statistics plus its datum,
+        # written into the kernel's fresh output (never into Ss)
+        for i in range(kern.n_gp):
+            pinned = torch.atleast_1d(ref_iv[i])
+            Ss_new[i][:, -1] = (
+                Ss[i].index_select(1, ref_idx.view(1))[:, 0]
+                + mniw.pack_suff_col(pinned, new_basis[i][:, -1])
+            )
+            new_iv[i][:, -1] = pinned
+        new_log_weights = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_g
+        new_ref_stats = tuple(
+            mniw.MNIW(*(s - t for s, t in zip(ref_stats[i], ref_T[i])))
+            for i in range(kern.n_gp)
+        )
+        norm_w = torch.softmax(new_log_weights, 0)
+        carry = (new_log_weights, new_state, new_iv, Ss_new, new_ref_stats)
+        return carry, (ancestors, 1.0 / (norm_w * norm_w).sum())
+
+    def trace(
+        self, generator, observations, inputs, init_state_mean,
+        init_state_cov, ref_state, ref_int_vars, ref_summed_stats,
+    ) -> CSMCTrace:
+        """One sweep with its batch-last traces."""
+        k = self.kern
+        obs = as_tensor(observations, k.dtype, k.device)
+        obs = obs.reshape(obs.shape[0], -1)
+        inputs = as_tensor(inputs, k.dtype, k.device)
+        ref_state = as_tensor(ref_state, k.dtype, k.device)
+        ref_ivs = tuple(
+            as_tensor(r, k.dtype, k.device).reshape(ref_state.shape[0], -1)
+            for r in ref_int_vars
+        )
+        ref_summed = tuple(
+            mniw.MNIW(*(as_tensor(leaf, k.dtype, k.device) for leaf in st))
+            for st in ref_summed_stats
+        )
+        ref_T = ref_contributions(k.gps, ref_state, ref_ivs, inputs)
+        carry = self.init(
+            generator, inputs[0], init_state_mean, init_state_cov,
+            ref_state[0], tuple(r[0] for r in ref_ivs), _at(ref_T, 0), ref_summed,
+        )
+        draws = (self.draws(generator) for _ in range(obs.shape[0] - 1))
+        return self.run(carry, obs, inputs, ref_state, ref_ivs, ref_T, draws)
+
+    def run(self, carry, obs, inputs, ref_state, ref_ivs, ref_T, draws) -> CSMCTrace:
+        """The sweep from the pinned initial ``carry``, on tensors of the
+        kernel's device: ``obs (T, dy)``, ``inputs (T, du)``, the reference
+        ``ref_state (T, dx)`` and ``ref_ivs`` (each ``(T, n_i)``), its
+        contributions ``ref_T`` (:func:`ref_contributions`), and one
+        :class:`CSMCDraws` per step from the iterable ``draws``."""
+        k = self.kern
+        states, ivs, ancestors, ess = [carry[1]], [carry[2]], [], []
+        for t, step_draws in zip(range(obs.shape[0] - 1), draws):
+            carry, (anc, e) = self.step(
+                carry, obs[t + 1], inputs[t], inputs[t + 1], ref_state[t + 1],
+                tuple(r[t + 1] for r in ref_ivs), _at(ref_T, t + 1), step_draws,
+            )
+            states.append(carry[1])
+            ivs.append(carry[2])
+            ancestors.append(anc)
+            ess.append(e)
+        return CSMCTrace(
+            torch.stack(states),
+            tuple(torch.stack([iv[i] for iv in ivs]) for i in range(k.n_gp)),
+            torch.stack(ancestors),
+            torch.stack(ess),
+            carry[0],
+        )
+
+    def __call__(
+        self, generator, observations, inputs, init_state_mean,
+        init_state_cov, ref_state, ref_int_vars, ref_summed_stats,
+    ) -> CSMCResult:
+        tr = self.trace(
+            generator, observations, inputs, init_state_mean, init_state_cov,
+            ref_state, ref_int_vars, ref_summed_stats,
+        )
+        # one trajectory by backward ancestry from the final weights
+        u = torch.rand((1,), generator=generator, dtype=self.kern.dtype,
+                       device=self.kern.device)
+        idx = resampling.categorical_from_weights(
+            torch.softmax(tr.final_log_weights, 0), u
+        )
+        (state_traj, iv_traj), _ = resampling.reconstruct_trajectory_bl(
+            (tr.states, tr.int_vars), tr.ancestors, idx
+        )
+        return CSMCResult(state_traj, iv_traj, tr.ess, tr.final_log_weights)
+
+
+def build_csmc(
+    ssm: SSM,
+    gps: Sequence[GPNode],
+    n_particles: int,
+    dtype=torch.float32,
+    mesh=None,
+    rank1: bool | None = None,
+    device: str | torch.device = "cuda",
+    reference: bool = False,
+) -> CSMC:
+    """Build the conditional-SMC-with-ancestor-sampling sweep (the direct
+    formulation) on one device.
+
+    ``device`` defaults to CUDA and raises if no card is present.
+    ``reference=True`` runs the kernels' plain PyTorch versions in their
+    place. ``rank1=True`` and ``mesh`` are not ported.
+    """
+    if mesh is not None or rank1:
+        raise NotImplementedError(
+            "the port's cSMC runs the direct formulation on one device"
+        )
+    device = resolve_device(device)
+    return CSMC(APFKernel(ssm, gps, dtype, device, reference=reference), n_particles)

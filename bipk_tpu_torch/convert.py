@@ -30,6 +30,23 @@ from bipk_tpu_torch.ops import basis as basis_ops
 from bipk_tpu_torch.ops import mniw
 
 
+def vehicle_arrays(model) -> dict:
+    """The arrays of a JAX ``VehicleModel`` (read by attribute, as numpy)
+    that :func:`vehicle_model_from_arrays` takes."""
+    return dict(
+        sqrt_eigenvalues=np.asarray(model.basis.sqrt_eigenvalues),
+        centers=np.asarray(model.basis.centers),
+        half_widths=np.asarray(model.basis.half_widths),
+        spectral_density=np.asarray(model.basis.spectral_density),
+        priors=[tuple(np.asarray(p) for p in gp.prior) for gp in model.gps],
+        process_noise=np.asarray(model.ssm.process_noise),
+        output_noise=np.asarray(model.ssm.output_noise),
+        init_cov=np.asarray(model.gps[0].init_cov),
+        x0=np.asarray(model.x0),
+        p0=np.asarray(model.p0),
+    )
+
+
 def vehicle_model_from_arrays(config: dict, arrays: dict) -> vehicle.VehicleModel:
     """The port's vehicle model from the JAX model's configuration fields
     (``dataclasses.asdict``) and arrays (see the module docstring)."""
@@ -40,7 +57,7 @@ def vehicle_model_from_arrays(config: dict, arrays: dict) -> vehicle.VehicleMode
         f64["spectral_density"],
     )
     priors = tuple(
-        mniw.MNIW(*(np.asarray(p, np.float64) for p in prior))
+        mniw.MNIW(*(np.array(p, np.float64) for p in prior))
         for prior in arrays["priors"]
     )
     return vehicle.model_from_parts(
@@ -57,11 +74,28 @@ def packed_carry_from_arrays(log_weights, state, int_vars, stats, dtype, device)
     statistics packed (``mniw.pack_stats_bl``)."""
 
     def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     return (
         t(log_weights),
         t(state),
         tuple(t(iv) for iv in int_vars),
         tuple(mniw.pack_stats_bl(mniw.MNIW(*(t(a) for a in st))) for st in stats),
+    )
+
+
+def reference_from_arrays(ref_state, ref_int_vars, ref_summed_stats, dtype, device):
+    """A cSMC reference from the JAX package's arrays, as numpy: the
+    trajectory ``ref_state (T, dx)``, its interface variables (each ``(T,
+    n_i)``) and its summed statistics (per GP ``(T0, T1, T2, T3)``, e.g.
+    from ``bipk_tpu.algorithms.gibbs.summed_reference_stats``) -> the
+    arguments ``build_csmc``'s sweep takes."""
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return (
+        t(ref_state),
+        tuple(t(iv) for iv in ref_int_vars),
+        tuple(mniw.MNIW(*(t(a) for a in st)) for st in ref_summed_stats),
     )

@@ -7,7 +7,14 @@
 //   - draw_update_packed_blocks (:1848) -> _draw_update_packed_kernel
 //     (:768), tail _draw_update_tail (:691);
 //   - draw_update_gather_packed_blocks (:1041) -> _draw_update_gather_kernel
-//     (:878): the same draw/update on S[:, ancestors], gathered in-kernel.
+//     (:878): the same draw/update on S[:, ancestors], gathered in-kernel;
+//   - log_base_measure_packed_logdets (:1941) -> _packed_lbm_kernel (:1549):
+//     (logdet_T1, logdet_Psi) of prior + S at lam = 1, the cSMC ancestor
+//     weights' "with reference future" term. It is the same per-thread
+//     factorization core (Cholesky, forward substitution of T0, Schur
+//     complement) with the projection and the draw compiled out; the prior
+//     buffer then carries prior + the reference's future statistics, a new
+//     offset every step, and nu stays with the caller.
 //
 // Layout. S is (rows, N) row-major with rows
 // [T0 (m*n) | column-major tril(T1) | tril(T2) | T3] and the particle index
@@ -33,6 +40,9 @@
 // m(m+1)/2-entry factor in local memory (spilled, L1/L2-cached), so the
 // Cholesky's ~m^3/6 dependent local loads, not HBM, bound it in practice.
 // Shared-memory staging of the factor and tensor-core panels are later work.
+// The log-determinant variant moves ~4 B * N * (rows + 2) (9.6 MB at
+// N = 10240, 2.9 us) and does ~m^3/3 + m^2 n flops per particle: bytes in
+// principle, the same local-memory Cholesky in practice.
 //
 // C interface (loaded with ctypes): every function launches on the given
 // stream, never synchronises, allocates nothing, and returns
@@ -45,6 +55,10 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// What a launch computes: the projection at phi (factorize_project), the
+// draw and the rank-1 update (draw_update), or the log-determinants alone.
+enum Mode { kProject = 0, kDraw = 1, kLogdets = 2 };
+
 __device__ __forceinline__ int tri_off(int j, int m) {
   // offset of column j's diagonal in a column-major packed lower triangle
   return j * m - (j * (j - 1)) / 2;
@@ -53,7 +67,7 @@ __device__ __forceinline__ int tri_off(int j, int m) {
 struct Args {
   const float* S;       // (rows, n_in)
   const int* anc;       // (n_out,) sorted ancestors, or nullptr = identity
-  const float* phi;     // (m, n_out)
+  const float* phi;     // (m, n_out); unused by kLogdets
   const float* u;       // (n, n_out) raw uniforms (draw only)
   const float* v;       // (n, n_out)
   const float* prior;   // [P0 | P1 | P2] or nullptr
@@ -69,9 +83,11 @@ struct Args {
   float* ld;            // (2, n_out): logdet_T1, logdet_Psi
 };
 
-template <int MAXM, bool DRAW>
+template <int MAXM, int MODE>
 __global__ void __launch_bounds__(kThreads)
 packed_mniw_kernel(const Args a) {
+  constexpr bool DRAW = MODE == kDraw;
+  constexpr bool PHI = MODE != kLogdets;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= a.n_out) return;
   const int m = a.m, n = a.n;
@@ -87,7 +103,9 @@ packed_mniw_kernel(const Args a) {
   const float* P2 = a.prior ? a.prior + m * n + m * m : nullptr;
 
   float phi[MAXM];
-  for (int i = 0; i < m; ++i) phi[i] = a.phi[i * n_out + j];
+  if constexpr (PHI) {
+    for (int i = 0; i < m; ++i) phi[i] = a.phi[i * n_out + j];
+  }
 
   // A = P1 + lam*T1 (T1 stored once per symmetric pair, so sym() is exact)
   float L[MAXM * (MAXM + 1) / 2];
@@ -96,7 +114,7 @@ packed_mniw_kernel(const Args a) {
     for (int i = c; i < m; ++i) {
       const int k = tri_off(c, m) + i - c;
       const float raw = Sc[(o1 + k) * n_in];
-      if (DRAW) a.S_new[(o1 + k) * n_out + j] = raw * lam + phi[i] * phi[c];
+      if constexpr (DRAW) a.S_new[(o1 + k) * n_out + j] = raw * lam + phi[i] * phi[c];
       float aij = raw * lam;
       if (P1) aij += __ldg(P1 + i * m + c);
       L[k] = aij;
@@ -139,9 +157,11 @@ packed_mniw_kernel(const Args a) {
       for (int k = 0; k < i; ++k) acc -= L[tri_off(k, m) + i - k] * white[k * 2 + c];
       white[i * 2 + c] = acc / d;
     }
-    float acc = phi[i];
-    for (int k = 0; k < i; ++k) acc -= L[tri_off(k, m) + i - k] * vv[k];
-    vv[i] = acc / d;
+    if constexpr (PHI) {
+      float acc = phi[i];
+      for (int k = 0; k < i; ++k) acc -= L[tri_off(k, m) + i - k] * vv[k];
+      vv[i] = acc / d;
+    }
   }
 
   // Psi = P2 + lam*T2 - white^T white, with T2 read as a packed triangle
@@ -169,6 +189,10 @@ packed_mniw_kernel(const Args a) {
     logdet_psi = logf(psi[0][0] * psi[1][1] - off * off);
   }
 
+  a.ld[j] = 2.f * half_ld;
+  a.ld[n_out + j] = logdet_psi;
+  if constexpr (MODE == kLogdets) return;
+
   float mean[2];
   for (int c = 0; c < n; ++c) {
     float acc = 0.f;
@@ -179,10 +203,7 @@ packed_mniw_kernel(const Args a) {
   for (int k = 0; k < m; ++k) colv += vv[k] * vv[k];
   colv += 1.f;
 
-  a.ld[j] = 2.f * half_ld;
-  a.ld[n_out + j] = logdet_psi;
-
-  if (!DRAW) {
+  if constexpr (MODE == kProject) {
     for (int c = 0; c < n; ++c) a.mean[c * n_out + j] = mean[c];
     a.col[j] = colv;
     for (int a_ = 0; a_ < n; ++a_)
@@ -230,15 +251,15 @@ packed_mniw_kernel(const Args a) {
   a.S_new[o3 * n_out + j] = t3raw * lam + 1.f;
 }
 
-template <bool DRAW>
+template <int MODE>
 int launch(const Args& a, cudaStream_t stream) {
   if (a.m < 1 || a.m > 48 || a.n < 1 || a.n > 2) return (int)cudaErrorInvalidValue;
   if (a.n_out == 0) return (int)cudaGetLastError();
   const dim3 grid((a.n_out + kThreads - 1) / kThreads);
   if (a.m <= 24) {
-    packed_mniw_kernel<24, DRAW><<<grid, kThreads, 0, stream>>>(a);
+    packed_mniw_kernel<24, MODE><<<grid, kThreads, 0, stream>>>(a);
   } else {
-    packed_mniw_kernel<48, DRAW><<<grid, kThreads, 0, stream>>>(a);
+    packed_mniw_kernel<48, MODE><<<grid, kThreads, 0, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -254,7 +275,7 @@ extern "C" int bipk_factorize_project_packed(
   a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
   a.jitter = jitter; a.lam = lam;
   a.mean = mean; a.col = col; a.row = row; a.ld = ld;
-  return launch<false>(a, static_cast<cudaStream_t>(stream));
+  return launch<kProject>(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bipk_draw_update_packed(
@@ -267,5 +288,15 @@ extern "C" int bipk_draw_update_packed(
   a.n_in = n_in; a.n_out = n_out; a.m = m; a.n = n;
   a.jitter = jitter; a.lam = lam; a.p3 = p3;
   a.S_new = S_new; a.y = y; a.ld = ld;
-  return launch<true>(a, static_cast<cudaStream_t>(stream));
+  return launch<kDraw>(a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int bipk_log_base_measure_packed(
+    const float* S, const float* prior, int n_particles, int m, int n,
+    float jitter, float* ld, void* stream) {
+  Args a = {};
+  a.S = S; a.anc = nullptr; a.phi = nullptr; a.prior = prior;
+  a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
+  a.jitter = jitter; a.lam = 1.f; a.ld = ld;
+  return launch<kLogdets>(a, static_cast<cudaStream_t>(stream));
 }

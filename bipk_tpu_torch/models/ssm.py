@@ -23,8 +23,10 @@ class SSM:
 
     ``transition(x, u, *int_vars) -> x_next`` and ``output(x, u,
     *int_vars) -> y`` take batch-last states ``(dx, N)`` and interface
-    variables ``(n_i, N)``; the Gaussian process/output noises are fixed
-    covariances.
+    variables ``(n_i, N)``, and an input ``u`` that is ``(du,)`` for every
+    column or ``(du, N)``, one per column (the traces' outputs are
+    evaluated for all time points at once); the Gaussian process/output
+    noises are fixed covariances.
     """
 
     transition: Callable[..., torch.Tensor]
@@ -58,7 +60,8 @@ def _chol(cov, dtype, device) -> torch.Tensor:
 class GPNode:
     """One unknown sub-function learned with a basis-expansion GP prior.
 
-    ``basis_fn_bl(x (dx, N), u (du,)) -> phi (m, N)``; ``prior`` is the
+    ``basis_fn_bl(x (dx, N), u (du,) or (du, N)) -> phi (m, N)``, the
+    input shared by every column or one per column; ``prior`` is the
     MNIW prior in natural form (numpy leaves); ``init_mean`` / ``init_cov``
     parameterize the Gaussian draw of the initial interface variables.
     """

@@ -11,6 +11,7 @@ wrapper                             CUDA source
 ``systematic_ancestors_blocks``     ``csrc/systematic.cu``
 ``draw_update_packed_blocks``       ``csrc/packed_mniw.cu``
 ``draw_update_gather_packed_blocks`` ``csrc/packed_mniw.cu``
+``log_base_measure_packed_logdets`` ``csrc/packed_mniw.cu``
 ==================================  ===========================
 
 Each wrapper's plain version is the ``*_plain`` function beside it (a thin
@@ -45,6 +46,7 @@ _SIGNATURES = {
         _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
     ],
     "bipk_systematic_ancestors": [_P, _P, _I, _P, _P, _P],
+    "bipk_log_base_measure_packed": [_P, _P, _I, _I, _I, _F, _P, _P],
 }
 MAX_M = 48
 MAX_N = 2
@@ -272,17 +274,56 @@ def draw_update_gather_packed_blocks(
     return out
 
 
+def log_base_measure_packed_logdets_plain(S, jitter, prior=None, m=0, n=0):
+    """Plain PyTorch version of :func:`log_base_measure_packed_logdets`."""
+    return mniw.packed_logdets_bl(
+        S, _prior_mniw(prior, 0.0, S), m, n, jitter=jitter
+    )
+
+
+def log_base_measure_packed_logdets(
+    S: torch.Tensor, jitter: float,
+    prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
+):
+    """``(logdet_T1 (N,), logdet_Psi (N,))`` of ``prior + S`` per particle
+    (``lam = 1``, relative jitter on the diagonal of ``T1``).
+
+    ``S (rows, N)`` packed statistics, ``prior`` the unbatched ``(P0, P1,
+    P2)`` (e.g. the prior plus the cSMC reference's future statistics) or
+    None. The degrees of freedom stay outside: the caller adds them to the
+    log base measure (:func:`~bipk_tpu_torch.ops.mniw.
+    log_base_measure_packed_bl`).
+    """
+    name = "log_base_measure_packed_logdets"
+    _check_mn(name, S, m, n)
+    if not _on_cuda(name, S):
+        return log_base_measure_packed_logdets_plain(S, jitter, prior, m, n)
+    N = S.shape[1]
+    _require(name, S.device, torch.float32, S=(S, S.shape))
+    pbuf = _prior_buffer(name, prior, m, n, S)
+    ld = torch.empty((2, N), dtype=S.dtype, device=S.device)
+    rc = _lib().bipk_log_base_measure_packed(
+        S.data_ptr(), _ptr(pbuf), N, m, n, float(jitter), ld.data_ptr(),
+        _stream(S.device),
+    )
+    log_base_measure_packed_logdets.launches += 1
+    _check(rc, name)
+    return ld[0], ld[1]
+
+
 WRAPPERS = (
     factorize_project_packed,
     systematic_ancestors_blocks,
     draw_update_packed_blocks,
     draw_update_gather_packed_blocks,
+    log_base_measure_packed_logdets,
 )
 PLAIN = {
     factorize_project_packed: factorize_project_packed_plain,
     systematic_ancestors_blocks: systematic_ancestors_blocks_plain,
     draw_update_packed_blocks: draw_update_packed_blocks_plain,
     draw_update_gather_packed_blocks: draw_update_gather_packed_blocks_plain,
+    log_base_measure_packed_logdets: log_base_measure_packed_logdets_plain,
 }
 
 

@@ -17,6 +17,7 @@ the plain PyTorch versions of the CUDA kernels in
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -323,3 +324,112 @@ def draw_update_gather_packed_bl(
         u, v, S.index_select(1, ancestors), phi, prior=prior, lam=lam,
         m=m, n=n, jitter=jitter,
     )
+
+
+# ---------------------------------------------------------------------------
+# Log base measures (the cSMC ancestor weights).
+# ---------------------------------------------------------------------------
+
+
+def suff_stat(y: torch.Tensor, phi: torch.Tensor) -> MNIW:
+    """Rank-1 statistics of ONE datum ``y (n,)`` (or a scalar), ``phi
+    (m,)``: ``(phi y^T, phi phi^T, y y^T, 1)``."""
+    y = torch.atleast_1d(y)
+    return MNIW(
+        torch.outer(phi, y), torch.outer(phi, phi), torch.outer(y, y),
+        torch.ones((), dtype=phi.dtype, device=phi.device),
+    )
+
+
+def pack_suff_col(y: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """Packed rank-1 statistics of ONE datum: ``y (n,)``, ``phi (m,)`` ->
+    the ``(rows,)`` column of :func:`packed_rows` rows."""
+    return pack_stats_bl(suff_stat_flat_bl(y[:, None], phi[:, None]))[:, 0]
+
+
+def multigammaln(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Multivariate log-gamma ``log Gamma_n(a)`` from ``torch.lgamma``:
+    ``n(n-1)/4 log(pi) + sum_{j<n} lgamma(a - j/2)``. Written out rather
+    than ``torch.special.multigammaln``, which in some releases checks its
+    domain with a host-side ``.all()`` (a device synchronisation)."""
+    out = torch.lgamma(a)
+    for j in range(1, n):
+        out = out + torch.lgamma(a - 0.5 * j)
+    return out + (n * (n - 1) / 4.0) * math.log(math.pi)
+
+
+def _log_base_measure(logdet_T1, logdet_Psi, nu, m: int, n: int):
+    """The MNIW log base measure from its two log-determinants."""
+    out = 0.5 * n * logdet_T1 - (0.5 * n * m) * math.log(2.0 * math.pi)
+    out = out - (0.5 * n * math.log(2.0)) * nu
+    out = out - multigammaln(0.5 * nu, n)
+    return out + 0.5 * nu * logdet_Psi
+
+
+def log_base_measure_bl(
+    nat: MNIW, m: int | None = None, n: int | None = None,
+    jitter: float | None = None,
+) -> torch.Tensor:
+    """Batch-last MNIW log base measure ``(N,)`` of ``nat`` (structured
+    leaves, or flat ones with ``m``/``n``): relative jitter on ``sym(T1)``,
+    Cholesky, Schur complement ``Psi``, and ``logdet Psi`` from the
+    Cholesky of ``sym(Psi)``."""
+    if nat.T1.dim() == 2:
+        nat = from_flat_bl(nat, m, n)
+    m, n = nat.T0.shape[0], nat.T0.shape[1]
+    f = factorize_bl(nat, jitter=jitter)
+    psi = 0.5 * (f.row_scale + f.row_scale.transpose(0, 1))
+    return _log_base_measure(
+        bla.logdet_from_chol_bl(f.chol),
+        bla.logdet_from_chol_bl(bla.chol_lower_bl(psi)), nat.T3, m, n,
+    )
+
+
+def log_base_measure_from_projected_bl(fp: ProjectedFactor, m: int) -> torch.Tensor:
+    """The log base measure from factorize/project outputs (the MNIW that
+    was factored, with its ``df``)."""
+    return _log_base_measure(
+        fp.logdet_T1, fp.logdet_Psi, fp.df, m, fp.row_scale.shape[0]
+    )
+
+
+def packed_logdets_bl(
+    S: torch.Tensor, prior: MNIW | None, m: int, n: int,
+    jitter: float | None = None,
+):
+    """``(logdet_T1, logdet_Psi)`` of ``prior + S`` per particle, over the
+    packed layout (``prior`` unbatched; its ``T3`` is not read)."""
+    stats = from_flat_bl(unpack_stats_bl(S, m, n), m, n)
+    if prior is not None:
+        stats = MNIW(
+            stats.T0 + prior.T0[..., None], stats.T1 + prior.T1[..., None],
+            stats.T2 + prior.T2[..., None], stats.T3,
+        )
+    f = factorize_bl(stats, jitter=jitter)
+    return bla.logdet_from_chol_bl(f.chol), _logdet_psi(f.row_scale)
+
+
+def log_base_measure_packed_bl(
+    S: torch.Tensor, prior_eff: MNIW | None, m: int, n: int,
+    jitter: float | None = None, logdets=None,
+) -> torch.Tensor:
+    """:func:`log_base_measure_bl` of ``prior_eff + S`` over the packed
+    layout, ``(N,)``.
+
+    ``prior_eff`` is a small unbatched offset (``prior + ref_future`` in
+    the cSMC ancestor weights) folded into the log-determinant kernel, so
+    the per-particle sum is never materialized. ``logdets(S, jitter,
+    (P0, P1, P2), m, n)`` computes the two log-determinants; the default
+    is the CUDA kernel wrapper ``cuda_kernels.
+    log_base_measure_packed_logdets`` (its plain version on CPU tensors).
+    """
+    if jitter is None:
+        jitter = _default_jitter(S.dtype)
+    if logdets is None:
+        from bipk_tpu_torch.ops import cuda_kernels
+
+        logdets = cuda_kernels.log_base_measure_packed_logdets
+    blocks = None if prior_eff is None else tuple(prior_eff[:3])
+    nu = S[-1] if prior_eff is None else S[-1] + prior_eff.T3
+    ld1, ldp = logdets(S, jitter, blocks, m, n)
+    return _log_base_measure(ld1, ldp, nu, m, n)

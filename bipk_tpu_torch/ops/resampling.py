@@ -1,8 +1,9 @@
-"""Systematic resampling (port of ``bipk_tpu/ops/resampling.py``:
-``normalize_weights`` and the closed-form-counts ``systematic``).
+"""Particle resampling (port of ``bipk_tpu/ops/resampling.py``:
+``normalize_weights``, the closed-form-counts ``systematic``, the single
+categorical draw, the ESS and the backward ancestral reconstruction).
 
 :func:`systematic` is the plain version of the CUDA kernel behind
-``cuda_kernels.systematic_ancestors_blocks``.
+``cuda_kernels.systematic_ancestors_blocks``. Every uniform is an input.
 """
 
 from __future__ import annotations
@@ -40,3 +41,59 @@ def systematic(weights: torch.Tensor, u) -> torch.Tensor:
     marker.index_add_(0, starts, torch.ones_like(starts))
     anc = torch.cumsum(marker[:n], 0) - 1
     return torch.clamp(anc, 0, n - 1).to(torch.int32)
+
+
+def categorical_from_weights(weights: torch.Tensor, u) -> torch.Tensor:
+    """One inverse-cdf categorical draw from normalized ``weights (N,)``
+    with the uniform ``u`` (a one-element tensor): a 0-d int64 index on
+    the weights' device, never read back to the host."""
+    cdf = torch.cumsum(weights, -1)
+    u = torch.as_tensor(u, dtype=weights.dtype, device=weights.device)
+    idx = torch.searchsorted(cdf, u.reshape(1))
+    return torch.clamp(idx, 0, weights.shape[-1] - 1).reshape(())
+
+
+def effective_sample_size(log_weights: torch.Tensor) -> torch.Tensor:
+    """``1 / sum(w_i^2)`` of the normalized ``softmax(log_weights)``."""
+    w = torch.softmax(log_weights, -1)
+    return 1.0 / (w * w).sum(-1)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _backward_indices(ancestry: torch.Tensor, final_index) -> torch.Tensor:
+    """``(T,)`` particle indices of one ancestral line: ``idx[T-1] =
+    final_index``, ``idx[t] = ancestry[t, idx[t+1]]``."""
+    idx = torch.as_tensor(final_index, device=ancestry.device).reshape(1).long()
+    out = [idx]
+    for t in range(ancestry.shape[0] - 1, -1, -1):
+        idx = ancestry[t].index_select(0, idx).long()
+        out.append(idx)
+    return torch.cat(out[::-1])
+
+
+def reconstruct_trajectory(particles, ancestry: torch.Tensor, final_index):
+    """Follow the ancestors backward to extract one trajectory.
+
+    ``particles`` is a tensor or nested tuple of ``(T, N, ...)`` traces,
+    ``ancestry (T-1, N)`` holds the time-``t`` ancestor of each time-``t+1``
+    particle. Returns the same structure of ``(T, ...)`` trajectories and
+    the ``(T,)`` indices."""
+    indices = _backward_indices(ancestry, final_index)
+    steps = torch.arange(indices.shape[0], device=indices.device)
+    return _tree_map(lambda tr: tr[steps, indices], particles), indices
+
+
+def reconstruct_trajectory_bl(particles, ancestry: torch.Tensor, final_index):
+    """:func:`reconstruct_trajectory` of batch-last ``(T, ..., N)``
+    traces."""
+    indices = _backward_indices(ancestry, final_index)
+    steps = torch.arange(indices.shape[0], device=indices.device)
+    return (
+        _tree_map(lambda tr: tr.movedim(-1, 1)[steps, indices], particles),
+        indices,
+    )

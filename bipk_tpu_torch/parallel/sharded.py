@@ -16,11 +16,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
-import numpy as np
 import torch
 
 from bipk_tpu_torch._device import resolve_device
-from bipk_tpu_torch.algorithms.apf import APFKernel
+from bipk_tpu_torch.algorithms.apf import APF, APFKernel, StepDraws, as_tensor
 from bipk_tpu_torch.models.ssm import GPNode, SSM
 from bipk_tpu_torch.ops import mniw
 
@@ -35,42 +34,24 @@ class ShardedAPFResult(NamedTuple):
     final_stats: tuple  # each MNIW batch-last (..., N)
 
 
-class StepDraws(NamedTuple):
-    """The random numbers one filter step consumes."""
-
-    u_res: torch.Tensor  # (1,) systematic-resampling offset
-    z: torch.Tensor  # (dx, N) process-noise normals
-    uvs: tuple  # per GP, (u, v) uniforms (n_i, N) of the matrix-t draw
-
-
 class ShardedAPF:
-    """The single-device online APF sweep. Call it as ``apf(generator,
-    observations, inputs, init_state_mean, init_state_cov)``;
-    :meth:`init`, :meth:`draws` and :meth:`step` expose one step with
-    injected draws."""
+    """The single-device online APF sweep, reducing its traces to weighted
+    moments on the fly. Call it as ``apf(generator, observations, inputs,
+    init_state_mean, init_state_cov)``; :meth:`init`, :meth:`draws` and
+    :meth:`step` expose one step with injected draws."""
 
     def __init__(self, kern: APFKernel, n_particles: int, forgetting_factor: float):
         self.kern = kern
         self.n_particles = n_particles
         self.lam = forgetting_factor
+        self._filter = APF(kern, n_particles, forgetting_factor)
 
     def draws(self, generator: torch.Generator) -> StepDraws:
-        k = self.kern
-        opts = dict(generator=generator, dtype=k.dtype, device=k.device)
-        u_res = torch.rand((1,), **opts)
-        z = torch.randn((k.ssm.state_dim, self.n_particles), **opts)
-        uvs = tuple(
-            (torch.rand((n, self.n_particles), **opts),
-             torch.rand((n, self.n_particles), **opts))
-            for n in k.ns
-        )
-        return StepDraws(u_res, z, uvs)
+        return self.kern.step_draws(generator, self.n_particles)
 
     def init(self, generator, inputs0, init_mean, init_cov):
         """Initial carry ``(log_weights, state, int_vars, Ss)``."""
-        return self.kern.init_particles(
-            generator, self.n_particles, inputs0, init_mean, init_cov
-        )
+        return self._filter.init(generator, inputs0, init_mean, init_cov)
 
     def moments(self, w, state, int_vars, Ss):
         """Weighted moments ``(state_mean, int_var_means, reduced packed
@@ -83,32 +64,13 @@ class ShardedAPF:
         )
 
     def step(self, carry, obs, inp_prev, inp_cur, draws: StepDraws):
-        """One filter step; returns ``(carry, moments)``."""
-        kern = self.kern
-        log_weights, state, int_vars, Ss = carry
-        _, _, lw_aux, ll_aux, _ = kern.auxiliary_fused_packed(
-            Ss, self.lam, state, int_vars, inp_prev, inp_cur, obs, log_weights,
-        )
-        w_global = torch.softmax(lw_aux, 0)
-        # local systematic resampling on globally normalized mass (one
-        # shard: the mass is 1 up to rounding, and the offset ~0)
-        shard_mass = w_global.sum()
-        w_local = w_global / torch.clamp(shard_mass, min=1e-30)
-        ancestors = kern.resample(w_local, draws.u_res)
-        state_r, *iv_r, ll_aux_r = kern.packed_gather(
-            [state, *int_vars, ll_aux], ancestors
-        )
-        offset = torch.log(torch.clamp(shard_mass, min=1e-30))
-
-        new_state = kern.propagate_all(draws.z, state_r, inp_prev, iv_r)
-        # the packed statistics gather is fused into the draw/update kernel
-        Ss_new, new_iv, _, _ = kern.draw_update_gather_all_packed(
-            draws.uvs, Ss, ancestors, self.lam, new_state, inp_cur,
-        )
-        ll_new = kern.log_lik_all(obs, new_state, inp_cur, new_iv)
-        new_log_weights = ll_new - ll_aux_r + offset
-        moments = self.moments(torch.softmax(new_log_weights, 0), new_state, new_iv, Ss_new)
-        return (new_log_weights, new_state, new_iv, Ss_new), moments
+        """One filter step (:meth:`APF.step`); returns ``(carry,
+        moments)``. With one shard the local scheme's shard mass is the
+        global softmax's sum, 1 up to rounding: the systematic kernel
+        takes unnormalized weights, and the log-weight offset log(mass)
+        shifts every weight alike, so neither is applied."""
+        carry, _ = self._filter.step(carry, obs, inp_prev, inp_cur, draws)
+        return carry, self.moments(torch.softmax(carry[0], 0), *carry[1:])
 
     def finish(self, moments: list, carry) -> ShardedAPFResult:
         """Stack per-step moments and unpack the final statistics."""
@@ -139,9 +101,9 @@ class ShardedAPF:
         init_state_mean, init_state_cov,
     ) -> ShardedAPFResult:
         k = self.kern
-        obs = _as_tensor(observations, k.dtype, k.device)
+        obs = as_tensor(observations, k.dtype, k.device)
         obs = obs.reshape(obs.shape[0], -1)
-        inputs = _as_tensor(inputs, k.dtype, k.device)
+        inputs = as_tensor(inputs, k.dtype, k.device)
         carry = self.init(generator, inputs[0], init_state_mean, init_state_cov)
         log_weights, state, int_vars, Ss = carry
         moments = [self.moments(torch.softmax(log_weights, 0), state, int_vars, Ss)]
@@ -151,14 +113,6 @@ class ShardedAPF:
             )
             moments.append(mom)
         return self.finish(moments, carry)
-
-
-def _as_tensor(x, dtype, device) -> torch.Tensor:
-    """A tensor or an array (numpy, or anything ``np.array`` reads) as a
-    tensor of ``dtype`` on ``device``."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
 def build_sharded_apf(

@@ -7,19 +7,33 @@ The first run builds the CUDA kernels (one nvcc call, ``bipk_tpu_torch/
 _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
 
 1. env: torch/CUDA versions, the card's name and power limit, the build;
-2. kernels: each kernel wrapper on the card at the main path's shapes
-   (packed statistics ``S (232, 32768)``, m = 20, n = 1, f32), held against
-   its plain PyTorch version on the same inputs, and timed;
+2. kernels: each kernel wrapper on the card at the main paths' shapes
+   (packed statistics ``S (232, 32768)`` for the APF, ``(232, 10240)`` and
+   ``(232, 256)`` at lambda = 1 for the Gibbs sampler, m = 20, n = 1, f32)
+   and at edge shapes, held against its plain PyTorch version on the same
+   inputs, and timed;
 3. path-vs-plain: the vehicle online APF, 32768 particles x 50 steps,
    through the kernels and through their plain versions with the same
    draws, over 10 seeds; the paired weighted means must agree;
 4. main path: the vehicle online APF at 32768 particles x 1500 steps
-   through the kernels, with launch counts, throughput, ESS and RMSE.
+   through the kernels, with launch counts, throughput, ESS and RMSE;
+5. cSMC path-vs-plain: the vehicle cSMC sweep (Algorithm 3), 10240
+   particles x 50 steps, through the kernels and through their plain
+   versions with the same draws, over 10 seeds, paired;
+6. Gibbs path: the vehicle marginalized-PGAS Gibbs sampler at 10240
+   particles x 1500 steps, seeded by a 256-particle APF and a reference
+   draw, with launch counts per sweep, seconds per sweep and the drawn
+   trajectory's RMSE;
+7. Gibbs profile: 100 cSMC steps at 10240 particles with CUDA's sync
+   debug mode set to "error" (no step may wait for the device), the same
+   steps timed, then under ``torch.profiler``: device time and launches
+   per step, the largest kernels, the device's idle share.
 
-The line before the last is ``{"kernels": [...]}`` (per kernel of the
-path: launches, error against the plain version, times and bound); the
-last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
-so the script exits non-zero and prints neither. Needs one CUDA card.
+The line before the last is ``{"kernels": [...]}`` (per kernel: launches
+on the two main paths, error against the plain version, times and bound);
+the last line is ``{"ok": true, "device": {...}}``. Any failed phase
+raises, so the script exits non-zero and prints neither. Needs one CUDA
+card.
 """
 
 import json
@@ -33,11 +47,15 @@ import time
 import numpy as np
 import torch
 
+from bipk_tpu_torch.algorithms.apf import build_apf
+from bipk_tpu_torch.algorithms.csmc import build_csmc, ref_contributions
+from bipk_tpu_torch.algorithms.gibbs import build_gibbs, summed_reference_stats
 from bipk_tpu_torch.models import vehicle as veh
 from bipk_tpu_torch.ops import _build
 from bipk_tpu_torch.ops import cuda_kernels as ck
 from bipk_tpu_torch.ops import mniw
 from bipk_tpu_torch.parallel.sharded import build_sharded_apf
+from bipk_tpu_torch.utils.matio import sample_reference_trajectory
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -47,6 +65,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 N = 32768  # particles, as the JAX package's bench.py
+N_GIBBS = 10240  # particles, as the JAX package's benchmarks/bench_gibbs.py
 M, NN = 20, 1  # basis functions and output dimension per GP
 LAM = 0.999
 
@@ -90,6 +109,27 @@ def rel_err(got, want):
     return d / max(w.abs().max().item(), 1e-30), d
 
 
+def check_systematic(label, w, u, n):
+    """The systematic-resampling kernel against its plain version on the
+    same weights; returns both ancestor vectors. Tolerance
+    (tests/test_resampling.py:110-121): the kernel's cdf sums in another
+    order than torch.cumsum, so a grid point that ties a cdf value to
+    within rounding moves one slot; offspring counts differ by <= 1 and
+    at most 2% of the slots (one where n < 100) differ."""
+    anc_k = ck.systematic_ancestors_blocks(w, u, n)
+    anc_p = ck.systematic_ancestors_blocks_plain(w, u, n)
+    torch.cuda.synchronize()
+    mism = int((anc_k != anc_p).sum())
+    count_diff = int((torch.bincount(anc_k.long(), minlength=n)
+                      - torch.bincount(anc_p.long(), minlength=n)).abs().max())
+    print(f"  {label}: {mism} of {n} slots differ, max offspring-count "
+          f"difference {count_diff}", flush=True)
+    require(bool((anc_k[1:] >= anc_k[:-1]).all()), f"{label}: ancestors not sorted")
+    require(count_diff <= 1 and mism <= max(1, n // 50),
+            f"{label}: {mism} slots / count diff {count_diff}")
+    return anc_k, anc_p
+
+
 def edge_case(gen, dev, m, n, N):
     """Packed statistics (f32) of 60 forgotten rank-1 updates with a
     spread of scales, and a proper MNIW prior ``(P0, P1, P2, p3)``."""
@@ -109,6 +149,192 @@ def edge_case(gen, dev, m, n, N):
     blocks = tuple(torch.as_tensor(p, dtype=torch.float32, device=dev) for p in prior[:3])
     phi = (torch.randn((m, N), generator=gen, **T) * scale).float()
     return S.float().contiguous(), phi, (*blocks, float(prior[3]))
+
+
+def paired_gate(label, kern_stats, plain_stats, names):
+    """Paired test over seeds of per-run statistics of the kernel path and
+    the plain path, which took the same draws.
+
+    Tolerance: f32 rounding differs between the kernels and the plain
+    versions, so a resampling tie can give a slot another ancestor, and
+    from there the two particle systems evolve apart (ESS is ~10 of
+    tens of thousands); their statistics then differ by Monte-Carlo error,
+    not by rounding. The paired difference must be zero in expectation:
+    within 5 standard errors (|t_9| > 5 has probability < 1e-3), or within
+    1e-4 of the statistic's size where the runs never drifted apart."""
+    d = (torch.stack(kern_stats) - torch.stack(plain_stats)).double()
+    scale = torch.stack(plain_stats).double().abs().mean(0)
+    se = d.std(0) / math.sqrt(d.shape[0])
+    z = d.mean(0).abs() / se.clamp(min=1e-30)
+    print(f"  paired over {d.shape[0]} seeds ({', '.join(names)}): mean difference "
+          f"{d.mean(0).tolist()}, standard error {se.tolist()}, z {z.tolist()}",
+          flush=True)
+    require(bool(torch.isfinite(d).all()), f"{label}: non-finite statistics")
+    require(bool(((z < 5.0) | (d.mean(0).abs() <= 1e-4 * scale)).all()),
+            f"{label}: kernel and plain paths disagree: z {z.tolist()}")
+
+
+def csmc_path_vs_plain(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps, seeds):
+    """The cSMC sweep through the kernels and through their plain versions
+    with the same draws, conditioned on the simulated trajectory, over
+    ``seeds`` seeds: the drawn trajectory's time averages (both states,
+    front friction) and the mean ESS, paired."""
+    T = steps + 1
+    ref = (ref_state[:T], tuple(iv[:T] for iv in ref_ivs))
+    summed = summed_reference_stats(model.gps, *ref, U[:T], torch.float32)
+    csmcs = {
+        plain: build_csmc(model.ssm, model.gps, n_particles, dtype=torch.float32,
+                          device=dev, reference=plain)
+        for plain in (False, True)
+    }
+    stats = {False: [], True: []}
+    for s in range(seeds):
+        trajs = {}
+        for plain, csmc in csmcs.items():
+            g = torch.Generator(device=dev).manual_seed(300 + s)
+            r = csmc(g, Y[:T], U[:T], model.x0, model.p0, *ref, summed)
+            trajs[plain] = r.state_traj
+            stats[plain].append(torch.cat([r.state_traj.mean(0), r.int_var_traj[0].mean(0),
+                                           r.ess.mean()[None]]))
+        if s == 0:
+            print(f"  seed 0: max |kernels - plain| of the drawn trajectory over "
+                  f"{steps} steps {(trajs[False] - trajs[True]).abs().max(0).values.tolist()}",
+                  flush=True)
+    paired_gate("cSMC path-vs-plain", stats[False], stats[True],
+                ("dpsi", "v_y", "mu_front", "mean ESS"))
+
+
+def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, smi):
+    """The Gibbs main path as a user runs it: a ``n_apf``-particle APF
+    sweep, a reference draw from it, then ``build_gibbs`` with
+    ``n_iterations - 1`` cSMC sweeps. Checks the launch counts of every
+    sweep, times the sweeps, and holds the last drawn trajectory against
+    the simulated one. Returns the kernels' launches over the Gibbs run."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    apf = build_apf(model.ssm, model.gps, n_apf, 1.0, dtype=torch.float32, device=dev)
+    ta = time.perf_counter()
+    res = apf(g, Y, U, model.x0, model.p0)
+    ref_state, ref_iv = sample_reference_trajectory(
+        torch.rand((1,), generator=g, device=dev), res)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(ref_state).all()), "initial reference not finite")
+    print(f"  initial reference: {n_apf}-particle APF over {Y.shape[0]} steps and a "
+          f"trajectory draw in {time.perf_counter() - ta:.3f} s", flush=True)
+
+    gibbs = build_gibbs(model.ssm, model.gps, n_particles, n_iterations,
+                        dtype=torch.float32, device=dev)
+    steps = Y.shape[0] - 1
+    expected = {
+        "factorize_project_packed": 2 * steps,
+        "systematic_ancestors_blocks": steps,
+        "log_base_measure_packed_logdets": 2 * steps,
+        "draw_update_gather_packed_blocks": 2 * steps,
+        "draw_update_packed_blocks": 0,
+    }
+    totals = dict.fromkeys(expected, 0)
+    seconds = []
+
+    def on_sweep(k, ref):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds.append(now - marks[-1])
+        marks.append(now)
+        counts = ck.launch_counts()
+        ck.reset_launch_counts()
+        print(f"  sweep {k}: {seconds[-1]:.3f} s, launches {counts}", flush=True)
+        for name, want in expected.items():
+            require(counts[name] == want,
+                    f"Gibbs sweep {k}: {name} launched {counts[name]} times, expected {want}")
+            totals[name] += counts[name]
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    marks = [time.perf_counter()]
+    res = gibbs(g, Y, U, model.x0, model.p0, ref_state, ref_iv, callback=on_sweep)
+    torch.cuda.synchronize()
+    timed = seconds[1:]
+    print(f"  {n_particles} particles x {steps} steps: seconds per sweep best "
+          f"{min(timed):.3f} median {statistics.median(timed):.3f} over {len(timed)} sweeps "
+          f"after a warm-up sweep of {seconds[0]:.3f} s, on {smi}", flush=True)
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        res.states, *res.int_vars, res.outputs, res.log_likelihood,
+        *(leaf for st in res.stats for leaf in st)))
+    require(finite, "Gibbs result not finite")
+    draw, mu_draw = res.states[:, -1], res.int_vars[0][:, -1, 0]
+    rmse = ((draw - X) ** 2).mean(0).sqrt()
+    rms = (X ** 2).mean(0).sqrt()
+    rmse_mu = ((mu_draw - mu_front) ** 2).mean().sqrt()
+    rms_mu = (mu_front ** 2).mean().sqrt()
+    print(f"  last drawn trajectory finite; RMSE against the simulated state "
+          f"{rmse.tolist()} (its RMS {rms.tolist()}), front friction RMSE "
+          f"{rmse_mu.item()} (its RMS {rms_mu.item()})", flush=True)
+    # gate: ONE posterior draw after four sweeps, not a mean. The APF's
+    # filtered mean is within 1-5% of the RMS (phase 4); single draws
+    # spread wider (the same sampler on the CPU at 256 particles drew
+    # 9% / 24% / 14% for the two states and the front friction). Half the
+    # RMS leaves that room and still fails a sampler that ignores the
+    # data, whose RMSE is of the order of the RMS itself.
+    require(bool((rmse <= 0.5 * rms).all()) and rmse_mu.item() <= 0.5 * rms_mu.item(),
+            f"Gibbs draw RMSE {rmse.tolist()} / {rmse_mu.item()} above half the RMS")
+    return totals
+
+
+def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps):
+    """Where a cSMC step's time goes at the Gibbs width. After a warm-up
+    sweep, the same ``steps`` steps (``CSMC.run`` from one pinned carry)
+    run three times: with CUDA's sync debug mode set to "error" (a step
+    that waits for the device, a read-back or a blocking copy, fails the
+    phase), on the host's clock, and under ``torch.profiler``. Prints the
+    device time and kernel launches per step, the largest kernels, and
+    the device's idle share: one minus the profiled device time over the
+    unprofiled wall time of the same steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    T = steps + 1
+    ref = (ref_state[:T], tuple(iv[:T] for iv in ref_ivs))
+    summed = summed_reference_stats(model.gps, *ref, U[:T], torch.float32)
+    csmc = build_csmc(model.ssm, model.gps, n_particles, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    csmc(g, Y[:T], U[:T], model.x0, model.p0, *ref, summed)
+    ref_T = ref_contributions(model.gps, *ref, U[:T])
+    carry = csmc.init(g, U[0], model.x0, model.p0, ref[0][0],
+                      tuple(iv[0] for iv in ref[1]), tuple(mniw.MNIW(*(leaf[0] for leaf in st))
+                                                          for st in ref_T), summed)
+
+    def run_steps():
+        csmc.run(carry, Y[:T], U[:T], *ref, ref_T, (csmc.draws(g) for _ in range(steps)))
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run_steps()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"  {steps} cSMC steps ran with CUDA sync debug mode \"error\": no host "
+          f"synchronisation inside a step", flush=True)
+    tw = time.perf_counter()
+    run_steps()
+    step_us = (time.perf_counter() - tw) / steps * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_steps()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not on_device:
+        print("  device time per step: not measured (the profiler recorded no device events)",
+              flush=True)
+        return
+    busy_us = sum(e.self_device_time_total for e in on_device) / steps
+    launches = sum(e.count for e in on_device) / steps
+    ours = sum(e.self_device_time_total for e in on_device
+               if "packed_mniw_kernel" in e.key or "systematic_kernel" in e.key) / steps
+    print(f"  cSMC step at {n_particles} particles ({steps} steps profiled): device busy "
+          f"{busy_us:.1f} us per step over {launches:.1f} device launches, of which the "
+          f"hand-written kernels {ours:.1f} us; the same steps unprofiled {step_us:.1f} us "
+          f"per step, device idle share {1.0 - busy_us / step_us:.3f}", flush=True)
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total / steps:8.1f} us/step  {e.count / steps:5.1f}/step  "
+              f"{e.key[:90]}", flush=True)
 
 
 def main() -> int:
@@ -225,20 +451,7 @@ def main() -> int:
            f4 * N * (rows + M + NN + 1 + NN * NN + 2), N * core_flops, max_abs)
 
     # K2: systematic resampling
-    anc_k = ck.systematic_ancestors_blocks(w, u_res, N)
-    anc_p = ck.systematic_ancestors_blocks_plain(w, u_res, N)
-    torch.cuda.synchronize()
-    require(bool((anc_k[1:] >= anc_k[:-1]).all()), "ancestors not sorted")
-    mism = int((anc_k != anc_p).sum())
-    count_diff = int((torch.bincount(anc_k.long(), minlength=N)
-                      - torch.bincount(anc_p.long(), minlength=N)).abs().max())
-    print(f"  systematic_ancestors_blocks: {mism} of {N} slots differ, "
-          f"max offspring-count difference {count_diff}", flush=True)
-    # tolerance (tests/test_resampling.py:110-121): the kernel's cdf sums in
-    # another order than torch.cumsum, so a grid point that ties a cdf value
-    # to within rounding moves one slot; offspring counts differ by <= 1
-    require(count_diff <= 1 and mism / N < 0.02,
-            f"systematic ancestors: {mism} slots / count diff {count_diff}")
+    anc_k, anc_p = check_systematic("systematic_ancestors_blocks", w, u_res, N)
     record(ck.systematic_ancestors_blocks,
            lambda: ck.systematic_ancestors_blocks(w, u_res, N),
            lambda: ck.systematic_ancestors_blocks_plain(w, u_res, N),
@@ -280,6 +493,77 @@ def main() -> int:
            lambda: ck.draw_update_gather_packed_blocks_plain(S, anc, phi, u, v, jitter, LAM, prior, p3, m=M, n=NN),
            f4 * (distinct * rows + N * (rows + M + 2 * NN + NN + 2 + 1)),
            N * (core_flops + draw_flops), max_abs)
+    # K5: the log-determinants of prior + reference future + S, the cSMC
+    # ancestor weights' "with future" term, at the Gibbs width and at the
+    # APF width. The offset is a reference's future statistics late in a
+    # sweep: the simulated trajectory's summed statistics (f32),
+    # decremented step by step in f32 as the sweep does, 10 steps left.
+    X, Y, MU_F, MU_R, U = veh.simulate(torch.Generator().manual_seed(cfg.seed), cfg,
+                                       dtype=torch.float32, device=dev)
+    ref_ivs = (MU_F[:, None], MU_R[:, None])
+    contrib = ref_contributions(model.gps, X, ref_ivs, U)[0]
+    fut = mniw.MNIW(*(leaf.sum(0) - leaf[0] for leaf in contrib))
+    T_all, left = X.shape[0], 10
+    for t in range(1, T_all - left):
+        fut = mniw.MNIW(*(f - leaf[t] for f, leaf in zip(fut, contrib)))
+    exact = contrib.T1[T_all - left:].double().sum(0)
+    print(f"  reference future after {T_all - left} f32 decrements: T3 {fut.T3.item()}, "
+          f"max |T1 - exact| {(fut.T1.double() - exact).abs().max().item():.3e} "
+          f"(max |T1| {exact.abs().max().item():.3e})", flush=True)
+    prior_eff = tuple(p + f for p, f in zip(prior, fut[:3]))
+    lbm_flops = chol + NN * (M * (M - 1) + M) + 2 * NN * NN * M + M + 1
+    for width in (N, N_GIBBS):
+        S_w = S[:, :width].contiguous()
+        lk = ck.log_base_measure_packed_logdets(S_w, jitter, prior_eff, m=M, n=NN)
+        lp = ck.log_base_measure_packed_logdets_plain(S_w, jitter, prior_eff, m=M, n=NN)
+        torch.cuda.synchronize()
+        max_abs = check(f"log_base_measure_packed_logdets N={width}",
+                        zip(("logdet_T1", "logdet_Psi"), lk, lp),
+                        1e-3, "f32 rounding of an ill-conditioned SPD factorization")
+        if width == N_GIBBS:  # the Gibbs path's width goes into the kernels line
+            record(ck.log_base_measure_packed_logdets,
+                   lambda: ck.log_base_measure_packed_logdets(S_w, jitter, prior_eff, m=M, n=NN),
+                   lambda: ck.log_base_measure_packed_logdets_plain(S_w, jitter, prior_eff, m=M, n=NN),
+                   f4 * (width * (rows + 2) + M * NN + M * M + NN * NN), width * lbm_flops,
+                   max_abs)
+        else:
+            ms = time_ms(lambda: ck.log_base_measure_packed_logdets(S_w, jitter, prior_eff, m=M, n=NN),
+                         flush=flush)
+            print(f"  log_base_measure_packed_logdets N={width}: {ms:.4f} ms (bound "
+                  f"{f4 * width * (rows + 2) / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes)", flush=True)
+
+    # #1, #2 and #4 at the Gibbs path's shapes: lambda = 1 and the prior
+    # (the cSMC's look-ahead and draw; the reference future enters only
+    # #5), at the sweep's width and at the seeding APF's 256 particles.
+    # Held against the plain versions as above, and timed (not in the line)
+    for width in (N_GIBBS, 256):
+        S_w, phi_w = S[:, :width].contiguous(), phi[:, :width].contiguous()
+        u_w, v_w = u[:, :width].contiguous(), v[:, :width].contiguous()
+        w_w = torch.softmax(4.0 * torch.randn((width,), generator=gen, device=dev), 0)
+        check(f"factorize_project_packed N={width} lam=1", zip(
+            ("mean", "col", "row", "logdet_T1", "logdet_Psi"),
+            ck.factorize_project_packed(S_w, phi_w, jitter, 1.0, prior, m=M, n=NN),
+            ck.factorize_project_packed_plain(S_w, phi_w, jitter, 1.0, prior, m=M, n=NN),
+        ), 1e-3, "f32 rounding of an ill-conditioned SPD factorization")
+        anc_w, _ = check_systematic(f"systematic_ancestors_blocks N={width}", w_w, u_res, width)
+        dg_k = ck.draw_update_gather_packed_blocks(S_w, anc_w, phi_w, u_w, v_w, jitter, 1.0,
+                                                   prior, p3, m=M, n=NN)
+        dg_p = ck.draw_update_gather_packed_blocks_plain(S_w, anc_w, phi_w, u_w, v_w, jitter,
+                                                         1.0, prior, p3, m=M, n=NN)
+        check(f"draw_update_gather_packed_blocks N={width} lam=1",
+              [("S_new", dg_k[0], dg_p[0])], 1e-4, "f32 rounding of lam*S + suff")
+        check(f"draw_update_gather_packed_blocks N={width} lam=1",
+              zip(("y", "logdet_T1", "logdet_Psi"), dg_k[1:], dg_p[1:]),
+              1e-3, "f32 rounding of an ill-conditioned SPD factorization")
+        for name, call in (
+            ("factorize_project_packed", lambda: ck.factorize_project_packed(
+                S_w, phi_w, jitter, 1.0, prior, m=M, n=NN)),
+            ("systematic_ancestors_blocks", lambda: ck.systematic_ancestors_blocks(
+                w_w, u_res, width)),
+            ("draw_update_gather_packed_blocks", lambda: ck.draw_update_gather_packed_blocks(
+                S_w, anc_w, phi_w, u_w, v_w, jitter, 1.0, prior, p3, m=M, n=NN)),
+        ):
+            print(f"  {name} N={width}: {time_ms(call, flush=flush):.4f} ms", flush=True)
     del S64, flush
 
     # the same kernels at the widths of later slices and at ragged sizes:
@@ -309,6 +593,11 @@ def main() -> int:
             ck.draw_update_gather_packed_blocks(S_e, anc_e, phi_out, u_e, v_e, jitter, LAM, prior_e[:3], prior_e[3], m=m_e, n=n_e),
             ck.draw_update_gather_packed_blocks_plain(S_e, anc_e, phi_out, u_e, v_e, jitter, LAM, prior_e[:3], prior_e[3], m=m_e, n=n_e),
         ), 1e-3, "f32 rounding of an ill-conditioned SPD factorization")
+        check(f"log_base_measure_packed_logdets {label}", zip(
+            ("logdet_T1", "logdet_Psi"),
+            ck.log_base_measure_packed_logdets(S_e, jitter, prior_e[:3], m=m_e, n=n_e),
+            ck.log_base_measure_packed_logdets_plain(S_e, jitter, prior_e[:3], m=m_e, n=n_e),
+        ), 1e-3, "f32 rounding of an ill-conditioned SPD factorization")
     for n_w in (1, 7, 1000, 1025, 70001):
         for kind in ("random", "first", "last", "zero"):
             w_e = torch.softmax(4.0 * torch.randn((n_w,), generator=gen, device=dev), 0)
@@ -316,20 +605,13 @@ def main() -> int:
                 w_e = torch.zeros_like(w_e)
                 if kind != "zero":
                     w_e[0 if kind == "first" else -1] = 1.0
-            a_k = ck.systematic_ancestors_blocks(w_e, u_res, n_w)
-            a_p = ck.systematic_ancestors_blocks_plain(w_e, u_res, n_w)
-            counts = (torch.bincount(a_k.long(), minlength=n_w)
-                      - torch.bincount(a_p.long(), minlength=n_w)).abs().max()
-            require(bool((a_k[1:] >= a_k[:-1]).all()) and int(counts) <= 1
-                    and int((a_k != a_p).sum()) <= max(1, n_w // 50),
-                    f"systematic ancestors at n={n_w} ({kind} weights) disagree")
+            check_systematic(f"systematic_ancestors_blocks n={n_w} ({kind} weights)",
+                             w_e, u_res, n_w)
     print("  edge shapes: all kernels agree with their plain versions", flush=True)
     phase_done("kernels", t0)
 
     # ---------------------------------------------------------------- 3
     t0 = time.perf_counter()
-    gen_cpu = torch.Generator().manual_seed(cfg.seed)
-    X, Y, _, _, U = veh.simulate(gen_cpu, cfg, dtype=torch.float32, device=dev)
     steps_cmp, seeds = 50, 10
     apfs = {
         ref: build_sharded_apf(model.ssm, model.gps, N, forgetting_factor=LAM,
@@ -354,23 +636,7 @@ def main() -> int:
             print(f"  seed 0: |kernels - plain| state mean after step 1 "
                   f"{first_step_diff}, max over {steps_cmp} steps {per_step}",
                   flush=True)
-    d = (torch.stack(stats[False]) - torch.stack(stats[True])).double()
-    scale = torch.stack(stats[True]).double().abs().mean(0)
-    se = d.std(0) / math.sqrt(seeds)
-    z = d.mean(0).abs() / se.clamp(min=1e-30)
-    print(f"  paired over {seeds} seeds (dpsi, v_y, mu_front): mean difference "
-          f"{d.mean(0).tolist()}, standard error {se.tolist()}, z {z.tolist()}",
-          flush=True)
-    # tolerance: both runs take the same draws, but f32 rounding differs
-    # between kernels and plain versions, so a resampling tie can give a slot
-    # another ancestor, and from there the two particle systems evolve apart
-    # (ESS is ~10 of 32768); their means then differ by Monte-Carlo error,
-    # not by rounding. The paired difference must be zero in expectation:
-    # within 5 standard errors (|t_9| > 5 has probability < 1e-3), or within
-    # 1e-4 of the means' size where the runs never drifted apart.
-    require(bool(torch.isfinite(d).all()), "path-vs-plain: non-finite means")
-    require(bool(((z < 5.0) | (d.mean(0).abs() <= 1e-4 * scale)).all()),
-            f"path-vs-plain means disagree: z {z.tolist()}")
+    paired_gate("path-vs-plain", stats[False], stats[True], ("dpsi", "v_y", "mu_front"))
     phase_done("path-vs-plain", t0)
 
     # ---------------------------------------------------------------- 4
@@ -385,7 +651,7 @@ def main() -> int:
     res = apf(torch.Generator(device=dev).manual_seed(3), Y, U, model.x0, model.p0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - ts
-    counts = ck.launch_counts()
+    apf_counts = counts = ck.launch_counts()
     print(f"  launches {counts}", flush=True)
     expected = {
         "factorize_project_packed": 2 * steps,
@@ -412,20 +678,44 @@ def main() -> int:
     require(bool(torch.isfinite(rmse).all()), f"filtered-state RMSE {rmse.tolist()}")
     phase_done("main-path", t0)
 
+    # ---------------------------------------------------------------- 5
+    t0 = time.perf_counter()
+    csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=50, seeds=10)
+    phase_done("csmc-path-vs-plain", t0)
+
+    # ---------------------------------------------------------------- 6
+    t0 = time.perf_counter()
+    gibbs_counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256,
+                              n_iterations=5, smi=smi)
+    phase_done("gibbs-path", t0)
+
+    # ---------------------------------------------------------------- 7
+    t0 = time.perf_counter()
+    profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=100)
+    phase_done("gibbs-profile", t0)
+
     sources = {
         "factorize_project_packed": ("bipk_tpu_torch/csrc/packed_mniw.cu",
                                      "bipk_tpu/ops/pallas_kernels.py:1740"),
         "systematic_ancestors_blocks": ("bipk_tpu_torch/csrc/systematic.cu",
                                         "bipk_tpu/ops/pallas_kernels.py:2761"),
+        "draw_update_packed_blocks": ("bipk_tpu_torch/csrc/packed_mniw.cu",
+                                      "bipk_tpu/ops/pallas_kernels.py:1848"),
         "draw_update_gather_packed_blocks": ("bipk_tpu_torch/csrc/packed_mniw.cu",
                                              "bipk_tpu/ops/pallas_kernels.py:1041"),
+        "log_base_measure_packed_logdets": ("bipk_tpu_torch/csrc/packed_mniw.cu",
+                                            "bipk_tpu/ops/pallas_kernels.py:1941"),
     }
+    # launches: over the two main paths' runs (phase 4, the APF, and phase
+    # 6, the Gibbs sampler after its initial APF), each counted from zero
     kernels = []
     for name, (source, replaces) in sources.items():
         r = results[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=apf_counts[name] + gibbs_counts[name],
+            launches_per_path={"apf": apf_counts[name], "gibbs": gibbs_counts[name]},
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))

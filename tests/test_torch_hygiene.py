@@ -15,6 +15,9 @@ from bipk_tpu_torch import resolve_device
 from bipk_tpu_torch.models import vehicle as tveh
 from bipk_tpu_torch.ops import _build
 from bipk_tpu_torch.ops import cuda_kernels as ck
+from bipk_tpu_torch.algorithms.apf import build_apf
+from bipk_tpu_torch.algorithms.csmc import build_csmc
+from bipk_tpu_torch.algorithms.gibbs import build_gibbs
 from bipk_tpu_torch.parallel.sharded import build_sharded_apf
 
 REPO = Path(__file__).resolve().parent.parent
@@ -41,6 +44,7 @@ def test_port_imports_with_jax_absent():
         "import sys; sys.modules['jax'] = None; sys.modules['bipk_tpu'] = None\n"
         "import bipk_tpu_torch, bipk_tpu_torch.convert\n"
         "import bipk_tpu_torch.parallel.sharded, bipk_tpu_torch.ops.cuda_kernels\n"
+        "import bipk_tpu_torch.algorithms.gibbs, bipk_tpu_torch.utils.matio\n"
         "print('ok')"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -58,6 +62,36 @@ def test_cuda_entry_point_raises_without_a_card(monkeypatch):
         build_sharded_apf(model.ssm, model.gps, 64)  # default device: cuda
     with pytest.raises(RuntimeError, match="CUDA"):
         tveh.simulate(torch.Generator().manual_seed(0), cfg)
+
+
+def test_gibbs_slice_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
+    for build in (lambda: build_apf(model.ssm, model.gps, 64),
+                  lambda: build_csmc(model.ssm, model.gps, 64),
+                  lambda: build_gibbs(model.ssm, model.gps, 64, 3)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()  # default device: cuda
+
+
+def test_gibbs_slice_unported_modes_raise():
+    model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
+    for kwargs in (dict(rank1=True), dict(mesh=object())):
+        with pytest.raises(NotImplementedError):
+            build_csmc(model.ssm, model.gps, 64, device="cpu", **kwargs)
+    for kwargs in (dict(n_chains=4), dict(mesh=object()), dict(shard_mesh=object()),
+                   dict(chain_mesh=object())):
+        with pytest.raises(NotImplementedError):
+            build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", **kwargs)
+
+
+def test_log_base_measure_wrapper_checks_its_bounds():
+    with pytest.raises(ValueError, match="m <= 48"):
+        ck.log_base_measure_packed_logdets(torch.zeros((1, 8)), 0.0, m=49, n=1)
+    with pytest.raises(ValueError, match="n <= 2"):
+        ck.log_base_measure_packed_logdets(torch.zeros((1, 8)), 0.0, m=5, n=3)
+    with pytest.raises(ValueError, match="device"):
+        ck.log_base_measure_packed_logdets(torch.zeros((232, 8), device="meta"), 0.0, m=20, n=1)
 
 
 def test_unported_modes_raise():
