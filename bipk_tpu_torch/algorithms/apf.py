@@ -27,7 +27,7 @@ class StepDraws(NamedTuple):
     """The random numbers one filter step consumes."""
 
     u_res: torch.Tensor  # (1,) systematic-resampling offset
-    z: torch.Tensor  # (dx, N) process-noise normals
+    z: torch.Tensor | None  # (dx, N) process-noise normals; None if deterministic
     uvs: tuple  # per GP, (u, v) uniforms (n_i, N) of the matrix-t draw
 
 
@@ -84,7 +84,9 @@ class APFKernel:
         return self.ssm.transition(state, inp, *int_vars)
 
     def output_all(self, state, inp, int_vars):
-        return self.ssm.output(state, inp, *int_vars)
+        """Model outputs ``(dy, N)``; an output that returns ``(N,)`` (one
+        measured state) gets its leading axis back."""
+        return self.ssm.output(state, inp, *int_vars).reshape(-1, state.shape[-1])
 
     def basis_all(self, i, state, inp):
         return self.gps[i].basis_fn_bl(state, inp)
@@ -113,7 +115,8 @@ class APFKernel:
         return out.reshape(-1, T, M).permute(1, 2, 0), ll.reshape(T, M)
 
     def propagate_all(self, z, state, inp, int_vars):
-        """Transition plus Gaussian process noise ``chol(Q) z``."""
+        """Transition plus Gaussian process noise ``chol(Q) z``; a
+        deterministic transition takes no noise (``z`` is None)."""
         nxt = self.transition_all(state, inp, int_vars)
         if self.process_chol is None:
             return nxt
@@ -123,10 +126,12 @@ class APFKernel:
 
     def step_draws(self, generator, n_particles) -> StepDraws:
         """One filter step's draws from ``generator``: the resampling
-        offset, the process noise, each GP's matrix-t uniforms."""
+        offset, the process noise (none for a deterministic transition),
+        each GP's matrix-t uniforms."""
         opts = dict(generator=generator, dtype=self.dtype, device=self.device)
         u_res = torch.rand((1,), **opts)
-        z = torch.randn((self.ssm.state_dim, n_particles), **opts)
+        z = None if self.process_chol is None else torch.randn(
+            (self.ssm.state_dim, n_particles), **opts)
         uvs = tuple(
             (torch.rand((n, n_particles), **opts),
              torch.rand((n, n_particles), **opts))
@@ -166,14 +171,15 @@ class APFKernel:
     def projected_all_packed(self, Ss, lam, basis):
         """Per-GP fused factorization + predictive projection over the
         packed carry: one :class:`~bipk_tpu_torch.ops.mniw.ProjectedFactor`
-        per GP, its ``df = lam * T3 + prior T3``."""
+        per GP. Its ``df`` is None: the filter never reads it, and the
+        cSMC, which does, fills it in."""
         return tuple(
             mniw.ProjectedFactor(
                 *self._factorize_project(
                     Ss[i], basis[i], self.jitter, lam, self.prior_blocks[i],
                     m=self.ms[i], n=self.ns[i],
                 ),
-                torch.add(self.priors[i].T3, Ss[i][-1], alpha=lam),
+                None,
             )
             for i in range(self.n_gp)
         )

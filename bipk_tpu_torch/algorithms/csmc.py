@@ -164,7 +164,9 @@ class CSMC:
         for i in range(kern.n_gp):
             prior_eff = mniw.MNIW(*(p + r for p, r in zip(kern.priors[i], ref_stats[i])))
             with_future = kern.log_base_measure_packed(i, Ss[i], prior_eff)
-            without_future = mniw.log_base_measure_from_projected_bl(fps[i], kern.ms[i])
+            # the look-ahead's factor of prior + S, its df = T3 + prior T3
+            fp = fps[i]._replace(df=kern.priors[i].T3 + Ss[i][-1])
+            without_future = mniw.log_base_measure_from_projected_bl(fp, kern.ms[i])
             g_diff = g_diff + without_future - with_future
         h_x = self._transition_logpdf_to_ref(aux_state, ref_x)
         ref_idx = resampling.categorical_from_weights(

@@ -15,6 +15,14 @@
 //     complement) with the projection and the draw compiled out; the prior
 //     buffer then carries prior + the reference's future statistics, a new
 //     offset every step, and nu stays with the caller.
+// Each is compiled twice: packed_mniw_kernel<24, MODE> serves m <= 24, the
+// widths of the TPU's tiled kernels above; packed_mniw_kernel<48, MODE>
+// serves 24 < m <= 48 (the toy, m = 40, and the single-mass oscillator,
+// m = 41) and replaces the TPU's cs-layout kernels of those widths:
+// _cs_call (:2454) with _cs_fp_kernel (:2322), _cs_lbm_kernel (:2341) and
+// _cs_du_kernel (:2353), and _cs_du_gather_call (:2482) with
+// _cs_du_gather_kernel (:2418). It computes what they compute, not their
+// column-on-sublane blocking.
 //
 // Layout. S is (rows, N) row-major with rows
 // [T0 (m*n) | column-major tril(T1) | tril(T2) | T3] and the particle index
@@ -42,7 +50,12 @@
 // Shared-memory staging of the factor and tensor-core panels are later work.
 // The log-determinant variant moves ~4 B * N * (rows + 2) (9.6 MB at
 // N = 10240, 2.9 us) and does ~m^3/3 + m^2 n flops per particle: bytes in
-// principle, the same local-memory Cholesky in practice.
+// principle, the same local-memory Cholesky in practice. At m = 41
+// (rows = 904) factorize/project moves ~124 MB at N = 32768 (37 us) and
+// the gathered draw/update ~243 MB (73 us); the frame grows to 5.1-5.9 KB
+// and the dependent chain by ~(41/20)^3, so the <48> kernels run ~50x
+// their bound, and at the Gibbs paths' N = 200 (two blocks) one thread's
+// chain is the whole time. Times: PERF.md.
 //
 // C interface (loaded with ctypes): every function launches on the given
 // stream, never synchronises, allocates nothing, and returns

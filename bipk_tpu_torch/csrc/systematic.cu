@@ -4,7 +4,8 @@
 // (:2761) -> _systematic_cdf_kernel (:2614) + _systematic_merge_kernel
 // (:2650). Same closed-form-offspring semantics as the plain version
 // (bipk_tpu_torch/ops/resampling.py systematic): clip the weights at 0,
-// normalize (uniform when the mass is 0), cdf, cumulative counts
+// keeping NaN as torch.clamp and jnp.maximum do, normalize (uniform when
+// the mass is not positive, a NaN mass included), cdf, cumulative counts
 // cc_i = clip(ceil(n cdf_i - u), 0, n), and sorted ancestors
 // anc[k] = #{i < n-1 : cc_i <= k}.
 //
@@ -35,6 +36,11 @@ namespace {
 
 constexpr int kThreads = 1024;
 
+// max(w, 0) that keeps NaN (fmaxf would return 0 for it): one NaN weight
+// makes the total NaN, and the `total > 0` test below then gives the
+// uniform fallback, as in the plain version.
+__device__ __forceinline__ float clip0(float w) { return w < 0.f ? 0.f : w; }
+
 __global__ void __launch_bounds__(kThreads)
 systematic_kernel(const float* __restrict__ w, const float* __restrict__ u_ptr,
                   int n, int* __restrict__ cc, int* __restrict__ anc) {
@@ -47,7 +53,7 @@ systematic_kernel(const float* __restrict__ w, const float* __restrict__ u_ptr,
   const int hi = min(lo + per, n);
 
   float s = 0.f;
-  for (int i = lo; i < hi; ++i) s += fmaxf(w[i], 0.f);
+  for (int i = lo; i < hi; ++i) s += clip0(w[i]);
   seg_sum[t] = s;
   __syncthreads();
   if (t == 0) {
@@ -65,7 +71,7 @@ systematic_kernel(const float* __restrict__ w, const float* __restrict__ u_ptr,
   const float nf = (float)n;
   float local = 0.f;
   for (int i = lo; i < hi; ++i) {
-    local += fmaxf(w[i], 0.f);
+    local += clip0(w[i]);
     const float cdf = total > 0.f ? (seg_off[t] + local) / total
                                   : (float)(i + 1) / nf;
     const float c = fminf(fmaxf(ceilf(nf * cdf - u), 0.f), nf);

@@ -19,7 +19,7 @@ from bipk_tpu_torch._device import resolve_device
 from bipk_tpu_torch.models.ssm import GPNode, SSM
 from bipk_tpu_torch.ops import basis as basis_ops
 from bipk_tpu_torch.ops.integrators import rk4_step
-from bipk_tpu_torch.ops.mniw import MNIW
+from bipk_tpu_torch.ops.mniw import natural_from_standard
 
 M = 1720.0
 I_ZZ = 1827.5
@@ -130,16 +130,6 @@ def steering_profile(config: VehicleConfig) -> np.ndarray:
     )
     u[:, 1] = config.speed
     return u
-
-
-def natural_from_standard(mean, col_cov, row_scale, df) -> MNIW:
-    """Standard MNIW parameters -> natural parameters (numpy, float64)."""
-    mean = np.atleast_2d(np.asarray(mean, np.float64))
-    col_cov = np.asarray(col_cov, np.float64)
-    T0 = np.linalg.solve(col_cov, mean.T)
-    T1 = np.linalg.solve(col_cov, np.eye(col_cov.shape[0]))
-    T2 = mean @ T0 + np.atleast_2d(np.asarray(row_scale, np.float64))
-    return MNIW(T0, T1, T2, np.asarray(float(df)))
 
 
 def model_from_parts(

@@ -21,8 +21,13 @@ CUDA tensors it launches its kernel (building the library on first use) or
 raises — there is no fallback on the card. Callers that want the plain
 versions on the card (to hold the kernels against them) call the
 ``*_plain`` functions themselves. Each wrapper counts its kernel launches
-in its ``launches`` attribute. The kernels take f32 only, launch on the
-current stream and never synchronise; the wrapper allocates the outputs.
+in its ``launches`` attribute; the four over ``csrc/packed_mniw.cu`` also
+count them per template instantiation (``launches_by_width``: m <= 24
+runs ``packed_mniw_kernel<24, MODE>``, the counterpart of the TPU's tiled
+kernels, and 24 < m <= 48 runs ``<48, MODE>``, the counterpart of its
+cs-layout ``_cs_call`` / ``_cs_du_gather_call``). The kernels take f32
+only, launch on the current stream and never synchronise; the wrapper
+allocates the outputs.
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ _SIGNATURES = {
 }
 MAX_M = 48
 MAX_N = 2
+# the m bounds of packed_mniw_kernel's instantiations (packed_mniw.cu launch)
+WIDTHS = (24, 48)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,6 +93,14 @@ def _require(name: str, device, dtype, **tensors) -> None:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _count(fn, m: int | None = None) -> None:
+    """One launch of ``fn``'s kernel; with ``m``, also of the template
+    instantiation that serves it."""
+    fn.launches += 1
+    if m is not None:
+        fn.launches_by_width[next(w for w in WIDTHS if m <= w)] += 1
 
 
 def _check_mn(name: str, S: torch.Tensor, m: int, n: int) -> None:
@@ -155,7 +170,7 @@ def factorize_project_packed(
         float(lam), mean.data_ptr(), col.data_ptr(), row.data_ptr(),
         ld.data_ptr(), _stream(S.device),
     )
-    factorize_project_packed.launches += 1
+    _count(factorize_project_packed, m)
     _check(rc, name)
     return mean, col, row, ld[0], ld[1]
 
@@ -182,7 +197,7 @@ def systematic_ancestors_blocks(w: torch.Tensor, u: torch.Tensor, n: int):
         w.data_ptr(), u1.data_ptr(), n, cc.data_ptr(), anc.data_ptr(),
         _stream(w.device),
     )
-    systematic_ancestors_blocks.launches += 1
+    _count(systematic_ancestors_blocks)
     _check(rc, name)
     return anc
 
@@ -237,7 +252,7 @@ def draw_update_packed_blocks(
             S, phi, u, v, jitter, lam, prior, p3, m, n
         )
     rc, out = _draw_update(name, S, None, phi, u, v, jitter, lam, prior, p3, m, n)
-    draw_update_packed_blocks.launches += 1
+    _count(draw_update_packed_blocks, m)
     _check(rc, name)
     return out
 
@@ -269,7 +284,7 @@ def draw_update_gather_packed_blocks(
             S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n
         )
     rc, out = _draw_update(name, S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n)
-    draw_update_gather_packed_blocks.launches += 1
+    _count(draw_update_gather_packed_blocks, m)
     _check(rc, name)
     return out
 
@@ -306,7 +321,7 @@ def log_base_measure_packed_logdets(
         S.data_ptr(), _ptr(pbuf), N, m, n, float(jitter), ld.data_ptr(),
         _stream(S.device),
     )
-    log_base_measure_packed_logdets.launches += 1
+    _count(log_base_measure_packed_logdets, m)
     _check(rc, name)
     return ld[0], ld[1]
 
@@ -327,13 +342,32 @@ PLAIN = {
 }
 
 
+PACKED_MNIW = (
+    factorize_project_packed,
+    draw_update_packed_blocks,
+    draw_update_gather_packed_blocks,
+    log_base_measure_packed_logdets,
+)
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in PACKED_MNIW:
+        fn.launches_by_width = dict.fromkeys(WIDTHS, 0)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """Launches since the last :func:`reset_launch_counts`: per template
+    instantiation for the packed-MNIW wrappers, keyed ``"<wrapper><24>"``
+    and ``"<wrapper><48>"``, and per wrapper for the resampler."""
+    out = {}
+    for fn in WRAPPERS:
+        if fn in PACKED_MNIW:
+            out.update({f"{fn.__name__}<{w}>": c for w, c in fn.launches_by_width.items()})
+        else:
+            out[fn.__name__] = fn.launches
+    return out
 
 
 reset_launch_counts()

@@ -65,6 +65,59 @@ def _default_jitter(dtype) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Unbatched helpers: priors and posterior summaries.
+# ---------------------------------------------------------------------------
+
+
+def chol_spd(A: torch.Tensor, jitter: float | None = None) -> torch.Tensor:
+    """Lower Cholesky of one SPD ``(m, m)`` matrix with the dtype's
+    relative jitter ``jitter * trace/m`` on the diagonal. No host
+    synchronisation: a failed factorization shows as NaN."""
+    if jitter is None:
+        jitter = _default_jitter(A.dtype)
+    if jitter:
+        scale = torch.diagonal(A).sum() / A.shape[-1]
+        A = A + (jitter * scale) * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.linalg.cholesky_ex(A)[0]
+
+
+def solve_spd(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve ``A X = B`` for SPD ``A`` through :func:`chol_spd`; ``B`` is
+    ``(m,)`` or ``(m, r)``."""
+    rhs = B if B.dim() == 2 else B[:, None]
+    X = torch.cholesky_solve(rhs, chol_spd(A))
+    return X if B.dim() == 2 else X[:, 0]
+
+
+def natural_from_standard(mean, col_cov, row_scale, df) -> MNIW:
+    """Standard MNIW parameters -> natural parameters (numpy, float64):
+    ``T0 = V^{-1} M^T``, ``T1 = V^{-1}``, ``T2 = M T0 + Psi``, ``T3 =
+    df``. The priors are built on the host, once."""
+    mean = np.atleast_2d(np.asarray(mean, np.float64))
+    col_cov = np.asarray(col_cov, np.float64)
+    T0 = np.linalg.solve(col_cov, mean.T)
+    T1 = np.linalg.solve(col_cov, np.eye(col_cov.shape[0]))
+    T2 = mean @ T0 + np.atleast_2d(np.asarray(row_scale, np.float64))
+    return MNIW(T0, T1, T2, np.asarray(float(df)))
+
+
+def standard_from_natural(nat: MNIW):
+    """Natural parameters (unbatched tensors) -> standard parameters
+    ``(mean (n, m), col_cov (m, m), row_scale (n, n), df)``."""
+    L = chol_spd(nat.T1)
+    eye = torch.eye(nat.T1.shape[0], dtype=nat.T1.dtype, device=nat.T1.device)
+    col_cov = torch.cholesky_solve(eye, L)
+    mean = torch.cholesky_solve(nat.T0, L).T
+    return mean, col_cov, nat.T2 - mean @ nat.T0, nat.T3
+
+
+def posterior_mean(nat: MNIW) -> torch.Tensor:
+    """Posterior mean coefficient matrix ``E[A] = (sym(T1)^{-1} T0)^T``,
+    ``(n, m)``, of unbatched natural parameters."""
+    return solve_spd(0.5 * (nat.T1 + nat.T1.T), nat.T0).T
+
+
+# ---------------------------------------------------------------------------
 # Flat and packed layouts.
 # ---------------------------------------------------------------------------
 

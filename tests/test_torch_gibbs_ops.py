@@ -32,7 +32,7 @@ from bipk_tpu_torch.ops import mniw as tmniw
 from bipk_tpu_torch.ops import resampling as tres
 
 RTOL = 1e-10
-SHAPES = [(20, 1), (5, 2)]
+SHAPES = [(20, 1), (5, 2), (40, 1), (41, 1)]  # the tiled widths and the cs widths
 N = 64
 
 

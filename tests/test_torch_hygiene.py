@@ -12,6 +12,8 @@ import torch
 from setuptools import find_packages
 
 from bipk_tpu_torch import resolve_device
+from bipk_tpu_torch.models import oscillator as tosc
+from bipk_tpu_torch.models import toy as ttoy
 from bipk_tpu_torch.models import vehicle as tveh
 from bipk_tpu_torch.ops import _build
 from bipk_tpu_torch.ops import cuda_kernels as ck
@@ -45,6 +47,7 @@ def test_port_imports_with_jax_absent():
         "import bipk_tpu_torch, bipk_tpu_torch.convert\n"
         "import bipk_tpu_torch.parallel.sharded, bipk_tpu_torch.ops.cuda_kernels\n"
         "import bipk_tpu_torch.algorithms.gibbs, bipk_tpu_torch.utils.matio\n"
+        "import bipk_tpu_torch.models.oscillator, bipk_tpu_torch.models.toy\n"
         "print('ok')"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -72,6 +75,40 @@ def test_gibbs_slice_entry_points_raise_without_a_card(monkeypatch):
                   lambda: build_gibbs(model.ssm, model.gps, 64, 3)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()  # default device: cuda
+
+
+def test_cs_models_run_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tosc.simulate(g, tosc.OscillatorConfig(t_end=0.1))  # default device: cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttoy.simulate(g, ttoy.ToyConfig(n_steps=5))
+    model = ttoy.make_model(ttoy.ToyConfig(n_steps=5))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_gibbs(model.ssm, model.gps, 64, 3)
+
+
+def test_launches_count_per_instantiation():
+    """The packed-MNIW wrappers count each launch once in total and once
+    for the template instantiation that serves its m (<= 24 or <= 48)."""
+    ck.reset_launch_counts()
+    try:
+        for m in (20, 24, 25, 41, 48):
+            ck._count(ck.factorize_project_packed, m)
+        ck._count(ck.systematic_ancestors_blocks)
+        counts = ck.launch_counts()
+        assert counts["factorize_project_packed<24>"] == 2
+        assert counts["factorize_project_packed<48>"] == 3
+        assert counts["systematic_ancestors_blocks"] == 1
+        assert ck.factorize_project_packed.launches == 5
+        assert sum(counts.values()) == 6
+    finally:
+        ck.reset_launch_counts()
+    # the CPU computes the plain version and counts no launch
+    S = torch.eye(ck.mniw.packed_rows(41, 1), 4)
+    ck.log_base_measure_packed_logdets(S, 1e-9, m=41, n=1)
+    assert sum(ck.launch_counts().values()) == 0
 
 
 def test_gibbs_slice_unported_modes_raise():

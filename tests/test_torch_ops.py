@@ -80,7 +80,7 @@ def _prior(rng, m, n):
     )
 
 
-SHAPES = [(20, 1), (5, 2)]
+SHAPES = [(20, 1), (5, 2), (40, 1), (41, 1)]  # the tiled widths and the cs widths
 N = 64  # one particle count for every JAX reference: XLA compiles per shape
 
 
