@@ -46,11 +46,26 @@ class APFKernel:
     (:mod:`bipk_tpu_torch.ops.cuda_kernels`); ``reference=True`` calls
     their plain PyTorch versions instead, on any device, so a whole sweep
     can be held against the kernels.
+
+    Two opt-in configurations of the gather/draw, for GPs with m <= 24
+    (wider GPs keep the default kernels):
+
+    - ``reuse_factor``: the look-ahead's kernel also emits the factor
+      ``LW = [tril(L) | white]`` of ``prior + lam * S``, and the draw reads
+      it instead of factoring the same statistics again (the JAX
+      package's ``BIPK_REUSE_FACTOR=1``, ``bipk_tpu/algorithms/apf.py:
+      82-92``);
+    - ``dedup_gather``: the draw stages each block's distinct ancestor
+      columns in shared memory (the JAX package's ``BIPK_DEDUP_GATHER=1``).
+
+    With both, the factor wins, as in JAX. The port reads no environment
+    variable: the keywords are the switch.
     """
 
     def __init__(
         self, ssm: SSM, gps: Sequence[GPNode], dtype, device,
-        reference: bool = False,
+        reference: bool = False, reuse_factor: bool = False,
+        dedup_gather: bool = False,
     ):
         self.ssm = ssm
         self.gps = tuple(gps)
@@ -64,6 +79,9 @@ class APFKernel:
         self.ms = tuple(gp.basis_dim for gp in self.gps)
         self.ns = tuple(gp.out_dim for gp in self.gps)
         self.jitter = mniw._default_jitter(dtype)
+        self.reference = reference
+        self.reuse_factor = reuse_factor
+        self.dedup_gather = dedup_gather
         self.process_chol = (
             None if ssm.is_deterministic else ssm.process_chol(dtype, self.device)
         )
@@ -75,7 +93,6 @@ class APFKernel:
 
         self._factorize_project = pick(ck.factorize_project_packed)
         self._systematic = pick(ck.systematic_ancestors_blocks)
-        self._draw_update_gather = pick(ck.draw_update_gather_packed_blocks)
         self._logdets = pick(ck.log_base_measure_packed_logdets)
 
     # -- model evaluation ------------------------------------------------
@@ -168,21 +185,23 @@ class APFKernel:
 
     # -- packed-statistics pieces ------------------------------------------
 
-    def projected_all_packed(self, Ss, lam, basis):
+    def projected_all_packed(self, Ss, lam, basis, emit_factor=False):
         """Per-GP fused factorization + predictive projection over the
         packed carry: one :class:`~bipk_tpu_torch.ops.mniw.ProjectedFactor`
         per GP. Its ``df`` is None: the filter never reads it, and the
-        cSMC, which does, fills it in."""
-        return tuple(
-            mniw.ProjectedFactor(
-                *self._factorize_project(
-                    Ss[i], basis[i], self.jitter, lam, self.prior_blocks[i],
-                    m=self.ms[i], n=self.ns[i],
-                ),
-                None,
+        cSMC, which does, fills it in. With ``emit_factor`` returns ``(fps,
+        lws)``, ``lws`` each GP's packed factor ``[tril(L) | white]``, or
+        None for a GP wider than ``mniw.FACTOR_MAX_M``."""
+        fps, lws = [], []
+        for i in range(self.n_gp):
+            emit = emit_factor and self.ms[i] <= mniw.FACTOR_MAX_M
+            out = self._factorize_project(
+                Ss[i], basis[i], self.jitter, lam, self.prior_blocks[i],
+                m=self.ms[i], n=self.ns[i], emit_factor=emit,
             )
-            for i in range(self.n_gp)
-        )
+            fps.append(mniw.ProjectedFactor(*out[:5], None))
+            lws.append(out[5] if emit else None)
+        return (tuple(fps), tuple(lws)) if emit_factor else tuple(fps)
 
     def log_base_measure_packed(self, i, S, prior_eff):
         """GP ``i``'s MNIW log base measure of ``prior_eff + S`` per
@@ -194,40 +213,52 @@ class APFKernel:
             logdets=self._logdets,
         )
 
-    def auxiliary_fused_packed(
+    def auxiliary_fused_packed_f(
         self, Ss, lam, state, int_vars, inp_prev, inp_cur, obs, log_weights,
+        emit_factor=True,
     ):
         """Look-ahead states and first-stage weights, the GP posterior mean
-        at the look-ahead state projected in the factorization kernel.
-        Returns ``(aux_state, aux_iv, lw_aux, ll_aux, fps)``."""
+        at the look-ahead state projected in the factorization kernel, and
+        with ``emit_factor`` each GP's packed factor for
+        :meth:`draw_update_gather_all_packed` to reuse instead of factoring
+        the same statistics again. Returns ``(aux_state, aux_iv, lw_aux,
+        ll_aux, fps, lws)``, ``lws`` all None without ``emit_factor``."""
         aux_state = self.transition_all(state, inp_prev, int_vars)
         basis = tuple(
             self.basis_all(i, aux_state, inp_cur) for i in range(self.n_gp)
         )
-        fps = self.projected_all_packed(Ss, lam, basis)
+        if emit_factor:
+            fps, lws = self.projected_all_packed(Ss, lam, basis, emit_factor=True)
+        else:
+            fps, lws = self.projected_all_packed(Ss, lam, basis), (None,) * self.n_gp
         aux_iv = tuple(fp.mean for fp in fps)
         ll_aux = self.log_lik_all(obs, aux_state, inp_cur, aux_iv)
-        return aux_state, aux_iv, ll_aux + log_weights, ll_aux, fps
+        return aux_state, aux_iv, ll_aux + log_weights, ll_aux, fps, lws
 
     def resample(self, weights, u):
         """Sorted systematic ancestors ``(N,)`` int32 for weights ``(N,)``."""
         return self._systematic(weights, u, weights.shape[0])
 
     def draw_update_gather_all_packed(
-        self, uvs, Ss, ancestors, lam, new_state, inp_cur,
+        self, uvs, Ss, ancestors, lam, new_state, inp_cur, factors=None,
     ):
         """Resampling gather + matrix-t draw + rank-1 statistics update per
         GP, the gather done inside the kernel. ``uvs`` holds each GP's
-        ``(u, v)`` uniforms ``(n_i, N)``. Returns ``(Ss_new, new_iv,
-        new_basis, lds)``."""
+        ``(u, v)`` uniforms ``(n_i, N)``; ``factors`` (from
+        :meth:`auxiliary_fused_packed_f`, the same ``Ss`` and ``lam``) lets
+        the kernel reuse the look-ahead's factors. The kernel per GP is
+        ``mniw.draw_update_gather_packed_bl``'s choice. Returns ``(Ss_new,
+        new_iv, new_basis, lds)``."""
         new_basis = tuple(
             self.basis_all(i, new_state, inp_cur) for i in range(self.n_gp)
         )
         outs = tuple(
-            self._draw_update_gather(
-                Ss[i], ancestors, new_basis[i], uvs[i][0], uvs[i][1],
-                self.jitter, lam, self.prior_blocks[i], p3=self.p3[i],
-                m=self.ms[i], n=self.ns[i],
+            mniw.draw_update_gather_packed_bl(
+                uvs[i][0], uvs[i][1], Ss[i], ancestors, new_basis[i],
+                prior=mniw.MNIW(*self.prior_blocks[i], self.p3[i]), lam=lam,
+                m=self.ms[i], n=self.ns[i], jitter=self.jitter,
+                factor=None if factors is None else factors[i],
+                dedup=self.dedup_gather, plain=self.reference,
             )
             for i in range(self.n_gp)
         )
@@ -287,8 +318,9 @@ class APF:
         """One filter step; returns ``(carry, ancestors)``."""
         kern, lam = self.kern, self.lam
         log_weights, state, int_vars, Ss = carry
-        _, _, lw_aux, ll_aux, _ = kern.auxiliary_fused_packed(
+        _, _, lw_aux, ll_aux, _, lws = kern.auxiliary_fused_packed_f(
             Ss, lam, state, int_vars, inp_prev, inp_cur, obs, log_weights,
+            emit_factor=kern.reuse_factor,
         )
         ancestors = kern.resample(torch.softmax(lw_aux, 0), draws.u_res)
         state_g, *iv_g, ll_aux_g = kern.packed_gather(
@@ -296,7 +328,7 @@ class APF:
         )
         new_state = kern.propagate_all(draws.z, state_g, inp_prev, iv_g)
         Ss_new, new_iv, _, _ = kern.draw_update_gather_all_packed(
-            draws.uvs, Ss, ancestors, lam, new_state, inp_cur,
+            draws.uvs, Ss, ancestors, lam, new_state, inp_cur, factors=lws,
         )
         new_log_weights = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_g
         return (new_log_weights, new_state, new_iv, Ss_new), ancestors
@@ -367,9 +399,15 @@ def build_apf(
     forgetting_factor: float = 1.0,
     dtype=torch.float32,
     device: str | torch.device = "cuda",
+    reuse_factor: bool = False,
+    dedup_gather: bool = False,
 ) -> APF:
     """Build the online APF sweep with full traces on one device (the
     JAX package's GSPMD ``mesh=`` is not ported). ``device`` defaults to
-    CUDA and raises if no card is present."""
+    CUDA and raises if no card is present. ``reuse_factor`` and
+    ``dedup_gather`` select the opt-in gather/draw kernels
+    (:class:`APFKernel`)."""
     device = resolve_device(device)
-    return APF(APFKernel(ssm, gps, dtype, device), n_particles, forgetting_factor)
+    kern = APFKernel(ssm, gps, dtype, device, reuse_factor=reuse_factor,
+                     dedup_gather=dedup_gather)
+    return APF(kern, n_particles, forgetting_factor)

@@ -14,9 +14,9 @@ particle follows the reference trajectory. Each step:
    folded into its prior), plus the transition density to the reference;
 4. a gather of the small payloads with the patched ancestors, the RK4
    propagation, and the fused gather + matrix-t draw + rank-1 update (one
-   kernel per GP) with the SORTED, unpatched ancestors; the reference's
-   column and interface variables are then written over the kernel's
-   fresh output;
+   kernel per GP; with ``reuse_factor`` it reads the look-ahead's factor)
+   with the SORTED, unpatched ancestors; the reference's column and
+   interface variables are then written over the kernel's fresh output;
 5. the reference's contribution at this step leaves its future statistics.
 
 The step keeps every value on the device: the reference's ancestor is a
@@ -152,8 +152,11 @@ class CSMC:
         patched into ``ancestors``."""
         kern = self.kern
         log_weights, state, int_vars, Ss, ref_stats = carry
-        aux_state, _, lw_aux, ll_aux, fps = kern.auxiliary_fused_packed(
+        # with reuse_factor the look-ahead also emits the factor of
+        # kern.priors + 1.0 * S, which the draw below reuses
+        aux_state, _, lw_aux, ll_aux, fps, lws = kern.auxiliary_fused_packed_f(
             Ss, 1.0, state, int_vars, inp_prev, inp_cur, obs, log_weights,
+            emit_factor=kern.reuse_factor,
         )
         ancestors_sorted = kern.resample(torch.softmax(lw_aux, 0), draws.u_res)
 
@@ -182,7 +185,7 @@ class CSMC:
         new_state = kern.propagate_all(draws.z, state_g, inp_prev, iv_g)
         new_state[:, -1] = ref_x
         Ss_new, new_iv, new_basis, _ = kern.draw_update_gather_all_packed(
-            draws.uvs, Ss, ancestors_sorted, 1.0, new_state, inp_cur,
+            draws.uvs, Ss, ancestors_sorted, 1.0, new_state, inp_cur, factors=lws,
         )
         # the reference's column: its ancestor's statistics plus its datum,
         # written into the kernel's fresh output (never into Ss)
@@ -282,17 +285,25 @@ def build_csmc(
     rank1: bool | None = None,
     device: str | torch.device = "cuda",
     reference: bool = False,
+    reuse_factor: bool = False,
+    dedup_gather: bool = False,
 ) -> CSMC:
     """Build the conditional-SMC-with-ancestor-sampling sweep (the direct
     formulation) on one device.
 
     ``device`` defaults to CUDA and raises if no card is present.
     ``reference=True`` runs the kernels' plain PyTorch versions in their
-    place. ``rank1=True`` and ``mesh`` are not ported.
+    place. ``reuse_factor`` and ``dedup_gather`` select the opt-in
+    gather/draw kernels (:class:`~bipk_tpu_torch.algorithms.apf.
+    APFKernel`); the reused factor is that of the prior plus the
+    statistics at lambda = 1, as the draw's. ``rank1=True`` and ``mesh``
+    are not ported.
     """
     if mesh is not None or rank1:
         raise NotImplementedError(
             "the port's cSMC runs the direct formulation on one device"
         )
     device = resolve_device(device)
-    return CSMC(APFKernel(ssm, gps, dtype, device, reference=reference), n_particles)
+    kern = APFKernel(ssm, gps, dtype, device, reference=reference,
+                     reuse_factor=reuse_factor, dedup_gather=dedup_gather)
+    return CSMC(kern, n_particles)

@@ -133,14 +133,18 @@ def build_gibbs(
     n_chains: int | None = None,
     chain_mesh=None,
     device: str | torch.device = "cuda",
+    reuse_factor: bool = False,
+    dedup_gather: bool = False,
 ) -> Gibbs:
     """Build the marginalized-PGAS Gibbs sampler on one device, one chain.
 
     ``n_iterations`` counts the initial reference, as in the JAX package:
     the sampler runs ``n_iterations - 1`` sweeps. ``fused`` is accepted
     for the JAX signature; both values run the same host loop. ``device``
-    defaults to CUDA and raises if no card is present. ``mesh``,
-    ``shard_mesh``, ``n_chains`` and ``chain_mesh`` are not ported.
+    defaults to CUDA and raises if no card is present. ``reuse_factor``
+    and ``dedup_gather`` go to the cSMC sweep (:func:`~bipk_tpu_torch.
+    algorithms.csmc.build_csmc`). ``mesh``, ``shard_mesh``, ``n_chains``
+    and ``chain_mesh`` are not ported.
     """
     if any(a is not None for a in (mesh, shard_mesh, n_chains, chain_mesh)):
         raise NotImplementedError(
@@ -148,5 +152,6 @@ def build_gibbs(
         )
     del fused
     device = resolve_device(device)
-    return Gibbs(build_csmc(ssm, gps, n_particles, dtype=dtype, device=device),
-                 n_iterations)
+    csmc = build_csmc(ssm, gps, n_particles, dtype=dtype, device=device,
+                      reuse_factor=reuse_factor, dedup_gather=dedup_gather)
+    return Gibbs(csmc, n_iterations)

@@ -14,10 +14,17 @@
 //     factorization core (Cholesky, forward substitution of T0, Schur
 //     complement) with the projection and the draw compiled out; the prior
 //     buffer then carries prior + the reference's future statistics, a new
-//     offset every step, and nu stays with the caller.
-// Each is compiled twice: packed_mniw_kernel<24, MODE> serves m <= 24, the
-// widths of the TPU's tiled kernels above; packed_mniw_kernel<48, MODE>
-// serves 24 < m <= 48 (the toy, m = 40, and the single-mass oscillator,
+//     offset every step, and nu stays with the caller;
+//   - factorize_project_packed(emit_factor=True) -> _packed_fp_emit_kernel
+//     (:526): the projection that also writes the factor LW = [tril(L) |
+//     white], a fourth mode (kEmit) of the same core, m <= 24 only;
+//   - draw_update_factor_gather_packed_blocks (:1422) ->
+//     _du_factor_gather_kernel (:560): the gathered draw/update reading
+//     L and white from LW[:, anc[j]] instead of factoring again
+//     (factor_gather_kernel below, m <= 24).
+// The first four are compiled twice: packed_mniw_kernel<24, MODE> serves
+// m <= 24, the widths of the TPU's tiled kernels above;
+// packed_mniw_kernel<48, MODE> serves 24 < m <= 48 (the toy, m = 40, and the single-mass oscillator,
 // m = 41) and replaces the TPU's cs-layout kernels of those widths:
 // _cs_call (:2454) with _cs_fp_kernel (:2322), _cs_lbm_kernel (:2341) and
 // _cs_du_kernel (:2353), and _cs_du_gather_call (:2482) with
@@ -31,7 +38,8 @@
 // [P0 (m*n, row-major) | P1 (m*m) | P2 (n*n)] that every thread reads
 // through the read-only cache.
 //
-// Design: one thread per particle. Each thread reads its particle's column
+// Design: one thread per particle (the column core, packed_mniw.cuh, which
+// dedup_gather.cu shares). Each thread reads its particle's column
 // of S exactly once, factors A = P1 + lam*T1 + (jitter/m)*trace(.)*I in a
 // per-thread packed array (local memory), forward-substitutes the prior
 // mean and phi, and writes only the small outputs. The draw/update variant
@@ -40,6 +48,10 @@
 // once and S_new written once, into a separate buffer. With a sorted
 // ancestor vector thread j reads column anc[j]; neighbouring threads then
 // read the same or nearby columns and the gather costs no extra pass.
+// Every gathering kernel checks 0 <= anc[j] < n_in with a device-side
+// assert (source_column), as torch's CUDA index_select does: no host
+// synchronisation; a bad index traps the kernel, and the next
+// synchronisation raises, where it would otherwise read out of bounds.
 //
 // What bounds it on the H100 at m = 20, N = 32768: each call moves ~34 MB
 // (factorize/project) or ~64 MB (draw/update) of statistics, ~10 us and
@@ -55,129 +67,84 @@
 // the gathered draw/update ~243 MB (73 us); the frame grows to 5.1-5.9 KB
 // and the dependent chain by ~(41/20)^3, so the <48> kernels run ~50x
 // their bound, and at the Gibbs paths' N = 200 (two blocks) one thread's
-// chain is the whole time. Times: PERF.md.
+// chain is the whole time.
+//
+// The factor pair (m = 20, n = 1, rows_lw = m(m+1)/2 + m = 230). kEmit is
+// kProject plus one write of LW, 30 MB at N = 32768: ~64 MB in all, 19 us
+// at 3.35 TB/s, and the same Cholesky in local memory as kProject, so it
+// should cost what kProject costs. factor_gather_kernel reads S and LW of
+// each distinct ancestor (up to 60 MB) and writes S_new (30 MB): ~28 us
+// with every column distinct. It does no Cholesky: a forward substitution
+// of phi reads L row by row from LW (LW's row-major order makes the walk
+// one row after the next), white is read once for Psi and the mean, and
+// each thread keeps only phi[m] and v[m]. The m(m+1)/2 array, whose
+// dependent local loads bound #4, is gone; what remains is m^2/2
+// dependent global loads, coalesced across the warp. Times: PERF.md.
 //
 // C interface (loaded with ctypes): every function launches on the given
 // stream, never synchronises, allocates nothing, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "packed_mniw.cuh"
+
+using namespace bipk_mniw;
 
 namespace {
-
-constexpr int kThreads = 128;
-
-// What a launch computes: the projection at phi (factorize_project), the
-// draw and the rank-1 update (draw_update), or the log-determinants alone.
-enum Mode { kProject = 0, kDraw = 1, kLogdets = 2 };
-
-__device__ __forceinline__ int tri_off(int j, int m) {
-  // offset of column j's diagonal in a column-major packed lower triangle
-  return j * m - (j * (j - 1)) / 2;
-}
-
-struct Args {
-  const float* S;       // (rows, n_in)
-  const int* anc;       // (n_out,) sorted ancestors, or nullptr = identity
-  const float* phi;     // (m, n_out); unused by kLogdets
-  const float* u;       // (n, n_out) raw uniforms (draw only)
-  const float* v;       // (n, n_out)
-  const float* prior;   // [P0 | P1 | P2] or nullptr
-  int n_in, n_out, m, n;
-  float jitter, lam, p3;
-  // factorize/project outputs
-  float* mean;          // (n, n_out)
-  float* col;           // (n_out,)
-  float* row;           // (n, n, n_out)
-  // draw/update outputs
-  float* S_new;         // (rows, n_out)
-  float* y;             // (n, n_out)
-  float* ld;            // (2, n_out): logdet_T1, logdet_Psi
-};
 
 template <int MAXM, int MODE>
 __global__ void __launch_bounds__(kThreads)
 packed_mniw_kernel(const Args a) {
-  constexpr bool DRAW = MODE == kDraw;
-  constexpr bool PHI = MODE != kLogdets;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= a.n_out) return;
+  // only the draw gathers; the other modes read column j
+  const int src = MODE == kDraw ? source_column(a, j) : j;
+  mniw_column<MAXM, MODE>(a, j, a.S + src, a.n_in);
+}
+
+// #4's draw/update on S[:, anc[j]] with the factor of prior + lam *
+// S[:, anc[j]] read from LW[:, anc[j]] (emitted by kEmit for the same
+// statistics, prior and lam) instead of factored again.
+__global__ void __launch_bounds__(kThreads)
+factor_gather_kernel(const Args a) {
+  constexpr int MAXM = 24;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= a.n_out) return;
   const int m = a.m, n = a.n;
   const int64_t n_in = a.n_in, n_out = a.n_out;
-  const int src = a.anc ? a.anc[j] : j;
-  const float* Sc = a.S + src;  // element r of this column: Sc[r * n_in]
+  const int src = source_column(a, j);
+  const float* Sc = a.S + src;    // element r: Sc[r * n_in]
+  const float* LWc = a.lw + src;  // element r: LWc[r * n_in]
   const int o1 = m * n;
   const int o2 = o1 + m * (m + 1) / 2;
   const int o3 = o2 + n * (n + 1) / 2;
+  const int tri = m * (m + 1) / 2;
   const float lam = a.lam;
-  const float* P0 = a.prior;
-  const float* P1 = a.prior ? a.prior + m * n : nullptr;
   const float* P2 = a.prior ? a.prior + m * n + m * m : nullptr;
 
   float phi[MAXM];
-  if constexpr (PHI) {
-    for (int i = 0; i < m; ++i) phi[i] = a.phi[i * n_out + j];
-  }
+  for (int i = 0; i < m; ++i) phi[i] = a.phi[i * n_out + j];
 
-  // A = P1 + lam*T1 (T1 stored once per symmetric pair, so sym() is exact)
-  float L[MAXM * (MAXM + 1) / 2];
-  float trace = 0.f;
+  // the T1 rows of S_new: lam*T1 + phi phi^T, independent of the draw
   for (int c = 0; c < m; ++c) {
     for (int i = c; i < m; ++i) {
       const int k = tri_off(c, m) + i - c;
-      const float raw = Sc[(o1 + k) * n_in];
-      if constexpr (DRAW) a.S_new[(o1 + k) * n_out + j] = raw * lam + phi[i] * phi[c];
-      float aij = raw * lam;
-      if (P1) aij += __ldg(P1 + i * m + c);
-      L[k] = aij;
-      if (i == c) trace += aij;
+      a.S_new[(o1 + k) * n_out + j] = forget_add(Sc[(o1 + k) * n_in], lam, phi[i], phi[c]);
     }
   }
-  if (a.jitter != 0.f) {
-    const float bump = (a.jitter / m) * trace;
-    for (int c = 0; c < m; ++c) L[tri_off(c, m)] += bump;
-  }
 
-  // left-looking Cholesky, column by column: L[:, c] = s * rsqrt(s_cc)
-  float half_ld = 0.f;
-  for (int c = 0; c < m; ++c) {
-    const int oc = tri_off(c, m);
-    for (int i = c; i < m; ++i) {
-      float s = L[oc + i - c];
-      for (int k = 0; k < c; ++k) {
-        const int ok = tri_off(k, m);
-        s -= L[ok + i - k] * L[ok + c - k];
-      }
-      L[oc + i - c] = s;
-    }
-    const float inv = rsqrtf(L[oc]);
-    for (int i = c; i < m; ++i) L[oc + i - c] *= inv;
-    half_ld += logf(L[oc]);
-  }
-
-  // white = L^{-1}(P0 + lam*T0) and v = L^{-1} phi, one forward pass
-  float t0raw[MAXM * 2];
-  float white[MAXM * 2];
+  // v = L^{-1} phi, row i of L at LW rows i(i+1)/2 .. i(i+1)/2 + i
   float vv[MAXM];
+  float half_ld = 0.f;
   for (int i = 0; i < m; ++i) {
-    const float d = L[tri_off(i, m)];
-    for (int c = 0; c < n; ++c) {
-      const float raw = Sc[(i * n + c) * n_in];
-      t0raw[i * n + c] = raw;
-      float acc = raw * lam;
-      if (P0) acc += __ldg(P0 + i * n + c);
-      for (int k = 0; k < i; ++k) acc -= L[tri_off(k, m) + i - k] * white[k * 2 + c];
-      white[i * 2 + c] = acc / d;
-    }
-    if constexpr (PHI) {
-      float acc = phi[i];
-      for (int k = 0; k < i; ++k) acc -= L[tri_off(k, m) + i - k] * vv[k];
-      vv[i] = acc / d;
-    }
+    const float* Li = LWc + (int64_t)(i * (i + 1) / 2) * n_in;
+    float acc = phi[i];
+    for (int k = 0; k < i; ++k) acc -= Li[k * n_in] * vv[k];
+    const float d = Li[i * n_in];
+    vv[i] = acc / d;
+    half_ld += logf(d);
   }
 
-  // Psi = P2 + lam*T2 - white^T white, with T2 read as a packed triangle
+  // Psi = P2 + lam*T2 - white^T white and mean = white^T v, white read once
   float t2raw[3];
   float psi[2][2];
   for (int b = 0; b < n; ++b) {
@@ -190,88 +157,53 @@ packed_mniw_kernel(const Args a) {
       const int lo = a_ < b ? a_ : b, hi = a_ < b ? b : a_;
       float acc = t2raw[tri_off(lo, n) + hi - lo] * lam;
       if (P2) acc += __ldg(P2 + a_ * n + b);
-      for (int k = 0; k < m; ++k) acc -= white[k * 2 + a_] * white[k * 2 + b];
       psi[a_][b] = acc;
     }
   }
-  float logdet_psi;
-  if (n == 1) {
-    logdet_psi = logf(psi[0][0]);
-  } else {
-    const float off = 0.5f * (psi[0][1] + psi[1][0]);
-    logdet_psi = logf(psi[0][0] * psi[1][1] - off * off);
+  float mean[2] = {0.f, 0.f};
+  for (int k = 0; k < m; ++k) {
+    float w[2];
+    for (int c = 0; c < n; ++c) w[c] = LWc[(tri + k * n + c) * n_in];
+    for (int a_ = 0; a_ < n; ++a_)
+      for (int b = 0; b < n; ++b) psi[a_][b] -= w[a_] * w[b];
+    for (int c = 0; c < n; ++c) mean[c] += w[c] * vv[k];
   }
-
   a.ld[j] = 2.f * half_ld;
-  a.ld[n_out + j] = logdet_psi;
-  if constexpr (MODE == kLogdets) return;
+  a.ld[n_out + j] = logdet_psi_of(psi, n);
 
-  float mean[2];
-  for (int c = 0; c < n; ++c) {
-    float acc = 0.f;
-    for (int k = 0; k < m; ++k) acc += white[k * 2 + c] * vv[k];
-    mean[c] = acc;
-  }
   float colv = 0.f;
   for (int k = 0; k < m; ++k) colv += vv[k] * vv[k];
   colv += 1.f;
 
-  if constexpr (MODE == kProject) {
-    for (int c = 0; c < n; ++c) a.mean[c * n_out + j] = mean[c];
-    a.col[j] = colv;
-    for (int a_ = 0; a_ < n; ++a_)
-      for (int b = 0; b < n; ++b) a.row[(a_ * n + b) * n_out + j] = psi[a_][b];
-    return;
-  }
-
-  // matrix-t draw: df_pred = lam*T3 + p3 + 1 - n, polar Student-t from the
-  // raw uniforms (w = 1 - u keeps w^{-2/df} finite)
   const float t3raw = Sc[o3 * n_in];
-  const float df_pred = t3raw * lam + a.p3 + (1.f - n);
-  float t[2];
-  for (int c = 0; c < n; ++c) {
-    const float w = 1.f - a.u[c * n_out + j];
-    const float r = sqrtf(df_pred * expm1f(-(2.f / df_pred) * logf(w)));
-    t[c] = r * cospif(2.f * a.v[c * n_out + j]);
-  }
-  const float inv_df = 1.f / df_pred;
-  float scaled[2];
-  if (n == 1) {
-    scaled[0] = sqrtf(psi[0][0] * inv_df) * t[0];
-  } else {
-    const float l00 = sqrtf(psi[0][0] * inv_df);
-    const float l10 = 0.5f * (psi[0][1] + psi[1][0]) * inv_df / l00;
-    const float l11 = sqrtf(psi[1][1] * inv_df - l10 * l10);
-    scaled[0] = l00 * t[0];
-    scaled[1] = l10 * t[0] + l11 * t[1];
-  }
-  const float sqrt_col = sqrtf(colv);
   float yv[2];
-  for (int c = 0; c < n; ++c) {
-    yv[c] = mean[c] + scaled[c] * sqrt_col;
-    a.y[c * n_out + j] = yv[c];
-  }
+  matrix_t_draw(a, j, t3raw * lam + a.p3 + (1.f - n), psi, mean, colv, yv);
 
-  // rank-1 update of the raw statistics (the prior never enters the carry)
+  // rank-1 update of the raw statistics, T0 read here for the first time
   for (int i = 0; i < m; ++i)
     for (int c = 0; c < n; ++c)
-      a.S_new[(i * n + c) * n_out + j] = t0raw[i * n + c] * lam + phi[i] * yv[c];
+      a.S_new[(i * n + c) * n_out + j] = forget_add(Sc[(i * n + c) * n_in], lam, phi[i], yv[c]);
   for (int b = 0; b < n; ++b)
     for (int a_ = b; a_ < n; ++a_) {
       const int k = tri_off(b, n) + a_ - b;
-      a.S_new[(o2 + k) * n_out + j] = t2raw[k] * lam + yv[a_] * yv[b];
+      a.S_new[(o2 + k) * n_out + j] = forget_add(t2raw[k], lam, yv[a_], yv[b]);
     }
-  a.S_new[o3 * n_out + j] = t3raw * lam + 1.f;
+  a.S_new[o3 * n_out + j] = forget_add(t3raw, lam, 1.f, 1.f);
+}
+
+bool bad_shape(const Args& a, int max_m) {
+  return a.m < 1 || a.m > max_m || a.n < 1 || a.n > 2;
 }
 
 template <int MODE>
 int launch(const Args& a, cudaStream_t stream) {
-  if (a.m < 1 || a.m > 48 || a.n < 1 || a.n > 2) return (int)cudaErrorInvalidValue;
+  // the factor pair serves m <= 24 only, as the TPU's (supported_factor)
+  if (bad_shape(a, MODE == kEmit ? 24 : 48)) return (int)cudaErrorInvalidValue;
   if (a.n_out == 0) return (int)cudaGetLastError();
   const dim3 grid((a.n_out + kThreads - 1) / kThreads);
   if (a.m <= 24) {
     packed_mniw_kernel<24, MODE><<<grid, kThreads, 0, stream>>>(a);
-  } else {
+  } else if constexpr (MODE != kEmit) {
     packed_mniw_kernel<48, MODE><<<grid, kThreads, 0, stream>>>(a);
   }
   return (int)cudaGetLastError();
@@ -282,13 +214,14 @@ int launch(const Args& a, cudaStream_t stream) {
 extern "C" int bipk_factorize_project_packed(
     const float* S, const float* phi, const float* prior, int n_particles,
     int m, int n, float jitter, float lam, float* mean, float* col,
-    float* row, float* ld, void* stream) {
+    float* row, float* ld, float* lw, void* stream) {
   Args a = {};
   a.S = S; a.anc = nullptr; a.phi = phi; a.prior = prior;
   a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
   a.jitter = jitter; a.lam = lam;
-  a.mean = mean; a.col = col; a.row = row; a.ld = ld;
-  return launch<kProject>(a, static_cast<cudaStream_t>(stream));
+  a.mean = mean; a.col = col; a.row = row; a.ld = ld; a.lw_out = lw;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return lw ? launch<kEmit>(a, s) : launch<kProject>(a, s);
 }
 
 extern "C" int bipk_draw_update_packed(
@@ -302,6 +235,23 @@ extern "C" int bipk_draw_update_packed(
   a.jitter = jitter; a.lam = lam; a.p3 = p3;
   a.S_new = S_new; a.y = y; a.ld = ld;
   return launch<kDraw>(a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int bipk_draw_update_factor_gather_packed(
+    const float* S, const float* LW, int n_in, const int* anc, int n_out,
+    const float* phi, const float* u, const float* v, const float* prior,
+    float p3, int m, int n, float lam, float* S_new, float* y, float* ld,
+    void* stream) {
+  Args a = {};
+  a.S = S; a.lw = LW; a.anc = anc; a.phi = phi; a.u = u; a.v = v;
+  a.prior = prior; a.n_in = n_in; a.n_out = n_out; a.m = m; a.n = n;
+  a.lam = lam; a.p3 = p3;
+  a.S_new = S_new; a.y = y; a.ld = ld;
+  if (bad_shape(a, 24) || !anc || !LW) return (int)cudaErrorInvalidValue;
+  if (n_out == 0) return (int)cudaGetLastError();
+  const dim3 grid((n_out + kThreads - 1) / kThreads);
+  factor_gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int bipk_log_base_measure_packed(

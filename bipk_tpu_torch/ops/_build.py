@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels into one shared library.
 
-ONE ``nvcc`` call compiles every ``bipk_tpu_torch/csrc/*.cu`` for
-``sm_90a`` into one ``.so`` with a plain C interface, loaded with
-``ctypes``. The sources include no PyTorch header: a file that does takes
-minutes to compile where this takes seconds, and PyTorch's extension loader
-also needs ``ninja``. The library's file name carries a hash of the
-sources and flags, so a stale build is never loaded. The build runs at
-first use, inside the checkout (``bipk_tpu_torch/_build/``, ignored by
-git); a failed build raises with nvcc's output.
+ONE ``nvcc`` call compiles every ``bipk_tpu_torch/csrc/*.cu`` (with the
+headers beside them, ``*.cuh``) for ``sm_90a`` into one ``.so`` with a
+plain C interface, loaded with ``ctypes``. The sources include no PyTorch
+header: a file that does takes minutes to compile where this takes
+seconds, and PyTorch's extension loader also needs ``ninja``. The
+library's file name carries a hash of the sources, headers and flags, so
+a stale build is never loaded. The build runs at first use, inside the
+checkout (``bipk_tpu_torch/_build/``, ignored by git); a failed build
+raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -29,7 +30,12 @@ NVCC_FLAGS = [
 
 
 def sources() -> list[Path]:
+    """The translation units nvcc compiles."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -46,7 +52,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libbipk_kernels_{h.hexdigest()[:16]}.so"

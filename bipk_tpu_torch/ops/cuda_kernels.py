@@ -4,15 +4,17 @@ Each wrapper is named after the TPU launcher in
 ``bipk_tpu/ops/pallas_kernels.py`` whose work it does, and takes the same
 arguments minus the TPU's tiling plan:
 
-==================================  ===========================
-wrapper                             CUDA source
-==================================  ===========================
-``factorize_project_packed``        ``csrc/packed_mniw.cu``
-``systematic_ancestors_blocks``     ``csrc/systematic.cu``
-``draw_update_packed_blocks``       ``csrc/packed_mniw.cu``
-``draw_update_gather_packed_blocks`` ``csrc/packed_mniw.cu``
-``log_base_measure_packed_logdets`` ``csrc/packed_mniw.cu``
-==================================  ===========================
+=========================================== =========================
+wrapper                                     CUDA source
+=========================================== =========================
+``factorize_project_packed``                ``csrc/packed_mniw.cu``
+``systematic_ancestors_blocks``             ``csrc/systematic.cu``
+``draw_update_packed_blocks``               ``csrc/packed_mniw.cu``
+``draw_update_gather_packed_blocks``        ``csrc/packed_mniw.cu``
+``log_base_measure_packed_logdets``         ``csrc/packed_mniw.cu``
+``draw_update_factor_gather_packed_blocks`` ``csrc/packed_mniw.cu``
+``draw_update_dedup_gather_packed_blocks``  ``csrc/dedup_gather.cu``
+=========================================== =========================
 
 Each wrapper's plain version is the ``*_plain`` function beside it (a thin
 adapter over :mod:`~bipk_tpu_torch.ops.mniw` / :mod:`~bipk_tpu_torch.ops.
@@ -21,12 +23,14 @@ CUDA tensors it launches its kernel (building the library on first use) or
 raises — there is no fallback on the card. Callers that want the plain
 versions on the card (to hold the kernels against them) call the
 ``*_plain`` functions themselves. Each wrapper counts its kernel launches
-in its ``launches`` attribute; the four over ``csrc/packed_mniw.cu`` also
-count them per template instantiation (``launches_by_width``: m <= 24
+in its ``launches`` attribute; the packed-MNIW ones (``PACKED_MNIW``) also
+count them per kernel instantiation (``launches_by_kernel``: m <= 24
 runs ``packed_mniw_kernel<24, MODE>``, the counterpart of the TPU's tiled
 kernels, and 24 < m <= 48 runs ``<48, MODE>``, the counterpart of its
-cs-layout ``_cs_call`` / ``_cs_du_gather_call``). The kernels take f32
-only, launch on the current stream and never synchronise; the wrapper
+cs-layout ``_cs_call`` / ``_cs_du_gather_call``; the factor-emitting
+projection, ``<24, kEmit>``, counts apart from the plain one). The factor
+pair and the dedup gather take m <= 24 only. The kernels take f32 only,
+launch on the current stream and never synchronise; the wrapper
 allocates the outputs.
 """
 
@@ -45,9 +49,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "bipk_factorize_project_packed": [
-        _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
+        _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P,
     ],
     "bipk_draw_update_packed": [
+        _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
+    ],
+    "bipk_draw_update_factor_gather_packed": [
+        _P, _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _P, _P, _P, _P,
+    ],
+    "bipk_draw_update_dedup_gather_packed": [
         _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
     ],
     "bipk_systematic_ancestors": [_P, _P, _I, _P, _P, _P],
@@ -57,6 +67,11 @@ MAX_M = 48
 MAX_N = 2
 # the m bounds of packed_mniw_kernel's instantiations (packed_mniw.cu launch)
 WIDTHS = (24, 48)
+# the widest m of the dedup gather (dedup_gather.cu), and its shared-memory
+# stage in floats per block (kStageFloats there): a block stages its D
+# distinct ancestor columns when D * packed_rows(m, n) fits
+DEDUP_MAX_M = 24
+DEDUP_STAGE_FLOATS = 6144
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,17 +110,18 @@ def _require(name: str, device, dtype, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _count(fn, m: int | None = None) -> None:
-    """One launch of ``fn``'s kernel; with ``m``, also of the template
-    instantiation that serves it."""
+def _count(fn, m: int | None = None, mode: str = "") -> None:
+    """One launch of ``fn``'s kernel; with ``m``, also of the kernel
+    instantiation that serves it, keyed like ``"<24>"`` or, with ``mode``
+    ``"[emit]"``, ``"[emit]<24>"``."""
     fn.launches += 1
     if m is not None:
-        fn.launches_by_width[next(w for w in WIDTHS if m <= w)] += 1
+        fn.launches_by_kernel[f"{mode}<{next(w for w in WIDTHS if m <= w)}>"] += 1
 
 
-def _check_mn(name: str, S: torch.Tensor, m: int, n: int) -> None:
-    if not (1 <= m <= MAX_M and 1 <= n <= MAX_N):
-        raise ValueError(f"{name}: needs 1 <= m <= {MAX_M}, 1 <= n <= {MAX_N}; got m={m}, n={n}")
+def _check_mn(name: str, S: torch.Tensor, m: int, n: int, max_m: int = MAX_M) -> None:
+    if not (1 <= m <= max_m and 1 <= n <= MAX_N):
+        raise ValueError(f"{name}: needs 1 <= m <= {max_m}, 1 <= n <= {MAX_N}; got m={m}, n={n}")
     if S.dim() != 2 or S.shape[0] != mniw.packed_rows(m, n):
         raise ValueError(f"{name}: S must be (packed_rows(m, n), N); got {tuple(S.shape)}")
 
@@ -135,29 +151,37 @@ def _prior_mniw(prior, p3, like):
     return mniw.MNIW(*prior, torch.as_tensor(p3, dtype=like.dtype, device=like.device))
 
 
-def factorize_project_packed_plain(S, phi, jitter, lam=1.0, prior=None, m=0, n=0):
+def factorize_project_packed_plain(
+    S, phi, jitter, lam=1.0, prior=None, m=0, n=0, emit_factor=False
+):
     """Plain PyTorch version of :func:`factorize_project_packed`."""
-    fp = mniw.factorize_project_packed_bl(
+    out = mniw.factorize_project_packed_bl(
         S, phi, prior=_prior_mniw(prior, 0.0, S), lam=lam, m=m, n=n,
-        jitter=jitter,
+        jitter=jitter, emit_factor=emit_factor,
     )
-    return fp[:5]
+    if emit_factor:
+        return (*out[0][:5], out[1])
+    return out[:5]
 
 
 def factorize_project_packed(
     S: torch.Tensor, phi: torch.Tensor, jitter: float, lam: float = 1.0,
     prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
+    emit_factor: bool = False,
 ):
     """Factor ``prior + lam * S`` per particle and project at ``phi``.
 
     ``S (rows, N)`` packed statistics, ``phi (m, N)``, ``prior`` the
     unbatched ``(P0, P1, P2)`` or None -> ``(mean (n, N), col_scale (N,),
-    row_scale (n, n, N), logdet_T1 (N,), logdet_Psi (N,))``.
+    row_scale (n, n, N), logdet_T1 (N,), logdet_Psi (N,))``. With
+    ``emit_factor`` (m <= 24) a sixth output ``LW (m(m+1)/2 + m*n, N)``
+    carries the factor for :func:`draw_update_factor_gather_packed_blocks`:
+    rows ``[tril(L) row-major | white = L^{-1}(P0 + lam T0), row i*n + c]``.
     """
     name = "factorize_project_packed"
-    _check_mn(name, S, m, n)
+    _check_mn(name, S, m, n, mniw.FACTOR_MAX_M if emit_factor else MAX_M)
     if not _on_cuda(name, S):
-        return factorize_project_packed_plain(S, phi, jitter, lam, prior, m, n)
+        return factorize_project_packed_plain(S, phi, jitter, lam, prior, m, n, emit_factor)
     N = S.shape[1]
     _require(name, S.device, torch.float32, S=(S, S.shape), phi=(phi, (m, N)))
     pbuf = _prior_buffer(name, prior, m, n, S)
@@ -165,13 +189,17 @@ def factorize_project_packed(
     col = torch.empty((N,), dtype=S.dtype, device=S.device)
     row = torch.empty((n, n, N), dtype=S.dtype, device=S.device)
     ld = torch.empty((2, N), dtype=S.dtype, device=S.device)
+    lw = (torch.empty((mniw.lw_rows(m, n), N), dtype=S.dtype, device=S.device)
+          if emit_factor else None)
     rc = _lib().bipk_factorize_project_packed(
         S.data_ptr(), phi.data_ptr(), _ptr(pbuf), N, m, n, float(jitter),
         float(lam), mean.data_ptr(), col.data_ptr(), row.data_ptr(),
-        ld.data_ptr(), _stream(S.device),
+        ld.data_ptr(), _ptr(lw), _stream(S.device),
     )
-    _count(factorize_project_packed, m)
+    _count(factorize_project_packed, m, "[emit]" if emit_factor else "")
     _check(rc, name)
+    if emit_factor:
+        return mean, col, row, ld[0], ld[1], lw
     return mean, col, row, ld[0], ld[1]
 
 
@@ -202,7 +230,11 @@ def systematic_ancestors_blocks(w: torch.Tensor, u: torch.Tensor, n: int):
     return anc
 
 
-def _draw_update(name, S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
+def _draw_update(name, S, anc, phi, u, v, jitter, lam, prior, p3, m, n, launch=None):
+    """Check, allocate and launch a draw/update kernel with the C
+    signature of ``bipk_draw_update_packed`` (the default ``launch``)."""
+    if launch is None:
+        launch = _lib().bipk_draw_update_packed
     n_in = S.shape[1]
     n_out = n_in if anc is None else anc.shape[0]
     _require(
@@ -215,7 +247,7 @@ def _draw_update(name, S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
     S_new = torch.empty((S.shape[0], n_out), dtype=S.dtype, device=S.device)
     y = torch.empty((n, n_out), dtype=S.dtype, device=S.device)
     ld = torch.empty((2, n_out), dtype=S.dtype, device=S.device)
-    rc = _lib().bipk_draw_update_packed(
+    rc = launch(
         S.data_ptr(), n_in, _ptr(anc), n_out, phi.data_ptr(), u.data_ptr(),
         v.data_ptr(), _ptr(pbuf), float(p3), m, n, float(jitter), float(lam),
         S_new.data_ptr(), y.data_ptr(), ld.data_ptr(), _stream(S.device),
@@ -260,10 +292,11 @@ def draw_update_packed_blocks(
 def draw_update_gather_packed_blocks_plain(
     S, ancestors, phi, u, v, jitter, lam=1.0, prior=None, p3=0.0, m=0, n=0
 ):
-    """Plain PyTorch version of :func:`draw_update_gather_packed_blocks`."""
-    return mniw.draw_update_gather_packed_bl(
-        u, v, S, ancestors, phi, prior=_prior_mniw(prior, p3, S), lam=lam,
-        m=m, n=n, jitter=jitter,
+    """Plain PyTorch version of :func:`draw_update_gather_packed_blocks`:
+    the gather, then the draw/update."""
+    return mniw.draw_update_packed_bl(
+        u, v, S.index_select(1, ancestors), phi,
+        prior=_prior_mniw(prior, p3, S), lam=lam, m=m, n=n, jitter=jitter,
     )
 
 
@@ -287,6 +320,110 @@ def draw_update_gather_packed_blocks(
     _count(draw_update_gather_packed_blocks, m)
     _check(rc, name)
     return out
+
+
+def draw_update_factor_gather_packed_blocks_plain(
+    S, LW, ancestors, phi, u, v, jitter, lam=1.0, prior=None, p3=0.0, m=0, n=0
+):
+    """Plain PyTorch version of :func:`draw_update_factor_gather_packed_blocks`:
+    the factor is read from ``LW``, not computed (``jitter`` is in it)."""
+    return mniw.draw_update_factor_gather_packed_bl(
+        u, v, S, LW, ancestors, phi, prior=_prior_mniw(prior, p3, S),
+        lam=lam, m=m, n=n,
+    )
+
+
+def draw_update_factor_gather_packed_blocks(
+    S: torch.Tensor, LW: torch.Tensor, ancestors: torch.Tensor,
+    phi: torch.Tensor, u: torch.Tensor, v: torch.Tensor, jitter: float,
+    lam: float = 1.0, prior: Sequence[torch.Tensor] | None = None,
+    p3: float = 0.0, m: int = 0, n: int = 0,
+):
+    """:func:`draw_update_gather_packed_blocks` reusing the factor
+    ``LW (m(m+1)/2 + m*n, N_in)`` that :func:`factorize_project_packed`
+    emitted for the same ``S``, ``prior`` and ``lam`` (m <= 24): thread j
+    reads ``S[:, anc[j]]`` and ``LW[:, anc[j]]`` and forward-substitutes
+    ``phi``, with no Cholesky. ``jitter`` is already in ``LW``; it is
+    taken for the signature of the refactoring wrapper and not read."""
+    name = "draw_update_factor_gather_packed_blocks"
+    _check_mn(name, S, m, n, mniw.FACTOR_MAX_M)
+    if LW.dim() != 2 or tuple(LW.shape) != (mniw.lw_rows(m, n), S.shape[1]):
+        raise ValueError(f"{name}: LW must be ({mniw.lw_rows(m, n)}, {S.shape[1]}) "
+                         f"(lw_rows(m, n), N_in); got {tuple(LW.shape)}")
+    if not _on_cuda(name, S):
+        return draw_update_factor_gather_packed_blocks_plain(
+            S, LW, ancestors, phi, u, v, jitter, lam, prior, p3, m, n
+        )
+    n_in, n_out = S.shape[1], ancestors.shape[0]
+    _require(
+        name, S.device, torch.float32, S=(S, S.shape), LW=(LW, LW.shape),
+        phi=(phi, (m, n_out)), u=(u, (n, n_out)), v=(v, (n, n_out)),
+    )
+    _require(name, S.device, torch.int32, ancestors=(ancestors, (n_out,)))
+    pbuf = _prior_buffer(name, prior, m, n, S)
+    S_new = torch.empty((S.shape[0], n_out), dtype=S.dtype, device=S.device)
+    y = torch.empty((n, n_out), dtype=S.dtype, device=S.device)
+    ld = torch.empty((2, n_out), dtype=S.dtype, device=S.device)
+    rc = _lib().bipk_draw_update_factor_gather_packed(
+        S.data_ptr(), LW.data_ptr(), n_in, ancestors.data_ptr(), n_out,
+        phi.data_ptr(), u.data_ptr(), v.data_ptr(), _ptr(pbuf), float(p3), m,
+        n, float(lam), S_new.data_ptr(), y.data_ptr(), ld.data_ptr(),
+        _stream(S.device),
+    )
+    _count(draw_update_factor_gather_packed_blocks, m)
+    _check(rc, name)
+    return S_new, y, ld[0], ld[1]
+
+
+def draw_update_dedup_gather_packed_blocks_plain(
+    S, ancestors, phi, u, v, jitter, lam=1.0, prior=None, p3=0.0, m=0, n=0
+):
+    """Plain PyTorch version of :func:`draw_update_dedup_gather_packed_blocks`:
+    the gather, then the draw/update, as for the gather/draw kernel."""
+    return draw_update_gather_packed_blocks_plain(
+        S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n
+    )
+
+
+def draw_update_dedup_gather_packed_blocks(
+    S: torch.Tensor, ancestors: torch.Tensor, phi: torch.Tensor,
+    u: torch.Tensor, v: torch.Tensor, jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None, p3: float = 0.0,
+    m: int = 0, n: int = 0,
+):
+    """:func:`draw_update_gather_packed_blocks` for degenerate weights
+    (m <= 24): each block of 128 outputs stages its distinct ancestor
+    columns in shared memory once when they fit ``DEDUP_STAGE_FLOATS``,
+    and reads them from global memory as the gather/draw kernel does
+    when not. Same contract and result."""
+    name = "draw_update_dedup_gather_packed_blocks"
+    _check_mn(name, S, m, n, DEDUP_MAX_M)
+    if not _on_cuda(name, S):
+        return draw_update_dedup_gather_packed_blocks_plain(
+            S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n
+        )
+    rc, out = _draw_update(name, S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n,
+                           _lib().bipk_draw_update_dedup_gather_packed)
+    _count(draw_update_dedup_gather_packed_blocks, m)
+    _check(rc, name)
+    return out
+
+
+def dedup_staged_blocks(ancestors: torch.Tensor, m: int, n: int):
+    """``(staged, direct)``: how many blocks of 128 outputs of
+    :func:`draw_update_dedup_gather_packed_blocks` stage their distinct
+    ancestor columns (D * packed_rows(m, n) <= DEDUP_STAGE_FLOATS, D the
+    block's count of runs of equal ancestors) and how many read directly,
+    by the rule of ``dedup_gather.cu``. For reports; the kernel decides
+    on the device."""
+    a = ancestors.long()
+    starts = torch.ones_like(a, dtype=torch.bool)
+    starts[1:] = a[1:] != a[:-1]
+    starts[::128] = True
+    runs = torch.zeros(-(-a.shape[0] // 128), dtype=torch.long, device=a.device)
+    runs.index_add_(0, torch.arange(a.shape[0], device=a.device) // 128, starts.long())
+    staged = int((runs * mniw.packed_rows(m, n) <= DEDUP_STAGE_FLOATS).sum())
+    return staged, runs.shape[0] - staged
 
 
 def log_base_measure_packed_logdets_plain(S, jitter, prior=None, m=0, n=0):
@@ -332,6 +469,8 @@ WRAPPERS = (
     draw_update_packed_blocks,
     draw_update_gather_packed_blocks,
     log_base_measure_packed_logdets,
+    draw_update_factor_gather_packed_blocks,
+    draw_update_dedup_gather_packed_blocks,
 )
 PLAIN = {
     factorize_project_packed: factorize_project_packed_plain,
@@ -339,32 +478,39 @@ PLAIN = {
     draw_update_packed_blocks: draw_update_packed_blocks_plain,
     draw_update_gather_packed_blocks: draw_update_gather_packed_blocks_plain,
     log_base_measure_packed_logdets: log_base_measure_packed_logdets_plain,
+    draw_update_factor_gather_packed_blocks: draw_update_factor_gather_packed_blocks_plain,
+    draw_update_dedup_gather_packed_blocks: draw_update_dedup_gather_packed_blocks_plain,
 }
 
 
-PACKED_MNIW = (
-    factorize_project_packed,
-    draw_update_packed_blocks,
-    draw_update_gather_packed_blocks,
-    log_base_measure_packed_logdets,
-)
+# the packed-MNIW wrappers and the instantiations each launches
+PACKED_MNIW = {
+    factorize_project_packed: ("<24>", "<48>", "[emit]<24>"),
+    draw_update_packed_blocks: ("<24>", "<48>"),
+    draw_update_gather_packed_blocks: ("<24>", "<48>"),
+    log_base_measure_packed_logdets: ("<24>", "<48>"),
+    draw_update_factor_gather_packed_blocks: ("<24>",),
+    draw_update_dedup_gather_packed_blocks: ("<24>",),
+}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
-    for fn in PACKED_MNIW:
-        fn.launches_by_width = dict.fromkeys(WIDTHS, 0)
+    for fn, kernels in PACKED_MNIW.items():
+        fn.launches_by_kernel = dict.fromkeys(kernels, 0)
 
 
 def launch_counts() -> dict:
-    """Launches since the last :func:`reset_launch_counts`: per template
-    instantiation for the packed-MNIW wrappers, keyed ``"<wrapper><24>"``
-    and ``"<wrapper><48>"``, and per wrapper for the resampler."""
+    """Launches since the last :func:`reset_launch_counts`: per kernel
+    instantiation for the packed-MNIW wrappers, keyed ``"<wrapper><24>"``,
+    ``"<wrapper><48>"`` and, for the factor-emitting projection,
+    ``"factorize_project_packed[emit]<24>"``; per wrapper for the
+    resampler."""
     out = {}
     for fn in WRAPPERS:
         if fn in PACKED_MNIW:
-            out.update({f"{fn.__name__}<{w}>": c for w, c in fn.launches_by_width.items()})
+            out.update({f"{fn.__name__}{k}": c for k, c in fn.launches_by_kernel.items()})
         else:
             out[fn.__name__] = fn.launches
     return out

@@ -7,10 +7,12 @@ T2 (n, n), T3 ())`` per particle, carried as ONE packed matrix per GP with
 rows ``[T0 | col-major tril(T1) | tril(T2) | T3]`` and the particle axis
 last — the JAX package's layout, so arrays compare element for element.
 
-The packed entry points :func:`factorize_project_packed_bl`,
-:func:`draw_update_packed_bl` and :func:`draw_update_gather_packed_bl` are
-the plain PyTorch versions of the CUDA kernels in
-:mod:`bipk_tpu_torch.ops.cuda_kernels`. Every random draw is an input
+The packed entry points :func:`factorize_project_packed_bl` (with the
+factor ``LW`` it emits), :func:`draw_update_packed_bl` and
+:func:`draw_update_factor_gather_packed_bl` are the plain PyTorch versions
+of the CUDA kernels in :mod:`bipk_tpu_torch.ops.cuda_kernels`;
+:func:`draw_update_gather_packed_bl` picks the gather/draw kernel (or its
+plain version) as the JAX dispatch does. Every random draw is an input
 (``u, v`` uniforms), so each is a deterministic function.
 """
 
@@ -298,20 +300,27 @@ def _logdet_psi(psi: torch.Tensor) -> torch.Tensor:
     return bla.logdet_from_chol_bl(bla.chol_lower_bl(sym))
 
 
-def factorize_project_bl(
-    stats: MNIW, phi: torch.Tensor, prior: MNIW | None = None,
-    lam: float = 1.0, jitter: float | None = None,
-) -> ProjectedFactor:
-    """Factor ``prior + lam * stats`` (structured batch-last) and project
-    at ``phi (m, N)``: ``mean = white^T L^{-1} phi``, ``col = |L^{-1}
-    phi|^2 + 1``, ``Psi``, and the two log-determinants."""
-    f = factorize_scaled_bl(stats, prior=prior, lam=lam, jitter=jitter)
+def project_bl(f: MNIWFactor, phi: torch.Tensor) -> ProjectedFactor:
+    """Project a factored MNIW at ``phi (m, N)``: ``mean = white^T L^{-1}
+    phi``, ``col = |L^{-1} phi|^2 + 1``, ``Psi``, and the two
+    log-determinants."""
     v = bla.solve_lower_bl(f.chol, phi)
     mean = (f.white_T0 * v[:, None, :]).sum(0)
     col = (v * v).sum(0) + 1.0
     return ProjectedFactor(
         mean, col, f.row_scale, bla.logdet_from_chol_bl(f.chol),
         _logdet_psi(f.row_scale), f.df,
+    )
+
+
+def factorize_project_bl(
+    stats: MNIW, phi: torch.Tensor, prior: MNIW | None = None,
+    lam: float = 1.0, jitter: float | None = None,
+) -> ProjectedFactor:
+    """Factor ``prior + lam * stats`` (structured batch-last) and project
+    at ``phi (m, N)`` (:func:`project_bl`)."""
+    return project_bl(
+        factorize_scaled_bl(stats, prior=prior, lam=lam, jitter=jitter), phi
     )
 
 
@@ -334,16 +343,66 @@ def sample_projected_bl(
 # ---------------------------------------------------------------------------
 
 
+# the widest m of the factor-emitting projection and the factor-reusing
+# draw (the JAX package's supported_factor: its tiled layout, m <= 24)
+FACTOR_MAX_M = 24
+
+
+def lw_rows(m: int, n: int) -> int:
+    """Row count of the packed factor ``LW``."""
+    return m * (m + 1) // 2 + m * n
+
+
+@functools.lru_cache(maxsize=None)
+def _row_major_tril(m: int, device: torch.device) -> torch.Tensor:
+    """Flat indices (into an ``(m*m,)`` square) of the lower triangle in
+    ROW-major order: entry ``i(i+1)/2 + k`` is ``(i, k)``."""
+    i, k = np.tril_indices(m)
+    return torch.as_tensor(i * m + k, dtype=torch.long, device=device)
+
+
+def factor_to_lw(f: MNIWFactor) -> torch.Tensor:
+    """``LW (m(m+1)/2 + m*n, N)``: rows ``[tril(chol) row-major | white_T0
+    (row i*n + c)]``, the layout of the JAX ``_packed_fp_emit_kernel``."""
+    m, n, N = f.white_T0.shape
+    tril = f.chol.reshape(m * m, N).index_select(0, _row_major_tril(m, f.chol.device))
+    return torch.cat([tril, f.white_T0.reshape(m * n, N)], 0)
+
+
+def lw_to_factor(LW: torch.Tensor, m: int, n: int):
+    """``LW`` -> ``(chol (m, m, N) lower, white_T0 (m, n, N))``."""
+    N = LW.shape[-1]
+    tri = m * (m + 1) // 2
+    chol = torch.zeros((m * m, N), dtype=LW.dtype, device=LW.device).index_copy(
+        0, _row_major_tril(m, LW.device), LW[:tri])
+    return chol.reshape(m, m, N), LW[tri:].reshape(m, n, N)
+
+
 def factorize_project_packed_bl(
     S: torch.Tensor, phi: torch.Tensor, prior: MNIW | None = None,
     lam: float = 1.0, m: int = 0, n: int = 0, jitter: float | None = None,
-) -> ProjectedFactor:
+    emit_factor: bool = False,
+):
     """:func:`factorize_project_bl` over the packed statistics ``S (rows,
-    N)``."""
-    return factorize_project_bl(
-        from_flat_bl(unpack_stats_bl(S, m, n), m, n), phi, prior=prior,
-        lam=lam, jitter=jitter,
+    N)``. With ``emit_factor`` returns ``(ProjectedFactor, LW)``, ``LW``
+    the factor for :func:`draw_update_factor_gather_packed_bl`
+    (:func:`factor_to_lw`), or ``(fp, None)`` where ``m >
+    FACTOR_MAX_M``, as the JAX function does where its factor pair is
+    unavailable."""
+    f = factorize_scaled_bl(
+        from_flat_bl(unpack_stats_bl(S, m, n), m, n), prior=prior, lam=lam,
+        jitter=jitter,
     )
+    fp = project_bl(f, phi)
+    if not emit_factor:
+        return fp
+    return fp, (factor_to_lw(f) if m <= FACTOR_MAX_M else None)
+
+
+def _update_packed(stats: MNIW, y, phi, lam):
+    """``lam * stats + suff(y, phi)`` packed (flat ``stats``)."""
+    suff = suff_stat_flat_bl(y, phi)
+    return pack_stats_bl(MNIW(*(s * lam + d for s, d in zip(stats, suff))))
 
 
 def draw_update_packed_bl(
@@ -360,23 +419,69 @@ def draw_update_packed_bl(
         from_flat_bl(stats, m, n), phi, prior=prior, lam=lam, jitter=jitter
     )
     y = sample_projected_bl(fp, u, v)
-    suff = suff_stat_flat_bl(y, phi)
-    new = MNIW(*(s * lam + d for s, d in zip(stats, suff)))
-    return pack_stats_bl(new), y, fp.logdet_T1, fp.logdet_Psi
+    return _update_packed(stats, y, phi, lam), y, fp.logdet_T1, fp.logdet_Psi
+
+
+def draw_update_factor_gather_packed_bl(
+    u: torch.Tensor, v: torch.Tensor, S: torch.Tensor, LW: torch.Tensor,
+    ancestors: torch.Tensor, phi: torch.Tensor, prior: MNIW | None = None,
+    lam: float = 1.0, m: int = 0, n: int = 0,
+):
+    """:func:`draw_update_packed_bl` on ``S[:, ancestors]`` that reads the
+    factor of ``prior + lam * S`` from ``LW[:, ancestors]``
+    (:func:`factorize_project_packed_bl` with ``emit_factor``, the same
+    ``prior`` and ``lam``) instead of factoring again: ``Psi = P2 + lam T2
+    - white^T white``, the projection at ``phi`` and the draw. The result
+    is the refactoring one's wherever ``LW`` is the factor of those
+    statistics."""
+    stats = unpack_stats_bl(S.index_select(1, ancestors), m, n)
+    chol, white = lw_to_factor(LW.index_select(1, ancestors), m, n)
+    T2 = stats.T2.reshape(n, n, -1) * lam
+    df = stats.T3 * lam
+    if prior is not None:
+        T2, df = T2 + prior.T2[..., None], df + prior.T3
+    fp = project_bl(MNIWFactor(chol, white, T2 - _gram_bl(white), df), phi)
+    y = sample_projected_bl(fp, u, v)
+    return _update_packed(stats, y, phi, lam), y, fp.logdet_T1, fp.logdet_Psi
 
 
 def draw_update_gather_packed_bl(
     u: torch.Tensor, v: torch.Tensor, S: torch.Tensor,
     ancestors: torch.Tensor, phi: torch.Tensor, prior: MNIW | None = None,
     lam: float = 1.0, m: int = 0, n: int = 0, jitter: float | None = None,
+    factor: torch.Tensor | None = None, dedup: bool = False,
+    plain: bool = False,
 ):
-    """Resampling gather + :func:`draw_update_packed_bl`: the result is
+    """Resampling gather + matrix-t draw + rank-1 update: the result is
     ``draw_update_packed_bl(u, v, S[:, ancestors], ...)``; ``u, v, phi``
-    and the outputs have ``len(ancestors)`` columns."""
-    return draw_update_packed_bl(
-        u, v, S.index_select(1, ancestors), phi, prior=prior, lam=lam,
-        m=m, n=n, jitter=jitter,
-    )
+    and the outputs have ``len(ancestors)`` columns, ``ancestors`` is
+    sorted int32.
+
+    Runs one of three kernel wrappers of :mod:`~bipk_tpu_torch.ops.
+    cuda_kernels` (their plain versions with ``plain=True``), as the JAX
+    dispatch (``bipk_tpu/ops/mniw.py:900-1100``) picks its kernel without
+    its lane windows and ``lax.cond`` tiers: the factor-reusing draw when
+    ``factor`` (the look-ahead's ``LW`` of the same statistics, prior and
+    ``lam``) is given and ``m <= FACTOR_MAX_M``; else the dedup gather
+    when ``dedup`` and ``m <= 24``; else the gather/draw kernel. With both,
+    the factor wins, as in JAX. ``prior.T3`` is read as a host number:
+    pass a Python float, not a device scalar, or the call synchronises.
+    """
+    from bipk_tpu_torch.ops import cuda_kernels as ck
+
+    if jitter is None:
+        jitter = _default_jitter(S.dtype)
+    blocks = None if prior is None else tuple(prior[:3])
+    p3 = 0.0 if prior is None else float(prior.T3)
+    if factor is not None and m <= FACTOR_MAX_M:
+        fn, args = ck.draw_update_factor_gather_packed_blocks, (S, factor)
+    elif dedup and m <= ck.DEDUP_MAX_M:
+        fn, args = ck.draw_update_dedup_gather_packed_blocks, (S,)
+    else:
+        fn, args = ck.draw_update_gather_packed_blocks, (S,)
+    if plain:
+        fn = ck.PLAIN[fn]
+    return fn(*args, ancestors, phi, u, v, jitter, lam, blocks, p3, m=m, n=n)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """The online APF sweep on one device (port of the single-device, local-
 scheme body of ``bipk_tpu/parallel/sharded.py`` ``build_sharded_apf``).
 
-Per step: the auxiliary look-ahead (one factorize+project kernel per GP),
-systematic resampling on the first-stage weights (one kernel), a gather of
-the small per-particle payloads and the RK4 propagation, the fused
+Per step: the auxiliary look-ahead (one factorize+project kernel per GP,
+which with ``reuse_factor`` also emits the factor), systematic resampling
+on the first-stage weights (one kernel), a gather of the small
+per-particle payloads and the RK4 propagation, the fused
 resampling-gather + matrix-t draw + rank-1 statistics update (one kernel
-per GP), the log-likelihood, and the weighted moments. Traces reduce to
+per GP: the gather/draw, the factor-reusing or the dedup kernel), the
+log-likelihood, and the weighted moments. Traces reduce to
 weighted moments on the fly, as in the JAX package.
 
 This slice ports one device and the local scheme only; more devices, the
@@ -127,12 +129,18 @@ def build_sharded_apf(
     window: int | None = None,
     device: str | torch.device = "cuda",
     reference: bool = False,
+    reuse_factor: bool = False,
+    dedup_gather: bool = False,
 ) -> ShardedAPF:
     """Build the online APF sweep on one device (local scheme).
 
     ``device`` defaults to CUDA and raises if no card is present.
     ``reference=True`` runs the kernels' plain PyTorch versions in their
     place (on any device), to hold a sweep against the kernels.
+    ``reuse_factor`` (the look-ahead's factor goes to the draw, as the JAX
+    local scheme threads ``lws``, ``sharded.py:250-305``) and
+    ``dedup_gather`` select the opt-in gather/draw kernels
+    (:class:`~bipk_tpu_torch.algorithms.apf.APFKernel`).
     """
     if resampling_scheme not in ("local", "exact"):
         raise ValueError(
@@ -145,5 +153,6 @@ def build_sharded_apf(
             "unchunked and unwindowed"
         )
     device = resolve_device(device)
-    kern = APFKernel(ssm, gps, dtype, device, reference=reference)
+    kern = APFKernel(ssm, gps, dtype, device, reference=reference,
+                     reuse_factor=reuse_factor, dedup_gather=dedup_gather)
     return ShardedAPF(kern, n_particles, forgetting_factor)

@@ -46,10 +46,28 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     against f_true and the oscillator's drawn trajectory against the
     simulated one;
 13. cs Gibbs profile: phase 7 for the oscillator's cSMC step at 200
-    particles.
+    particles;
+14. reuse/dedup kernels: the factor-emitting projection, the
+    factor-reusing draw and the dedup draw against their plain versions
+    and against the refactoring kernels on identical inputs (bitwise
+    equality reported), timed beside their bounds, at the APF's
+    statistics after 100 filtering steps (and how many blocks the dedup
+    kernel staged there), at the Gibbs shapes and at edge shapes; an
+    out-of-range ancestor in a child process per gathering kernel must
+    fail with CUDA's device-side assertion;
+15. reuse/dedup path-vs-plain: phase 3 with ``reuse_factor=True`` and
+    with ``dedup_gather=True``;
+16. reuse/dedup main path: the vehicle APF at 32768 x 1499 in the
+    default, reuse and dedup configurations, interleaved, with exact
+    launch counts, the phase-4 checks and throughput;
+17. reuse Gibbs: the vehicle cSMC path-vs-plain (10240 x 50, 10 seeds)
+    and Gibbs sampler (10240 x 1499, 2 sweeps) with ``reuse_factor=True``,
+    with exact launches per sweep and phase 6's gate; 100 profiled reuse
+    cSMC steps beside 100 default ones; a few oscillator APF steps with
+    reuse (m = 41: only the m <= 48 kernels).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
-template instantiation: its row in PERF.md's table, launches on the five
+template instantiation: its row in PERF.md's table, launches on the eight
 main paths, error against the plain version, times and bound);
 the last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the script exits non-zero and prints neither. Needs one CUDA
@@ -85,6 +103,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # float32 rate outside the tensor cores; the kernels here are f32 SIMT.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+
+# the device functions of csrc/ (the profile's "hand-written kernels")
+OUR_KERNELS = ("packed_mniw_kernel", "systematic_kernel", "factor_gather_kernel",
+               "dedup_gather_kernel")
 
 N = 32768  # particles, as the JAX package's bench.py
 N_GIBBS = 10240  # particles, as the JAX package's benchmarks/bench_gibbs.py
@@ -253,18 +275,49 @@ def paired_gate(label, kern_stats, plain_stats, names):
             f"{label}: kernel and plain paths disagree: z {z.tolist()}")
 
 
+def apf_path_vs_plain(dev, model, Y, U, steps, seeds, label="path-vs-plain", **options):
+    """The vehicle online APF through the kernels and through their plain
+    versions with the same draws (seeds 100, 101, ...), both built with
+    ``options``: per run the time-averaged weighted means of both states
+    and of the front friction over ``steps`` steps, paired over
+    ``seeds``."""
+    apfs = {
+        ref: build_sharded_apf(model.ssm, model.gps, N, forgetting_factor=LAM,
+                               dtype=torch.float32, device=dev, reference=ref, **options)
+        for ref in (False, True)
+    }
+    stats = {False: [], True: []}
+    for s in range(seeds):
+        means = {}
+        for ref, apf in apfs.items():
+            g = torch.Generator(device=dev).manual_seed(100 + s)
+            res = apf(g, Y[: steps + 1], U[: steps + 1], model.x0, model.p0)
+            means[ref] = res.state_mean[1:]
+            stats[ref].append(torch.cat([res.state_mean[1:].mean(0),
+                                         res.int_var_mean[0][1:, 0].mean()[None]]))
+        if s == 0:
+            first_step_diff = (means[False][0] - means[True][0]).abs().tolist()
+            per_step = (means[False] - means[True]).abs().max(0).values.tolist()
+            print(f"  seed 0: |kernels - plain| state mean after step 1 "
+                  f"{first_step_diff}, max over {steps} steps {per_step}",
+                  flush=True)
+    paired_gate(label, stats[False], stats[True], ("dpsi", "v_y", "mu_front"))
+
+
 def csmc_path_vs_plain(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps, seeds,
-                       names=("dpsi", "v_y", "mu_front", "mean ESS"), label="cSMC"):
+                       names=("dpsi", "v_y", "mu_front", "mean ESS"), label="cSMC",
+                       **options):
     """The cSMC sweep through the kernels and through their plain versions
     with the same draws, conditioned on the simulated trajectory, over
     ``seeds`` seeds: the drawn trajectory's time averages (every state,
-    the first GP's interface variable) and the mean ESS, paired."""
+    the first GP's interface variable) and the mean ESS, paired.
+    ``options`` go to ``build_csmc`` on both sides."""
     T = steps + 1
     ref = (ref_state[:T], tuple(iv[:T] for iv in ref_ivs))
     summed = summed_reference_stats(model.gps, *ref, U[:T], torch.float32)
     csmcs = {
         plain: build_csmc(model.ssm, model.gps, n_particles, dtype=torch.float32,
-                          device=dev, reference=plain)
+                          device=dev, reference=plain, **options)
         for plain in (False, True)
     }
     stats = {False: [], True: []}
@@ -310,13 +363,14 @@ def seed_reference(dev, model, Y, U, n_apf, seed):
 
 
 def counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles, n_iterations,
-                  expected, smi):
-    """``build_gibbs`` as a user runs it, with the launch counts of every
-    sweep held to ``expected`` (counted from zero at each sweep's start)
-    and the sweeps timed on the host's clock. Returns the result, the
-    launches over the run and the seconds of each sweep."""
+                  expected, smi, **options):
+    """``build_gibbs`` as a user runs it (``options`` its keywords), with
+    the launch counts of every sweep held to ``expected`` (counted from
+    zero at each sweep's start) and the sweeps timed on the host's clock.
+    Returns the result, the launches over the run and the seconds of each
+    sweep."""
     gibbs = build_gibbs(model.ssm, model.gps, n_particles, n_iterations,
-                        dtype=torch.float32, device=dev)
+                        dtype=torch.float32, device=dev, **options)
     totals = dict.fromkeys(ck.launch_counts(), 0)
     seconds = []
 
@@ -349,22 +403,27 @@ def counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles, n_iterati
     return res, totals, seconds
 
 
-def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, smi):
+def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, smi,
+               **options):
     """The vehicle Gibbs main path as a user runs it: a ``n_apf``-particle
-    APF sweep, a reference draw from it, then ``build_gibbs`` with
-    ``n_iterations - 1`` cSMC sweeps. Checks the launch counts of every
-    sweep, times the sweeps, and holds the last drawn trajectory against
-    the simulated one. Returns the kernels' launches over the Gibbs run."""
+    APF sweep, a reference draw from it, then ``build_gibbs`` (``options``
+    its keywords) with ``n_iterations - 1`` cSMC sweeps. Checks the launch
+    counts of every sweep, times the sweeps, and holds the last drawn
+    trajectory against the simulated one. Returns the kernels' launches
+    over the Gibbs run."""
     g, ref_state, ref_iv = seed_reference(dev, model, Y, U, n_apf, seed=5)
     steps = Y.shape[0] - 1
+    reuse = options.get("reuse_factor", False)
     expected = {
-        "factorize_project_packed<24>": 2 * steps,
+        "factorize_project_packed[emit]<24>" if reuse else "factorize_project_packed<24>":
+            2 * steps,
         "systematic_ancestors_blocks": steps,
         "log_base_measure_packed_logdets<24>": 2 * steps,
-        "draw_update_gather_packed_blocks<24>": 2 * steps,
+        "draw_update_factor_gather_packed_blocks<24>" if reuse
+        else "draw_update_gather_packed_blocks<24>": 2 * steps,
     }
     res, totals, _ = counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles,
-                                   n_iterations, expected, smi)
+                                   n_iterations, expected, smi, **options)
     draw, mu_draw = res.states[:, -1], res.int_vars[0][:, -1, 0]
     rmse = ((draw - X) ** 2).mean(0).sqrt()
     rms = (X ** 2).mean(0).sqrt()
@@ -384,21 +443,24 @@ def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, 
     return totals
 
 
-def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps):
-    """Where a cSMC step's time goes at the Gibbs width. After a warm-up
-    sweep, the same ``steps`` steps (``CSMC.run`` from one pinned carry)
-    run three times: with CUDA's sync debug mode set to "error" (a step
-    that waits for the device, a read-back or a blocking copy, fails the
-    phase), on the host's clock, and under ``torch.profiler``. Prints the
-    device time and kernel launches per step, the largest kernels, and
-    the device's idle share: one minus the profiled device time over the
-    unprofiled wall time of the same steps."""
+def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps,
+                       **options):
+    """Where a cSMC step's time goes at the Gibbs width (``options`` the
+    keywords of ``build_csmc``). After a warm-up sweep, the same ``steps``
+    steps (``CSMC.run`` from one pinned carry) run three times: with
+    CUDA's sync debug mode set to "error" (a step that waits for the
+    device, a read-back or a blocking copy, fails the phase), on the
+    host's clock, and under ``torch.profiler``. Prints the device time and
+    kernel launches per step, the largest kernels, and the device's idle
+    share: one minus the profiled device time over the unprofiled wall
+    time of the same steps."""
     from torch.profiler import ProfilerActivity, profile
 
     T = steps + 1
     ref = (ref_state[:T], tuple(iv[:T] for iv in ref_ivs))
     summed = summed_reference_stats(model.gps, *ref, U[:T], torch.float32)
-    csmc = build_csmc(model.ssm, model.gps, n_particles, dtype=torch.float32, device=dev)
+    csmc = build_csmc(model.ssm, model.gps, n_particles, dtype=torch.float32, device=dev,
+                      **options)
     g = torch.Generator(device=dev).manual_seed(7)
     csmc(g, Y[:T], U[:T], model.x0, model.p0, *ref, summed)
     ref_T = ref_contributions(model.gps, *ref, U[:T])
@@ -428,11 +490,11 @@ def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps)
     if not on_device:
         print("  device time per step: not measured (the profiler recorded no device events)",
               flush=True)
-        return
+        return None
     busy_us = sum(e.self_device_time_total for e in on_device) / steps
     launches = sum(e.count for e in on_device) / steps
     ours = sum(e.self_device_time_total for e in on_device
-               if "packed_mniw_kernel" in e.key or "systematic_kernel" in e.key) / steps
+               if any(k in e.key for k in OUR_KERNELS)) / steps
     print(f"  cSMC step at {n_particles} particles ({steps} steps profiled): device busy "
           f"{busy_us:.1f} us per step over {launches:.1f} device launches, of which the "
           f"hand-written kernels {ours:.1f} us; the same steps unprofiled {step_us:.1f} us "
@@ -440,6 +502,7 @@ def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps)
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / steps:8.1f} us/step  {e.count / steps:5.1f}/step  "
               f"{e.key[:90]}", flush=True)
+    return dict(busy_us=busy_us, ours_us=ours, step_us=step_us, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -786,6 +849,334 @@ def cs_gibbs_paths(dev, cs, toy_iterations, osc_iterations, smi):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# The opt-in gather/draw configurations of the vehicle paths (m = 20), the
+# JAX package's BIPK_REUSE_FACTOR=1 and BIPK_DEDUP_GATHER=1: factor reuse
+# (the look-ahead's kernel emits LW = [tril(L) | white], the draw reads it
+# and does no Cholesky) and the dedup gather (a block's distinct ancestor
+# columns staged in shared memory).
+# ---------------------------------------------------------------------------
+
+REUSE_FILTER_STEPS = 100  # vehicle filtering steps before phase 14's statistics
+# factor-gather and dedup against #4 on identical inputs, relative: the same
+# arithmetic in the same order, so only the compiler's contraction of a
+# multiply-add may differ between the kernels
+SAME_TOL = 1e-5
+FP_NAMES = ("mean", "col", "row", "logdet_T1", "logdet_Psi")
+DU_NAMES = ("S_new", "y", "logdet_T1", "logdet_Psi")
+ILL = "f32 rounding of an ill-conditioned SPD factorization"
+
+# one process, one out-of-range ancestor: the wrapper returns without
+# waiting for the device, and the next synchronisation raises
+OOB_CHILD = r"""
+import sys, torch
+from bipk_tpu_torch.ops import cuda_kernels as ck, mniw
+m, n, N = 20, 1, 256
+dev = torch.device("cuda")
+S = torch.zeros((mniw.packed_rows(m, n), N), device=dev)
+anc = torch.arange(N, dtype=torch.int32, device=dev)
+anc[-1] = N  # one past the last column
+phi = torch.ones((m, N), device=dev)
+u = torch.full((n, N), 0.5, device=dev)
+if sys.argv[1] == "factor":
+    LW = torch.ones((mniw.lw_rows(m, n), N), device=dev)
+    ck.draw_update_factor_gather_packed_blocks(S, LW, anc, phi, u, u, 0.0, m=m, n=n)
+elif sys.argv[1] == "dedup":
+    ck.draw_update_dedup_gather_packed_blocks(S, anc, phi, u, u, 0.0, m=m, n=n)
+else:
+    ck.draw_update_gather_packed_blocks(S, anc, phi, u, u, 0.0, m=m, n=n)
+print("launched without a host synchronisation", flush=True)
+torch.cuda.synchronize()
+print("synchronised", flush=True)
+"""
+
+
+def factor_bytes(m, n, N, distinct):
+    """Bytes the factor pair must move (f32): the emitting projection (the
+    projection's, plus LW written once) and the factor-reusing draw (S and
+    LW of ``distinct`` source columns, phi, u, v, the ancestors and P2
+    read once; S_new, y and the log-determinants written once)."""
+    rows, rows_lw = mniw.packed_rows(m, n), mniw.lw_rows(m, n)
+    emit = packed_bytes(m, n, N)[0] + 4 * N * rows_lw
+    fg = 4 * (distinct * (rows + rows_lw) + N * (m + 2 * n + 1 + rows + n + 2) + n * n)
+    return emit, fg
+
+
+def factor_gather_flops(m, n):
+    """Flops per particle of the factor-reusing draw: the forward
+    substitution of phi, the m logs of the diagonal, Psi and the mean from
+    white, the column scale, and the draw and update of #3."""
+    return m * (m - 1) + 2 * m + 2 * n * n * m + 2 * n * m + 2 * m + particle_flops(m, n)[1]
+
+
+def same_as(name, got, want, names):
+    """``got`` against #4's (or #1's) outputs on identical inputs: each
+    within SAME_TOL relative; prints the worst relative error and which
+    outputs are bitwise equal."""
+    rels = {k: rel_err(g, w)[0] for k, g, w in zip(names, got, want)}
+    equal = [k for k, g, w in zip(names, got, want) if torch.equal(g, w)]
+    print(f"  {name} vs the refactoring kernel on identical inputs: max rel "
+          f"{max(rels.values()):.3e}; bitwise equal: "
+          f"{'all' if len(equal) == len(names) else equal or 'none'}", flush=True)
+    require(max(rels.values()) <= SAME_TOL,
+            f"{name}: {rels} against the refactoring kernel, above {SAME_TOL:g}")
+
+
+def check_reuse_set(label, S, phi_in, anc, phi, u, v, lam, prior, p3, m, n, jitter):
+    """The three new kernels on one input set, each against its plain
+    version on the same inputs (the factor-reusing draw with the emitting
+    kernel's own LW), and against the refactoring kernels on identical
+    inputs: the emitting projection's small outputs against #1's, the
+    factor-reusing and the dedup draws against #4's. ``phi_in`` (N_in
+    columns) is the look-ahead's basis, ``phi`` (N_out) the draw's.
+    Returns the largest absolute error against the plain version per
+    kernel, and per kernel the calls that run it and its plain version."""
+    fp_args = (S, phi_in, jitter, lam, prior)
+    calls = {
+        "emit": (lambda: ck.factorize_project_packed(*fp_args, m=m, n=n, emit_factor=True),
+                 lambda: ck.factorize_project_packed_plain(*fp_args, m=m, n=n,
+                                                           emit_factor=True)),
+    }
+    emit, emit_p = (c() for c in calls["emit"])
+    errs = {"emit": check(f"factorize_project_packed[emit] {label}",
+                          zip((*FP_NAMES, "LW"), emit, emit_p), 1e-3, ILL)}
+    same_as(f"factorize_project_packed[emit] {label}", emit[:5],
+            ck.factorize_project_packed(*fp_args, m=m, n=n), FP_NAMES)
+    LW = emit[5]
+    du_args = (anc, phi, u, v, jitter, lam, prior, p3)
+    calls["factor"] = (
+        lambda: ck.draw_update_factor_gather_packed_blocks(S, LW, *du_args, m=m, n=n),
+        lambda: ck.draw_update_factor_gather_packed_blocks_plain(S, LW, *du_args, m=m, n=n))
+    calls["dedup"] = (
+        lambda: ck.draw_update_dedup_gather_packed_blocks(S, *du_args, m=m, n=n),
+        lambda: ck.draw_update_dedup_gather_packed_blocks_plain(S, *du_args, m=m, n=n))
+    calls["gather"] = (
+        lambda: ck.draw_update_gather_packed_blocks(S, *du_args, m=m, n=n),
+        lambda: ck.draw_update_gather_packed_blocks_plain(S, *du_args, m=m, n=n))
+    ref = calls["gather"][0]()
+    for key, name in (("factor", "draw_update_factor_gather_packed_blocks"),
+                      ("dedup", "draw_update_dedup_gather_packed_blocks")):
+        got, want = (c() for c in calls[key])
+        # S_new is lam*S + a rank-1 term (phase 2's reason and tolerance)
+        errs[key] = max(
+            check(f"{name} {label}", [("S_new", got[0], want[0])], 1e-4,
+                  "f32 rounding of lam*S + suff"),
+            check(f"{name} {label}", zip(DU_NAMES[1:], got[1:], want[1:]), 1e-3, ILL))
+        same_as(f"{name} {label}", got, ref, DU_NAMES)
+    return errs, calls
+
+
+def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
+    """Phase 14: the emitting projection, the factor-reusing draw and the
+    dedup draw against their plain versions and against #1 / #4, timed
+    (cold L2) beside their bounds, at
+
+    - the APF's shapes: S (232, 32768) after ``REUSE_FILTER_STEPS``
+      filtering steps of the port's own APF (``build_apf`` with the dedup
+      gather, so its ancestors show how many blocks the dedup kernel
+      staged), lambda = 0.999, the prior, the resampler's ancestors on the
+      filter's degenerate weights;
+    - the Gibbs shapes: N = 10240 and 256 columns of those statistics,
+      lambda = 1, the prior, the resampler's ancestors on their weights;
+    - edge shapes: m = 9, n = 1 and m = 6, n = 2 at ragged N_in != N_out,
+      and m = 20 at N = 300, each with spread-out and with degenerate
+      (three distinct) ancestors.
+
+    Then an out-of-range ancestor in a child process per gathering kernel
+    (#4, factor-gather, dedup): the launch returns, and the next
+    synchronisation fails with CUDA's device-side assertion."""
+    m, n = M, NN
+    prior_m = model.gps[0].prior_as(torch.float32, dev)
+    prior, p3 = tuple(prior_m[:3]), float(np.asarray(model.gps[0].prior.T3))
+    k = REUSE_FILTER_STEPS
+    apf = build_apf(model.ssm, model.gps, N, LAM, dtype=torch.float32, device=dev,
+                    dedup_gather=True)
+    res = apf(torch.Generator(device=dev).manual_seed(21), Y[:k + 1], U[:k + 1],
+              model.x0, model.p0)
+    distinct = [int(torch.unique_consecutive(a).numel()) for a in res.ancestors]
+    plans = [ck.dedup_staged_blocks(a, m, n) for a in res.ancestors]
+    degenerate = [p for p, d in zip(plans, distinct) if d < N // 100]
+    blocks = N // 128
+    print(f"  {k} filtering steps at {N} particles with the dedup gather: distinct ancestors "
+          f"per step min {min(distinct)} median {statistics.median(distinct)} max "
+          f"{max(distinct)}; dedup blocks staged / read directly over all steps "
+          f"{sum(p[0] for p in plans)} / {sum(p[1] for p in plans)} of {blocks * k}; over the "
+          f"{len(degenerate)} steps with fewer than {N // 100} distinct ancestors "
+          f"{sum(p[0] for p in degenerate)} / {sum(p[1] for p in degenerate)}", flush=True)
+    S = mniw.pack_stats_bl(mniw.MNIW(*(leaf.movedim(0, -1)
+                                       for leaf in res.final_stats[0]))).contiguous()
+    phi = model.gps[0].basis_fn_bl(res.states[-1].T.contiguous(), U[k]).contiguous()
+    w = res.weights[-1]
+    gen = torch.Generator(device=dev).manual_seed(22)
+    u = torch.rand((n, N), generator=gen, device=dev)
+    v = torch.rand((n, N), generator=gen, device=dev)
+    u_res = torch.rand((1,), generator=gen, device=dev)
+    anc, _ = check_systematic(f"systematic_ancestors_blocks N={N}", w, u_res, N)
+    dist = int(torch.unique_consecutive(anc).numel())
+    staged, direct = ck.dedup_staged_blocks(anc, m, n)
+    print(f"  S {tuple(S.shape)}, ESS {1.0 / float((w * w).sum()):.2f}, {dist} distinct "
+          f"ancestors of {N}; dedup blocks staged {staged}, read directly {direct}", flush=True)
+    label = f"m={m} N={N} lam={LAM}"
+    errs, calls = check_reuse_set(label, S, phi, anc, phi, u, v, LAM, prior, p3, m, n, jitter)
+    core_f, draw_f, _ = particle_flops(m, n)
+    emit_b, fg_b = factor_bytes(m, n, N, dist)
+    du_b = packed_bytes(m, n, N, dist)[1]
+    for name, key, bytes_, flops in (
+        ("factorize_project_packed[emit]", "emit", emit_b, core_f),
+        ("draw_update_factor_gather_packed_blocks", "factor", fg_b, factor_gather_flops(m, n)),
+        ("draw_update_dedup_gather_packed_blocks", "dedup", du_b, core_f + draw_f),
+    ):
+        record_kernel(results, name, *calls[key], bytes_, N * flops, errs[key], flush)
+    fp_ms = time_ms(lambda: ck.factorize_project_packed(S, phi, jitter, LAM, prior, m=m, n=n),
+                    flush=flush)
+    print(f"  the refactoring kernels on the same inputs: #1 {fp_ms:.4f} ms, #4 "
+          f"{time_ms(calls['gather'][0], flush=flush):.4f} ms (bound "
+          f"{du_b / PEAK_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+
+    # the Gibbs shapes: lambda = 1 and the prior, at the sweep's width and
+    # at the seeding APF's 256 particles
+    for width in (N_GIBBS, 256):
+        S_w, phi_w = S[:, :width].contiguous(), phi[:, :width].contiguous()
+        u_w, v_w = u[:, :width].contiguous(), v[:, :width].contiguous()
+        anc_w, _ = check_systematic(f"systematic_ancestors_blocks N={width}",
+                                    w[:width].contiguous(), u_res, width)
+        dist_w = int(torch.unique_consecutive(anc_w).numel())
+        label = f"N={width} lam=1"
+        _, calls_w = check_reuse_set(label, S_w, phi_w, anc_w, phi_w, u_w, v_w, 1.0, prior,
+                                     p3, m, n, jitter)
+        emit_b, fg_b = factor_bytes(m, n, width, dist_w)
+        for name, key, bytes_ in (
+            ("factorize_project_packed[emit]", "emit", emit_b),
+            ("draw_update_factor_gather_packed_blocks", "factor", fg_b),
+            ("draw_update_dedup_gather_packed_blocks", "dedup", packed_bytes(m, n, width, dist_w)[1]),
+            ("draw_update_gather_packed_blocks", "gather", packed_bytes(m, n, width, dist_w)[1]),
+        ):
+            print(f"  {name} {label}: {time_ms(calls_w[key][0], flush=flush):.4f} ms (plain "
+                  f"{time_ms(calls_w[key][1], flush=flush):.4f} ms, bound "
+                  f"{bytes_ / PEAK_BYTES_PER_S * 1e3:.5f} ms by bytes)", flush=True)
+
+    # edge shapes, spread-out and degenerate ancestors; checked, not timed
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for m_e, n_e, n_in, n_out in ((9, 1, 1000, 700), (6, 2, 777, 1000), (20, 1, 300, 300)):
+        S_e, phi_in, prior_e = edge_case(gen, dev, m_e, n_e, n_in)
+        phi_e = torch.randn((m_e, n_out), generator=gen, device=dev)
+        u_e = torch.rand((n_e, n_out), generator=gen, device=dev)
+        v_e = torch.rand((n_e, n_out), generator=gen, device=dev)
+        spread = torch.sort(torch.randint(0, n_in, (n_out,), generator=gen, device=dev))[0]
+        few = torch.randint(0, n_in, (3,), generator=gen, device=dev)
+        degen = torch.sort(few[torch.randint(0, 3, (n_out,), generator=gen, device=dev)])[0]
+        for kind, anc_e in (("spread", spread.int()), ("degenerate", degen.int())):
+            label = f"m={m_e} n={n_e} N_in={n_in} N_out={n_out} {kind} ancestors"
+            check_reuse_set(label, S_e, phi_in, anc_e, phi_e, u_e, v_e, LAM, prior_e[:3],
+                            prior_e[3], m_e, n_e, jitter)
+            print(f"  {label}: dedup blocks staged / direct "
+                  f"{ck.dedup_staged_blocks(anc_e, m_e, n_e)}", flush=True)
+
+    # an out-of-range ancestor, one child process per gathering kernel
+    for which in ("gather", "factor", "dedup"):
+        out = subprocess.run([sys.executable, "-c", OOB_CHILD, which], cwd=REPO,
+                             capture_output=True, text=True, timeout=600)
+        trapped = (out.returncode != 0 and "launched without a host synchronisation" in out.stdout
+                   and "synchronised" not in out.stdout
+                   and "device-side assert" in out.stderr)
+        tail = [ln for ln in (out.stdout + out.stderr).splitlines() if "ssert" in ln][:2]
+        print(f"  out-of-range ancestor, {which} kernel: exit {out.returncode}; {tail}",
+              flush=True)
+        require(trapped, f"{which} kernel: an out-of-range ancestor did not fail with a "
+                         f"device-side assertion (exit {out.returncode}):\n{out.stdout}\n"
+                         f"{out.stderr[-2000:]}")
+
+
+def apf_configs_main_path(dev, model, X, Y, U, smi):
+    """Phase 16: the vehicle online APF at 32768 x 1499 in the default,
+    factor-reuse and dedup configurations, interleaved in one call
+    (default, reuse, dedup, dedup, reuse, default), each run from the same
+    seed with exact launch counts, finite moments and the phase-4 RMSE,
+    and throughput. Returns the launches of each opt-in configuration's
+    last run."""
+    steps = Y.shape[0] - 1
+    configs = {
+        "default": ({}, {"factorize_project_packed<24>": 2 * steps,
+                         "draw_update_gather_packed_blocks<24>": 2 * steps}),
+        "reuse": (dict(reuse_factor=True),
+                  {"factorize_project_packed[emit]<24>": 2 * steps,
+                   "draw_update_factor_gather_packed_blocks<24>": 2 * steps}),
+        "dedup": (dict(dedup_gather=True),
+                  {"factorize_project_packed<24>": 2 * steps,
+                   "draw_update_dedup_gather_packed_blocks<24>": 2 * steps}),
+    }
+    apfs = {}
+    for name, (options, _) in configs.items():
+        apfs[name] = build_sharded_apf(model.ssm, model.gps, N, forgetting_factor=LAM,
+                                       dtype=torch.float32, device=dev, **options)
+        apfs[name](torch.Generator(device=dev).manual_seed(2), Y[:11], U[:11], model.x0,
+                   model.p0)
+    torch.cuda.synchronize()
+    seconds = {name: [] for name in configs}
+    means, counts = {}, {}
+    for name in ("default", "reuse", "dedup", "dedup", "reuse", "default"):
+        ck.reset_launch_counts()
+        ts = time.perf_counter()
+        res = apfs[name](torch.Generator(device=dev).manual_seed(3), Y, U, model.x0, model.p0)
+        torch.cuda.synchronize()
+        seconds[name].append(time.perf_counter() - ts)
+        counts[name] = ck.launch_counts()
+        expect_counts(f"vehicle APF main path, {name}", counts[name],
+                      {**configs[name][1], "systematic_ancestors_blocks": steps})
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            res.state_mean, res.ess, *res.int_var_mean,
+            *(leaf for st in res.stats_mean for leaf in st)))
+        require(finite, f"{name}: non-finite moments")
+        rmse = ((res.state_mean - X) ** 2).mean(0).sqrt()
+        require(bool(torch.isfinite(rmse).all()), f"{name}: filtered-state RMSE {rmse.tolist()}")
+        means[name] = res.state_mean
+        print(f"  {name}: {seconds[name][-1]:.3f} s, {N * steps / seconds[name][-1]:.1f} "
+              f"particle-steps/s, ESS median {res.ess[1:].median().item():.2f}, RMSE "
+              f"{rmse.tolist()}", flush=True)
+    for name in ("reuse", "dedup"):
+        d = (means[name] - means["default"]).abs().max().item()
+        print(f"  {name} against default, the same seed: max |state mean difference| {d:.3e}"
+              f"{' (bitwise equal)' if d == 0.0 else ''}", flush=True)
+    print(f"  {N} particles x {steps} steps on {smi}: seconds " + ", ".join(
+        f"{name} {[round(t, 3) for t in ts]}" for name, ts in seconds.items()), flush=True)
+    return counts["reuse"], counts["dedup"]
+
+
+def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi):
+    """Phase 17: the vehicle cSMC and Gibbs sampler with factor reuse (the
+    look-ahead emits the factor of the prior plus the statistics at
+    lambda = 1, the draw reads it): cSMC path-vs-plain, 10240 x 50 over
+    10 seeds, paired; the Gibbs sampler at 10240 x 1499 seeded as in
+    phase 6, two sweeps with exact launches per sweep and phase 6's
+    trajectory gate; 100 profiled reuse cSMC steps beside 100 default
+    ones; and a few oscillator APF steps with reuse (m = 41: no factor
+    pair, only the <48> kernels). Returns the Gibbs launches."""
+    csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=50, seeds=10,
+                       label="reuse cSMC", reuse_factor=True)
+    counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=3,
+                        smi=smi, reuse_factor=True)
+    prof = {name: profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=100, **opts)
+            for name, opts in (("default", {}), ("reuse", dict(reuse_factor=True)))}
+    if all(prof.values()):
+        print("  cSMC step, default against reuse: " + "; ".join(
+            f"{name} busy {p['busy_us']:.1f} us (hand-written kernels {p['ours_us']:.1f} us, "
+            f"{p['launches']:.1f} launches), step {p['step_us']:.1f} us, idle share "
+            f"{1.0 - p['busy_us'] / p['step_us']:.3f}" for name, p in prof.items())
+            + f", on {smi}", flush=True)
+    apf = build_sharded_apf(o_model.ssm, o_model.gps, N, forgetting_factor=LAM,
+                            dtype=torch.float32, device=dev, reuse_factor=True)
+    ck.reset_launch_counts()
+    apf(torch.Generator(device=dev).manual_seed(4), o_Y[:6], o_U[:6], o_model.x0, o_model.p0)
+    torch.cuda.synchronize()
+    osc_counts = ck.launch_counts()
+    print(f"  oscillator APF, 5 steps with reuse_factor=True: launches "
+          f"{ {k: c for k, c in osc_counts.items() if c} }", flush=True)
+    expect_counts("oscillator APF with reuse_factor", osc_counts, {
+        "factorize_project_packed<48>": 5, "systematic_ancestors_blocks": 5,
+        "draw_update_gather_packed_blocks<48>": 5})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1040,31 +1431,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 3
     t0 = time.perf_counter()
-    steps_cmp, seeds = 50, 10
-    apfs = {
-        ref: build_sharded_apf(model.ssm, model.gps, N, forgetting_factor=LAM,
-                               dtype=torch.float32, device=dev, reference=ref)
-        for ref in (False, True)
-    }
-    # per run: the time-averaged weighted means of both states and of the
-    # front friction, over the 50 steps
-    stats = {False: [], True: []}
-    first_step_diff = None
-    for s in range(seeds):
-        means = {}
-        for ref, apf in apfs.items():
-            g = torch.Generator(device=dev).manual_seed(100 + s)
-            res = apf(g, Y[: steps_cmp + 1], U[: steps_cmp + 1], model.x0, model.p0)
-            means[ref] = res.state_mean[1:]
-            stats[ref].append(torch.cat([res.state_mean[1:].mean(0),
-                                         res.int_var_mean[0][1:, 0].mean()[None]]))
-        if first_step_diff is None:
-            first_step_diff = (means[False][0] - means[True][0]).abs().tolist()
-            per_step = (means[False] - means[True]).abs().max(0).values.tolist()
-            print(f"  seed 0: |kernels - plain| state mean after step 1 "
-                  f"{first_step_diff}, max over {steps_cmp} steps {per_step}",
-                  flush=True)
-    paired_gate("path-vs-plain", stats[False], stats[True], ("dpsi", "v_y", "mu_front"))
+    apf_path_vs_plain(dev, model, Y, U, steps=50, seeds=10)
     phase_done("path-vs-plain", t0)
 
     # ---------------------------------------------------------------- 4
@@ -1160,12 +1527,42 @@ def main() -> int:
     profile_csmc_steps(dev, o_model, o_Y, o_U, o_X, (o_F,), N_CS_GIBBS, steps=100)
     phase_done("cs-gibbs-profile", t0)
 
+    # --------------------------------------------------------------- 14
+    # the opt-in configurations after every earlier phase, so that phases
+    # 1-13 run as the parent's do
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
+    reuse_kernel_checks(dev, model, Y, U, results, jitter, flush)
+    del flush
+    phase_done("reuse-dedup-kernels", t0)
+
+    # --------------------------------------------------------------- 15
+    t0 = time.perf_counter()
+    for option in ("reuse_factor", "dedup_gather"):
+        apf_path_vs_plain(dev, model, Y, U, steps=50, seeds=10,
+                          label=f"path-vs-plain, {option}", **{option: True})
+    phase_done("reuse-dedup-path-vs-plain", t0)
+
+    # --------------------------------------------------------------- 16
+    t0 = time.perf_counter()
+    reuse_counts, dedup_counts = apf_configs_main_path(dev, model, X, Y, U, smi)
+    phase_done("reuse-dedup-main-path", t0)
+
+    # --------------------------------------------------------------- 17
+    t0 = time.perf_counter()
+    gibbs_reuse_counts = reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y,
+                                          o_U, smi)
+    phase_done("reuse-gibbs", t0)
+
     # one entry per kernel: rows 1-5 are the m <= 24 instantiation and the
     # resampler, rows 6 and 7 the m <= 48 instantiation (the TPU's cs-layout
-    # launchers: _cs_call's three kernels, _cs_du_gather_call). launches:
-    # over the five main paths' runs, each counted from zero
+    # launchers: _cs_call's three kernels, _cs_du_gather_call), rows 1e, 8
+    # and 9 the factor pair and the dedup gather. launches: over the eight
+    # main paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
-             "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"]}
+             "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
+             "apf_reuse": reuse_counts, "apf_dedup": dedup_counts,
+             "gibbs_reuse": gibbs_reuse_counts}
     mniw_src, sys_src = "bipk_tpu_torch/csrc/packed_mniw.cu", "bipk_tpu_torch/csrc/systematic.cu"
     pk = "bipk_tpu/ops/pallas_kernels.py"
     rows = (  # (row, name, result and count key, source, replaces)
@@ -1184,6 +1581,13 @@ def main() -> int:
          f"{pk}:2454"),
         (7, "draw_update_gather_packed_blocks<48>", "draw_update_gather_packed_blocks<48>",
          mniw_src, f"{pk}:2482"),
+        ("1e", "factorize_project_packed[emit]", "factorize_project_packed[emit]<24>",
+         mniw_src, f"{pk}:526"),
+        (8, "draw_update_factor_gather_packed_blocks",
+         "draw_update_factor_gather_packed_blocks<24>", mniw_src, f"{pk}:1422"),
+        (9, "draw_update_dedup_gather_packed_blocks",
+         "draw_update_dedup_gather_packed_blocks<24>", "bipk_tpu_torch/csrc/dedup_gather.cu",
+         f"{pk}:1312"),
     )
     kernels = []
     for row, name, key, source, replaces in rows:

@@ -64,8 +64,11 @@ def _uvs(key_iv, N):
     return tuple(out)
 
 
-def test_build_apf_one_step_matches_jax_exactly(setup):
-    jmodel, tmodel, Y, U = setup
+@pytest.fixture(scope="module")
+def jax_step(setup):
+    """The JAX sweep's initial carry, the first step's draws and the JAX
+    full-trace result after that step."""
+    jmodel, _, Y, U = setup
     lam = 0.999
     key = jax.random.key(7)
     key_scan, key_init = jax.random.split(key)
@@ -84,8 +87,16 @@ def test_build_apf_one_step_matches_jax_exactly(setup):
     want = jax.jit(jbuild_apf(jmodel.ssm, jmodel.gps, N, lam, dtype=F64))(
         key, Y[:2], U[:2], jmodel.x0, jmodel.p0
     )
+    return lam, init, draws, want
 
-    apf = build_apf(tmodel.ssm, tmodel.gps, N, lam, dtype=torch.float64, device="cpu")
+
+def _check_build_apf_step(setup, jax_step, **options):
+    """The port's ``build_apf`` step from the JAX carry with the JAX
+    draws, under the gather/draw ``options``, against the JAX traces."""
+    _, tmodel, Y, U = setup
+    lam, init, draws, want = jax_step
+    apf = build_apf(tmodel.ssm, tmodel.gps, N, lam, dtype=torch.float64, device="cpu",
+                    **options)
     lw0, state0, iv0, stats0 = init
     carry0 = convert.packed_carry_from_arrays(
         lw0, state0, iv0, [tuple(np.asarray(a) for a in st) for st in stats0],
@@ -102,6 +113,11 @@ def test_build_apf_one_step_matches_jax_exactly(setup):
             _close(g, w)
         for g, w in zip(got.final_stats[i], want.final_stats[i]):
             _close(g, w)
+    return got, want
+
+
+def test_build_apf_one_step_matches_jax_exactly(setup, jax_step):
+    got, want = _check_build_apf_step(setup, jax_step)
 
     # the reference draw that seeds PGAS, with the JAX uniform
     key_traj = jax.random.key(8)
@@ -110,3 +126,10 @@ def test_build_apf_one_step_matches_jax_exactly(setup):
     _close(got_ref[0], want_ref[0])
     for g, w in zip(got_ref[1], want_ref[1]):
         _close(g, w)
+
+
+@pytest.mark.parametrize("option", ["reuse_factor", "dedup_gather"])
+def test_build_apf_one_step_matches_jax_exactly_opt_in(setup, jax_step, option):
+    """``build_apf``'s opt-in gather/draw configurations: the same JAX
+    step, exactly."""
+    _check_build_apf_step(setup, jax_step, **{option: True})

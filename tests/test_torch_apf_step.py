@@ -79,12 +79,15 @@ def test_converted_model_matches_native_port(setup):
     _close(tmodel.p0, native.p0)
 
 
-def test_one_step_matches_jax_exactly(setup):
-    cfg, jmodel, tmodel, Y, U = setup
+@pytest.fixture(scope="module")
+def jax_step(setup):
+    """The JAX sweep's initial carry, the first step's draws (the JAX
+    sweep's own key discipline, single device: shard index 0) and the
+    sweep's result after that step."""
+    _, jmodel, _, Y, U = setup
     N = 256
     key = jax.random.key(7)
     f64 = jnp.float64
-    # the JAX sweep's own key discipline (single device: shard index 0)
     key_scan, key_init = jax.random.split(key)
     jkern = JAPFKernel(jmodel.ssm, jmodel.gps, f64)
     init = jkern.init_particles(
@@ -103,12 +106,21 @@ def test_one_step_matches_jax_exactly(setup):
 
     run = jax.jit(jbuild(jmodel.ssm, jmodel.gps, N, particle_mesh(1), LAM, dtype=f64))
     want = run(key, Y[:2], U[:2], jmodel.x0, jmodel.p0)
+    return N, init, (u_res, z, uvs), want
+
+
+def _check_one_step(setup, jax_step, **options):
+    """The port's step from the JAX carry with the JAX draws, under the
+    gather/draw ``options`` of ``build_sharded_apf``, against the JAX
+    step (which computes the same function in every configuration)."""
+    _, _, tmodel, Y, U = setup
+    N, init, (u_res, z, uvs), want = jax_step
 
     def t(a):
         return torch.as_tensor(np.array(a), dtype=torch.float64)
 
     apf = build_sharded_apf(tmodel.ssm, tmodel.gps, N, forgetting_factor=LAM,
-                            dtype=torch.float64, device="cpu")
+                            dtype=torch.float64, device="cpu", **options)
     lw0, state0, iv0, stats0 = init
     carry0 = convert.packed_carry_from_arrays(
         lw0, state0, iv0, [tuple(np.asarray(a) for a in st) for st in stats0],
@@ -134,3 +146,14 @@ def test_one_step_matches_jax_exactly(setup):
         want_S = jmniw.pack_stats_bl(want.final_stats[i])
         _close(carry1[3][i], want_S)
         assert carry1[3][i].shape == (tmniw.packed_rows(20, 1), N)
+
+
+def test_one_step_matches_jax_exactly(setup, jax_step):
+    _check_one_step(setup, jax_step)
+
+
+@pytest.mark.parametrize("option", ["reuse_factor", "dedup_gather"])
+def test_one_step_matches_jax_exactly_opt_in(setup, jax_step, option):
+    """The opt-in gather/draw configurations compute the default's
+    function: the same JAX step, exactly."""
+    _check_one_step(setup, jax_step, **{option: True})

@@ -133,7 +133,9 @@ def test_csmc_initial_pinning_matches_jax_exactly(setup, jax_csmc_step):
     _close(particles[3][0][:, :-1], got[3][0][:, :-1])
 
 
-def test_csmc_one_step_matches_jax_exactly(setup, jax_csmc_step):
+def _check_csmc_step(setup, jax_csmc_step, **options):
+    """The port's cSMC step from the JAX carry with the JAX draws, under
+    the gather/draw ``options`` of ``build_csmc``, against the JAX step."""
     _, tmodel, Y, U, ref = setup
     _, _, carry0, xs0, carry1, emits = jax_csmc_step
     k = xs0[-1]
@@ -151,7 +153,7 @@ def test_csmc_one_step_matches_jax_exactly(setup, jax_csmc_step):
         _t(carry0[0]), _t(carry0[1]), tuple(map(_t, carry0[2])), tuple(map(_t, carry0[3])),
         tuple(tmniw.MNIW(*map(_t, st)) for st in carry0[4]),
     )
-    csmc = build_csmc(tmodel.ssm, tmodel.gps, N, dtype=torch.float64, device="cpu")
+    csmc = build_csmc(tmodel.ssm, tmodel.gps, N, dtype=torch.float64, device="cpu", **options)
     ref_state, ref_ivs, ref_T = _port_ref(tmodel, U, ref)
     Ss_before = [S.clone() for S in carry[3]]
     got, (ancestors, ess) = csmc.step(
@@ -172,3 +174,15 @@ def test_csmc_one_step_matches_jax_exactly(setup, jax_csmc_step):
     # the emitted ancestors carry the reference's ancestor in the last
     # slot; the rest are the sorted systematic ancestors
     assert np.all(np.diff(ancestors.numpy()[:-1]) >= 0)
+
+
+def test_csmc_one_step_matches_jax_exactly(setup, jax_csmc_step):
+    _check_csmc_step(setup, jax_csmc_step)
+
+
+@pytest.mark.parametrize("option", ["reuse_factor", "dedup_gather"])
+def test_csmc_one_step_matches_jax_exactly_opt_in(setup, jax_csmc_step, option):
+    """The cSMC step's opt-in gather/draw configurations (with
+    ``reuse_factor`` the factor of the prior plus the statistics at
+    lambda = 1, emitted by the look-ahead): the same JAX step, exactly."""
+    _check_csmc_step(setup, jax_csmc_step, **{option: True})

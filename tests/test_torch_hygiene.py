@@ -91,18 +91,21 @@ def test_cs_models_run_on_the_card_unless_asked(monkeypatch):
 
 def test_launches_count_per_instantiation():
     """The packed-MNIW wrappers count each launch once in total and once
-    for the template instantiation that serves its m (<= 24 or <= 48)."""
+    for the kernel instantiation that serves its m (<= 24 or <= 48), the
+    factor-emitting projection apart from the plain one."""
     ck.reset_launch_counts()
     try:
         for m in (20, 24, 25, 41, 48):
             ck._count(ck.factorize_project_packed, m)
         ck._count(ck.systematic_ancestors_blocks)
+        ck._count(ck.factorize_project_packed, 20, "[emit]")
         counts = ck.launch_counts()
         assert counts["factorize_project_packed<24>"] == 2
         assert counts["factorize_project_packed<48>"] == 3
+        assert counts["factorize_project_packed[emit]<24>"] == 1
         assert counts["systematic_ancestors_blocks"] == 1
-        assert ck.factorize_project_packed.launches == 5
-        assert sum(counts.values()) == 6
+        assert ck.factorize_project_packed.launches == 6
+        assert sum(counts.values()) == 7
     finally:
         ck.reset_launch_counts()
     # the CPU computes the plain version and counts no launch
@@ -147,6 +150,51 @@ def test_wrappers_refuse_other_devices_and_bad_shapes():
         ck.draw_update_packed_blocks(torch.zeros((231, 8)), None, None, None, 0.0, m=20, n=1)
     with pytest.raises(ValueError, match="m <= 48"):
         ck.factorize_project_packed(torch.zeros((1, 8)), None, 0.0, m=49, n=1)
+
+
+def test_factor_pair_and_dedup_wrappers_check_their_bounds():
+    rows, rows_lw = ck.mniw.packed_rows(20, 1), ck.mniw.lw_rows(20, 1)
+    anc = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="LW must be"):
+        ck.draw_update_factor_gather_packed_blocks(
+            torch.zeros((rows, 8)), torch.zeros((rows_lw - 1, 8)), anc, None, None, None,
+            0.0, m=20, n=1)
+    with pytest.raises(ValueError, match="LW must be"):
+        ck.draw_update_factor_gather_packed_blocks(
+            torch.zeros((rows, 8)), torch.zeros((rows_lw, 9)), anc, None, None, None,
+            0.0, m=20, n=1)
+    S41 = torch.zeros((ck.mniw.packed_rows(41, 1), 8))
+    with pytest.raises(ValueError, match="m <= 24"):
+        ck.draw_update_factor_gather_packed_blocks(
+            S41, torch.zeros((ck.mniw.lw_rows(41, 1), 8)), anc, None, None, None, 0.0,
+            m=41, n=1)
+    with pytest.raises(ValueError, match="m <= 24"):
+        ck.draw_update_dedup_gather_packed_blocks(S41, anc, None, None, None, 0.0, m=41, n=1)
+    with pytest.raises(ValueError, match="m <= 24"):
+        ck.factorize_project_packed(S41, None, 0.0, m=41, n=1, emit_factor=True)
+    with pytest.raises(ValueError, match="device"):
+        ck.draw_update_dedup_gather_packed_blocks(
+            torch.zeros((rows, 8), device="meta"), anc, None, None, None, 0.0, m=20, n=1)
+
+
+def test_dedup_stage_budget_matches_the_kernel():
+    """The Python mirror of the dedup kernel's shared-memory stage, which
+    ``dedup_staged_blocks`` reports by, is the kernel's own constant."""
+    src = (REPO / "bipk_tpu_torch" / "csrc" / "dedup_gather.cu").read_text()
+    assert f"constexpr int kStageFloats = {ck.DEDUP_STAGE_FLOATS};" in src
+    # one block of distinct ancestors, one of a single repeated one
+    anc = torch.cat([torch.arange(128), torch.full((128,), 200)]).int()
+    assert ck.dedup_staged_blocks(anc, 20, 1) == (1, 1)
+
+
+@pytest.mark.parametrize("option", ["reuse_factor", "dedup_gather"])
+def test_build_functions_take_the_opt_in_kernels_on_the_cpu(option):
+    model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
+    for build in (build_sharded_apf, build_apf, build_csmc):
+        kern = build(model.ssm, model.gps, 64, device="cpu", **{option: True}).kern
+        assert getattr(kern, option) and kern.device.type == "cpu"
+    gibbs = build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", **{option: True})
+    assert getattr(gibbs.kern, option)
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
