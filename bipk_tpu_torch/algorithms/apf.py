@@ -1,9 +1,12 @@
 """Algorithm 1: the online auxiliary particle filter with per-particle
-MNIW statistics (port of the packed path of ``bipk_tpu/algorithms/apf.py``:
-``APFKernel`` and ``build_apf``).
+MNIW statistics (port of ``bipk_tpu/algorithms/apf.py``: ``APFKernel``,
+its packed and unpacked building blocks, and ``build_apf``).
 
 Every per-particle tensor is batch-last: ``state (dx, N)``, interface
-variables ``(n_i, N)``, one packed statistics matrix ``(rows, N)`` per GP.
+variables ``(n_i, N)``, one packed statistics matrix ``(rows, N)`` per GP
+on the sweeps' path; the unpacked methods take structured or flat MNIW
+leaves or factors, as the rank-1 cSMC and the JAX package's unpacked
+entry points do.
 Random draws are inputs (standard normals ``z``, uniforms ``u, v``), so
 each method is a deterministic function that the tests can feed with the
 JAX package's draws.
@@ -45,7 +48,10 @@ class APFKernel:
     The three per-particle hot spots go through the CUDA kernel wrappers
     (:mod:`bipk_tpu_torch.ops.cuda_kernels`); ``reference=True`` calls
     their plain PyTorch versions instead, on any device, so a whole sweep
-    can be held against the kernels.
+    can be held against the kernels. The unpacked methods go through the
+    dispatching entry points of :mod:`~bipk_tpu_torch.ops.mniw` (the
+    unpacked kernels on CUDA tensors: float32, m <= 48, n <= 2, else they
+    raise), with ``plain=reference``.
 
     Two opt-in configurations of the gather/draw, for GPs with m <= 24
     (wider GPs keep the default kernels):
@@ -94,6 +100,7 @@ class APFKernel:
         self._factorize_project = pick(ck.factorize_project_packed)
         self._systematic = pick(ck.systematic_ancestors_blocks)
         self._logdets = pick(ck.log_base_measure_packed_logdets)
+        self._draw_update = pick(ck.draw_update_packed_blocks)
 
     # -- model evaluation ------------------------------------------------
 
@@ -266,6 +273,111 @@ class APFKernel:
         new_iv = tuple(o[1] for o in outs)
         lds = tuple((o[2], o[3]) for o in outs)
         return Ss_new, new_iv, new_basis, lds
+
+    # -- unpacked pieces: structured or flat MNIW leaves, or factors -------
+
+    def factorize_all(self, stats, lam: float = 1.0):
+        """Factor ``prior + lam * stats`` per GP (structured leaves), the
+        scale and the prior folded into the kernel."""
+        return tuple(
+            mniw.factorize_scaled_bl(stats[i], prior=self.priors[i], lam=lam,
+                                     jitter=self.jitter, plain=self.reference)
+            for i in range(self.n_gp)
+        )
+
+    def auxiliary(self, state, int_vars, factors, inp_prev, inp_cur, obs, log_weights):
+        """Look-ahead states and first-stage weights from given factors:
+        each GP's posterior mean at the look-ahead state. Returns
+        ``(aux_state, aux_iv, lw_aux, ll_aux)``."""
+        aux_state = self.transition_all(state, inp_prev, int_vars)
+        aux_iv = tuple(
+            mniw.factor_mean_at_bl(factors[i], self.basis_all(i, aux_state, inp_cur),
+                                   plain=self.reference)
+            for i in range(self.n_gp)
+        )
+        ll_aux = self.log_lik_all(obs, aux_state, inp_cur, aux_iv)
+        return aux_state, aux_iv, ll_aux + log_weights, ll_aux
+
+    def projected_all(self, stats, lam, basis):
+        """Per-GP factorization of ``prior + lam * stats`` (structured or
+        flat) projected at ``basis``: one ``ProjectedFactor`` per GP."""
+        return tuple(
+            mniw.factorize_project_bl(stats[i], basis[i], prior=self.priors[i], lam=lam,
+                                      jitter=self.jitter, plain=self.reference)
+            for i in range(self.n_gp)
+        )
+
+    def auxiliary_fused(self, stats, lam, state, int_vars, inp_prev, inp_cur, obs,
+                        log_weights):
+        """:meth:`auxiliary` with the projection fused into the
+        factorization: returns ``(aux_state, aux_iv, lw_aux, ll_aux,
+        fps)``, ``fps`` per GP the ``ProjectedFactor`` (its
+        log-determinants feed the cSMC's ancestor weights)."""
+        aux_state = self.transition_all(state, inp_prev, int_vars)
+        basis = tuple(self.basis_all(i, aux_state, inp_cur) for i in range(self.n_gp))
+        fps = self.projected_all(stats, lam, basis)
+        aux_iv = tuple(fp.mean for fp in fps)
+        ll_aux = self.log_lik_all(obs, aux_state, inp_cur, aux_iv)
+        return aux_state, aux_iv, ll_aux + log_weights, ll_aux, fps
+
+    def draw_int_vars_fused(self, uvs, stats_g, lam, new_state, inp_cur):
+        """Matrix-t draws of the interface variables, the factorization of
+        the (gathered) statistics fused with the projection; ``uvs`` per
+        GP the uniforms ``(u, v)``. Returns ``(new_iv, new_basis)``."""
+        new_basis = tuple(self.basis_all(i, new_state, inp_cur) for i in range(self.n_gp))
+        fps = self.projected_all(stats_g, lam, new_basis)
+        new_iv = tuple(mniw.sample_projected_bl(fps[i], *uvs[i]) for i in range(self.n_gp))
+        return new_iv, new_basis
+
+    def draw_int_vars(self, uvs, factors_res, new_state, inp_cur):
+        """Matrix-t draws of the interface variables from given
+        (resampled) factors; returns ``(new_iv, new_basis)``."""
+        new_basis = tuple(self.basis_all(i, new_state, inp_cur) for i in range(self.n_gp))
+        new_iv = tuple(
+            mniw.sample_predictive_bl(factors_res[i], new_basis[i], *uvs[i], plain=self.reference)
+            for i in range(self.n_gp)
+        )
+        return new_iv, new_basis
+
+    def update_stats(self, stats_res, new_iv, new_basis, lam: float = 1.0):
+        """Rank-1 statistics update ``lam * stats + suff(y, phi)`` per GP,
+        structured or flat leaves."""
+        suff = mniw.suff_stat_flat_bl if stats_res[0].T1.dim() == 2 else mniw.suff_stat_bl
+        out = []
+        for i in range(self.n_gp):
+            d = suff(new_iv[i], new_basis[i])
+            if lam == 1.0:
+                out.append(mniw.MNIW(*(s + d_ for s, d_ in zip(stats_res[i], d))))
+            else:
+                out.append(mniw.MNIW(*(s * lam + d_ for s, d_ in zip(stats_res[i], d))))
+        return tuple(out)
+
+    def draw_update_all_packed(self, uvs, Ss_g, lam, new_state, inp_cur):
+        """Matrix-t draw + rank-1 update per GP over already-gathered
+        packed statistics (the draw/update kernel, PERF.md row 3). Returns
+        ``(Ss_new, new_iv, new_basis, lds)``."""
+        new_basis = tuple(self.basis_all(i, new_state, inp_cur) for i in range(self.n_gp))
+        outs = tuple(
+            self._draw_update(Ss_g[i], new_basis[i], *uvs[i], self.jitter, lam,
+                              self.prior_blocks[i], self.p3[i], m=self.ms[i], n=self.ns[i])
+            for i in range(self.n_gp)
+        )
+        return (tuple(o[0] for o in outs), tuple(o[1] for o in outs), new_basis,
+                tuple((o[2], o[3]) for o in outs))
+
+    @staticmethod
+    def gather(tensors, idx):
+        """Resampling gather along the particle (last) axis of each tensor
+        of a sequence (an MNIW too), one gather per tensor; returns the
+        same kind of sequence."""
+        out = [t.reshape(-1, t.shape[-1]).index_select(1, idx).reshape(t.shape[:-1] + idx.shape)
+               for t in tensors]
+        return type(tensors)(*out) if hasattr(tensors, "_fields") else type(tensors)(out)
+
+    @staticmethod
+    def gather_packed(Ss, idx):
+        """Resampling gather of the packed statistics, one per GP."""
+        return tuple(S.index_select(1, idx) for S in Ss)
 
     @staticmethod
     def packed_gather(tensors, idx):

@@ -1,6 +1,6 @@
 """Algorithm 3: conditional SMC with ancestor sampling, GP parameters
-marginalized (port of the direct path of ``bipk_tpu/algorithms/csmc.py``,
-``step_direct`` and ``run``).
+marginalized (port of ``bipk_tpu/algorithms/csmc.py``: ``step_direct``,
+``step_rank1`` and ``run``).
 
 An APF sweep with the forgetting factor pinned to 1 in which the last
 particle follows the reference trajectory. Each step:
@@ -19,11 +19,20 @@ particle follows the reference trajectory. Each step:
    interface variables are then written over the kernel's fresh output;
 5. the reference's contribution at this step leaves its future statistics.
 
-The step keeps every value on the device: the reference's ancestor is a
+The rank-1 formulation (``rank1=True``, :class:`CSMCRank1`) carries per
+particle the augmented Cholesky factors of ``prior + stats`` and of
+``prior + stats + the reference's future`` (:mod:`~bipk_tpu_torch.ops.
+cholup`) and keeps them by rank-1 updates and downdates in place of the
+three factorizations per GP and step: the look-ahead mean and the draw
+project from views of the factor (the projection kernel, four launches
+per step with two GPs) and the ancestor weights read its diagonal. In
+exact arithmetic it is the same sweep as the direct one, and it takes
+the same :class:`CSMCDraws`.
+
+Each step keeps every value on the device: the reference's ancestor is a
 0-d device tensor, never read back. Random draws are inputs
 (:class:`CSMCDraws`), so the tests can feed the JAX package's draws.
-The rank-1 factor-carry formulation (``rank1=True``) and the GSPMD
-``mesh=`` are not ported.
+The GSPMD ``mesh=`` is not ported.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 from bipk_tpu_torch._device import resolve_device
 from bipk_tpu_torch.algorithms.apf import APFKernel, as_tensor
 from bipk_tpu_torch.models.ssm import GPNode, SSM
-from bipk_tpu_torch.ops import mniw, resampling
+from bipk_tpu_torch.ops import cholup, mniw, resampling
 from bipk_tpu_torch.ops.gaussian import mvn_logpdf_chol
 
 
@@ -276,6 +285,104 @@ class CSMC:
         return CSMCResult(state_traj, iv_traj, tr.ess, tr.final_log_weights)
 
 
+class CSMCRank1(CSMC):
+    """The rank-1 factor-carry cSMC sweep (the JAX ``step_rank1`` and the
+    rank-1 initialisation of ``run``). The carry is ``(log_weights,
+    state, int_vars, Fs, dfs, Fps, dfps)``: per GP the augmented factor
+    ``F (p, p, N)`` of ``prior + stats`` and ``Fp`` of ``prior + stats +
+    future``, and their degrees of freedom ``(N,)``. Called, traced and
+    run as :class:`CSMC`; the step ignores ``ref_T`` (the reference's
+    datum enters as a vector, ``[phi(ref_x); ref_iv]``)."""
+
+    def pin_initial(self, particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats):
+        """:meth:`CSMC.pin_initial`, then the two augmented factors per GP
+        of the pinned statistics (with the dtype's jitter, once)."""
+        log_w0, state0, iv0, Ss0, ref_stats = super().pin_initial(
+            particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats)
+        kern = self.kern
+        Fs, dfs, Fps, dfps = [], [], [], []
+        for i in range(kern.n_gp):
+            m, n = kern.ms[i], kern.ns[i]
+            st = mniw.from_flat_bl(mniw.unpack_stats_bl(Ss0[i], m, n), m, n)
+            prior = kern.priors[i]
+            nat = mniw.MNIW(*(p[..., None] + s_ for p, s_ in zip(prior[:3], st[:3])),
+                            prior.T3 + st.T3)
+            nat_p = mniw.MNIW(*(a + r[..., None] for a, r in zip(nat[:3], ref_stats[i][:3])),
+                              nat.T3 + ref_stats[i].T3)
+            for out, df_out, nat_ in ((Fs, dfs, nat), (Fps, dfps, nat_p)):
+                F, df = cholup.aug_factorize_bl(nat_, jitter=kern.jitter)
+                out.append(F)
+                df_out.append(df)
+        return log_w0, state0, iv0, tuple(Fs), tuple(dfs), tuple(Fps), tuple(dfps)
+
+    def step(self, carry, obs, inp_prev, inp_cur, ref_x, ref_iv, ref_T,
+             draws: CSMCDraws):
+        """One rank-1 step; the arguments and result of :meth:`CSMC.step`."""
+        kern = self.kern
+        n_gp, ms = kern.n_gp, kern.ms
+        log_weights, state, int_vars, Fs, dfs, Fps, dfps = carry
+        factors = tuple(cholup.aug_to_factor(Fs[i], dfs[i], ms[i]) for i in range(n_gp))
+        aux_state, _, lw_aux, ll_aux = kern.auxiliary(
+            state, int_vars, factors, inp_prev, inp_cur, obs, log_weights)
+        ancestors = kern.resample(torch.softmax(lw_aux, 0), draws.u_res).clone()
+
+        # ancestor weights straight off the carried factors' diagonals
+        g_diff = torch.zeros_like(lw_aux)
+        for i in range(n_gp):
+            g_diff = (g_diff + cholup.aug_log_base_measure(Fs[i], dfs[i], ms[i])
+                      - cholup.aug_log_base_measure(Fps[i], dfps[i], ms[i]))
+        h_x = self._transition_logpdf_to_ref(aux_state, ref_x)
+        ref_idx = resampling.categorical_from_weights(
+            torch.softmax(log_weights + g_diff + h_x, 0), draws.u_ref
+        )
+        ancestors[-1:] = ref_idx.view(1)
+
+        took = kern.packed_gather(
+            [state, *int_vars, *Fs, *dfs, *Fps, *dfps, ll_aux], ancestors)
+        state_g, ll_aux_g = took[0], took[-1]
+        iv_g, F_g, df_g, Fp_g, dfp_g = (took[1 + k * n_gp:1 + (k + 1) * n_gp] for k in range(5))
+        factors_res = tuple(cholup.aug_to_factor(F_g[i], df_g[i], ms[i]) for i in range(n_gp))
+        new_state = kern.propagate_all(draws.z, state_g, inp_prev, iv_g)
+        new_state[:, -1] = ref_x
+        new_iv, new_basis = kern.draw_int_vars(draws.uvs, factors_res, new_state, inp_cur)
+        for i in range(n_gp):
+            new_iv[i][:, -1] = ref_iv[i]
+        new_log_weights = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_g
+
+        # O(p^2) factor maintenance: each particle's datum [phi; y]; the
+        # future factor also loses the reference's datum at this step
+        zs = [torch.cat([new_basis[i], new_iv[i]], 0) for i in range(n_gp)]
+        z_refs = [torch.cat([kern.basis_all(i, ref_x[:, None], inp_cur)[:, 0],
+                             torch.atleast_1d(ref_iv[i])]) for i in range(n_gp)]
+        new_Fs, new_Fps = _maintain_factors(F_g, Fp_g, zs, z_refs)
+        new_dfs = tuple(d + 1.0 for d in df_g)  # dfps: +1 datum, -1 future
+        norm_w = torch.softmax(new_log_weights, 0)
+        carry = (new_log_weights, new_state, new_iv, new_Fs, new_dfs, new_Fps, tuple(dfp_g))
+        return carry, (ancestors, 1.0 / (norm_w * norm_w).sum())
+
+
+def _maintain_factors(Fs, Fps, zs, z_refs):
+    """``(F + z z^T per GP, Fp - z_ref z_ref^T + z z^T per GP)`` in Cholesky
+    form. The GPs are grouped by the order of their factors (the vehicle's
+    two GPs form one group); per group the downdates run as one call and
+    the updates as another, the factors side by side along the particle
+    axis (each entry's arithmetic is that of its own call; eight launches
+    per column and group instead of eight per column and factor)."""
+    n_gp, N = len(Fs), Fs[0].shape[-1]
+    new_Fs, new_Fps = [None] * n_gp, [None] * n_gp
+    for order in sorted({F.shape[0] for F in Fs}):
+        group = [i for i in range(n_gp) if Fs[i].shape[0] == order]
+        down = cholup.chol_rank1_downdate_bl(
+            torch.cat([Fps[i] for i in group], -1),
+            torch.cat([z_refs[i][:, None].expand(-1, N) for i in group], -1))
+        up = cholup.chol_rank1_update_bl(torch.cat([*(Fs[i] for i in group), down], -1),
+                                         torch.cat([zs[i] for i in group] * 2, -1))
+        parts = up.split(N, -1)
+        for k, i in enumerate(group):
+            new_Fs[i], new_Fps[i] = parts[k], parts[len(group) + k]
+    return tuple(new_Fs), tuple(new_Fps)
+
+
 def build_csmc(
     ssm: SSM,
     gps: Sequence[GPNode],
@@ -288,22 +395,34 @@ def build_csmc(
     reuse_factor: bool = False,
     dedup_gather: bool = False,
 ) -> CSMC:
-    """Build the conditional-SMC-with-ancestor-sampling sweep (the direct
-    formulation) on one device.
+    """Build the conditional-SMC-with-ancestor-sampling sweep on one
+    device: the direct formulation, or with ``rank1=True`` the rank-1
+    factor-carry one (:class:`CSMCRank1`; opt-in, as in the JAX package).
 
     ``device`` defaults to CUDA and raises if no card is present.
     ``reference=True`` runs the kernels' plain PyTorch versions in their
     place. ``reuse_factor`` and ``dedup_gather`` select the opt-in
-    gather/draw kernels (:class:`~bipk_tpu_torch.algorithms.apf.
-    APFKernel`); the reused factor is that of the prior plus the
-    statistics at lambda = 1, as the draw's. ``rank1=True`` and ``mesh``
-    are not ported.
+    gather/draw kernels of the direct step (:class:`~bipk_tpu_torch.
+    algorithms.apf.APFKernel`); the reused factor is that of the prior
+    plus the statistics at lambda = 1, as the draw's. The rank-1 step
+    carries no packed statistics and launches neither kernel, so
+    ``rank1=True`` with either raises ``ValueError``; on the card without
+    ``reference`` it raises unless the dtype is float32 and every GP has
+    m <= 48 and n <= 2, as the direct step's kernels do. ``mesh`` is not
+    ported.
     """
-    if mesh is not None or rank1:
-        raise NotImplementedError(
-            "the port's cSMC runs the direct formulation on one device"
-        )
+    if mesh is not None:
+        raise NotImplementedError("the port's cSMC runs on one device")
+    if rank1 and (reuse_factor or dedup_gather):
+        raise ValueError("rank1=True carries augmented factors, not packed statistics: "
+                         "reuse_factor and dedup_gather select kernels it never launches")
     device = resolve_device(device)
     kern = APFKernel(ssm, gps, dtype, device, reference=reference,
                      reuse_factor=reuse_factor, dedup_gather=dedup_gather)
-    return CSMC(kern, n_particles)
+    if rank1:
+        # the step's one kernel, the projection: on the card it takes what
+        # the mniw entry points take (float32, m <= 48, n <= 2) or raises
+        for i in range(kern.n_gp):
+            mniw.kernels_take("build_csmc(rank1=True)", kern.priors[i].T1, kern.ms[i],
+                               kern.ns[i], reference)
+    return (CSMCRank1 if rank1 else CSMC)(kern, n_particles)

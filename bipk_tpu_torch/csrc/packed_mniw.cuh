@@ -1,9 +1,12 @@
-// The per-particle MNIW column core shared by packed_mniw.cu and
-// dedup_gather.cu: one thread factors prior + lam * S[:, src] and, by
-// MODE, projects, draws + updates, emits the factor, or stops at the
-// log-determinants. The caller says where the column lives: element r of
-// it is Sc[r * stride] (global memory with stride n_in, or a column staged
-// in shared memory). See packed_mniw.cu for the layout and the design.
+// The per-particle MNIW column core shared by packed_mniw.cu,
+// dedup_gather.cu and unpacked_mniw.cu: one thread factors prior + lam *
+// sym(T1) of its particle's statistics and, by MODE, projects, draws +
+// updates, emits the factor, writes the factor whole, or stops at the
+// log-determinants. A reader says where the statistics live: PackedStats
+// for a column of the packed layout (element r at Sc[r * stride], global
+// memory with stride n_in or a column staged in shared memory),
+// UnpackedStats for structured or flat T0, T1, T2 leaves. See
+// packed_mniw.cu for the layout and the design.
 
 #pragma once
 
@@ -17,8 +20,9 @@ constexpr int kThreads = 128;
 
 // What a launch computes: the projection at phi (factorize_project), the
 // draw and the rank-1 update (draw_update), the log-determinants alone, or
-// the projection plus the factor LW (factorize_project with emit_factor).
-enum Mode { kProject = 0, kDraw = 1, kLogdets = 2, kEmit = 3 };
+// the projection plus the factor LW (factorize_project with emit_factor),
+// or the factor itself, chol / white / row (factorize_blocks).
+enum Mode { kProject = 0, kDraw = 1, kLogdets = 2, kEmit = 3, kFactor = 4 };
 
 __device__ __forceinline__ int tri_off(int j, int m) {
   // offset of column j's diagonal in a column-major packed lower triangle
@@ -33,6 +37,9 @@ struct Args {
   const float* v;       // (n, n_out)
   const float* prior;   // [P0 | P1 | P2] or nullptr
   const float* lw;      // factor-gather input LW (m(m+1)/2 + m*n, n_in)
+  const float* T0;      // unpacked statistics (m*n, n_in), (m*m, n_in),
+  const float* T1;      //   (n*n, n_in): structured (m, n, N) etc. or
+  const float* T2;      //   flat (m*n, N) etc., the same memory
   int n_in, n_out, m, n;
   float jitter, lam, p3;
   // factorize/project outputs
@@ -40,6 +47,8 @@ struct Args {
   float* col;           // (n_out,)
   float* row;           // (n, n, n_out)
   float* lw_out;        // kEmit: LW (m(m+1)/2 + m*n, n_out)
+  float* chol;          // kFactor: (m, m, n_out), zeros above the diagonal
+  float* white;         // kFactor: (m, n, n_out)
   // draw/update outputs
   float* S_new;         // (rows, n_out)
   float* y;             // (n, n_out)
@@ -62,6 +71,47 @@ __device__ __forceinline__ int source_column(const Args& a, int j) {
 __device__ __forceinline__ float forget_add(float s, float lam, float x, float y) {
   return __fmaf_rn(x, y, __fmul_rn(s, lam));
 }
+
+// The statistics of one particle in the packed layout: rows
+// [T0 (m*n) | column-major tril(T1) | tril(T2) | T3], element r at
+// Sc[r * stride]. T1 and T2 are stored once per symmetric pair, so
+// sym() is exact and t1 reads the stored entry.
+struct PackedStats {
+  const float* Sc;
+  int64_t stride;
+  int m, n;
+  __device__ __forceinline__ float t0(int i, int c) const { return Sc[(i * n + c) * stride]; }
+  // T1[i][c], i >= c, stored at packed row m*n + k
+  __device__ __forceinline__ float t1(int i, int c, int k) const {
+    return Sc[(m * n + k) * stride];
+  }
+  __device__ __forceinline__ float t2(int a_, int b) const {
+    const int lo = a_ < b ? a_ : b, hi = a_ < b ? b : a_;
+    return Sc[(m * n + m * (m + 1) / 2 + tri_off(lo, n) + hi - lo) * stride];
+  }
+  __device__ __forceinline__ float t3() const {
+    return Sc[(m * n + m * (m + 1) / 2 + n * (n + 1) / 2) * stride];
+  }
+};
+
+// The statistics of one particle as full leaves, structured (m, n, N),
+// (m, m, N), (n, n, N) or flat (m*n, N), (m*m, N), (n*n, N) -- the same
+// memory -- each pointer at the particle's column, row stride `stride`.
+// T1 is read as 0.5 * (T1[i][c] + T1[c][i]) (the JAX kernels' _make_read_a),
+// which is T1[i][c] itself, bit for bit, on exactly symmetric input; T2
+// is read as stored, as the JAX kernels read it.
+struct UnpackedStats {
+  const float* T0;
+  const float* T1;
+  const float* T2;
+  int64_t stride;
+  int m, n;
+  __device__ __forceinline__ float t0(int i, int c) const { return T0[(i * n + c) * stride]; }
+  __device__ __forceinline__ float t1(int i, int c, int) const {
+    return 0.5f * (T1[(i * m + c) * stride] + T1[(c * m + i) * stride]);
+  }
+  __device__ __forceinline__ float t2(int a_, int b) const { return T2[(a_ * n + b) * stride]; }
+};
 
 __device__ __forceinline__ float logdet_psi_of(const float psi[2][2], int n) {
   if (n == 1) return logf(psi[0][0]);
@@ -101,19 +151,17 @@ __device__ __forceinline__ void matrix_t_draw(
   }
 }
 
-// One particle: thread j, output column j, its statistics column at Sc
-// with row stride `stride`.
-template <int MAXM, int MODE>
-__device__ __forceinline__ void mniw_column(
-    const Args& a, int j, const float* Sc, int64_t stride) {
+// One particle: thread j, output column j, its statistics read through
+// `rd` (PackedStats or UnpackedStats; the draw reads PackedStats only).
+template <int MAXM, int MODE, class Reader>
+__device__ __forceinline__ void mniw_core(const Args& a, int j, const Reader& rd) {
   constexpr bool DRAW = MODE == kDraw;
-  constexpr bool PHI = MODE != kLogdets;
+  constexpr bool PHI = MODE != kLogdets && MODE != kFactor;
   constexpr bool PROJECT = MODE == kProject || MODE == kEmit;
   const int m = a.m, n = a.n;
   const int64_t n_out = a.n_out;
   const int o1 = m * n;
   const int o2 = o1 + m * (m + 1) / 2;
-  const int o3 = o2 + n * (n + 1) / 2;
   const float lam = a.lam;
   const float* P0 = a.prior;
   const float* P1 = a.prior ? a.prior + m * n : nullptr;
@@ -130,7 +178,7 @@ __device__ __forceinline__ void mniw_column(
   for (int c = 0; c < m; ++c) {
     for (int i = c; i < m; ++i) {
       const int k = tri_off(c, m) + i - c;
-      const float raw = Sc[(o1 + k) * stride];
+      const float raw = rd.t1(i, c, k);
       if constexpr (DRAW) a.S_new[(o1 + k) * n_out + j] = forget_add(raw, lam, phi[i], phi[c]);
       float aij = raw * lam;
       if (P1) aij += __ldg(P1 + i * m + c);
@@ -157,7 +205,7 @@ __device__ __forceinline__ void mniw_column(
     }
     const float inv = rsqrtf(L[oc]);
     for (int i = c; i < m; ++i) L[oc + i - c] *= inv;
-    half_ld += logf(L[oc]);
+    if constexpr (MODE != kFactor) half_ld += logf(L[oc]);
   }
 
   // white = L^{-1}(P0 + lam*T0) and v = L^{-1} phi, one forward pass
@@ -167,7 +215,7 @@ __device__ __forceinline__ void mniw_column(
   for (int i = 0; i < m; ++i) {
     const float d = L[tri_off(i, m)];
     for (int c = 0; c < n; ++c) {
-      const float raw = Sc[(i * n + c) * stride];
+      const float raw = rd.t0(i, c);
       t0raw[i * n + c] = raw;
       float acc = raw * lam;
       if (P0) acc += __ldg(P0 + i * n + c);
@@ -193,22 +241,32 @@ __device__ __forceinline__ void mniw_column(
       for (int c = 0; c < n; ++c) a.lw_out[(tri + i * n + c) * n_out + j] = white[i * 2 + c];
   }
 
-  // Psi = P2 + lam*T2 - white^T white, with T2 read as a packed triangle
-  float t2raw[3];
-  float psi[2][2];
-  for (int b = 0; b < n; ++b) {
-    for (int a_ = b; a_ < n; ++a_) {
-      t2raw[tri_off(b, n) + a_ - b] = Sc[(o2 + tri_off(b, n) + a_ - b) * stride];
-    }
+  // the factor whole, as the JAX _factorize_kernel writes it
+  if constexpr (MODE == kFactor) {
+    for (int i = 0; i < m; ++i)
+      for (int k = 0; k < m; ++k)
+        a.chol[(i * m + k) * n_out + j] = k <= i ? L[tri_off(k, m) + i - k] : 0.f;
+    for (int i = 0; i < m; ++i)
+      for (int c = 0; c < n; ++c) a.white[(i * n + c) * n_out + j] = white[i * 2 + c];
   }
+
+  // Psi = P2 + lam*T2 - white^T white
+  float t2raw[2][2];
+  float psi[2][2];
+  for (int a_ = 0; a_ < n; ++a_)
+    for (int b = 0; b < n; ++b) t2raw[a_][b] = rd.t2(a_, b);
   for (int a_ = 0; a_ < n; ++a_) {
     for (int b = 0; b < n; ++b) {
-      const int lo = a_ < b ? a_ : b, hi = a_ < b ? b : a_;
-      float acc = t2raw[tri_off(lo, n) + hi - lo] * lam;
+      float acc = t2raw[a_][b] * lam;
       if (P2) acc += __ldg(P2 + a_ * n + b);
       for (int k = 0; k < m; ++k) acc -= white[k * 2 + a_] * white[k * 2 + b];
       psi[a_][b] = acc;
     }
+  }
+  if constexpr (MODE == kFactor) {
+    for (int a_ = 0; a_ < n; ++a_)
+      for (int b = 0; b < n; ++b) a.row[(a_ * n + b) * n_out + j] = psi[a_][b];
+    return;
   }
   const float logdet_psi = logdet_psi_of(psi, n);
 
@@ -234,20 +292,29 @@ __device__ __forceinline__ void mniw_column(
     return;
   }
 
-  const float t3raw = Sc[o3 * stride];
-  float yv[2];
-  matrix_t_draw(a, j, t3raw * lam + a.p3 + (1.f - n), psi, mean, colv, yv);
+  if constexpr (DRAW) {
+    const float t3raw = rd.t3();
+    float yv[2];
+    matrix_t_draw(a, j, t3raw * lam + a.p3 + (1.f - n), psi, mean, colv, yv);
 
-  // rank-1 update of the raw statistics (the prior never enters the carry)
-  for (int i = 0; i < m; ++i)
-    for (int c = 0; c < n; ++c)
-      a.S_new[(i * n + c) * n_out + j] = forget_add(t0raw[i * n + c], lam, phi[i], yv[c]);
-  for (int b = 0; b < n; ++b)
-    for (int a_ = b; a_ < n; ++a_) {
-      const int k = tri_off(b, n) + a_ - b;
-      a.S_new[(o2 + k) * n_out + j] = forget_add(t2raw[k], lam, yv[a_], yv[b]);
-    }
-  a.S_new[o3 * n_out + j] = forget_add(t3raw, lam, 1.f, 1.f);
+    // rank-1 update of the raw statistics (the prior never enters the carry)
+    for (int i = 0; i < m; ++i)
+      for (int c = 0; c < n; ++c)
+        a.S_new[(i * n + c) * n_out + j] = forget_add(t0raw[i * n + c], lam, phi[i], yv[c]);
+    for (int b = 0; b < n; ++b)
+      for (int a_ = b; a_ < n; ++a_) {
+        const int k = tri_off(b, n) + a_ - b;
+        a.S_new[(o2 + k) * n_out + j] = forget_add(t2raw[a_][b], lam, yv[a_], yv[b]);
+      }
+    a.S_new[(o2 + n * (n + 1) / 2) * n_out + j] = forget_add(t3raw, lam, 1.f, 1.f);
+  }
+}
+
+// The core on a column of the packed layout at Sc, row stride `stride`.
+template <int MAXM, int MODE>
+__device__ __forceinline__ void mniw_column(
+    const Args& a, int j, const float* Sc, int64_t stride) {
+  mniw_core<MAXM, MODE>(a, j, PackedStats{Sc, stride, a.m, a.n});
 }
 
 }  // namespace bipk_mniw

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels into one shared library.
 
-ONE ``nvcc`` call compiles every ``bipk_tpu_torch/csrc/*.cu`` (with the
-headers beside them, ``*.cuh``) for ``sm_90a`` into one ``.so`` with a
-plain C interface, loaded with ``ctypes``. The sources include no PyTorch
+One ``nvcc -c`` per ``bipk_tpu_torch/csrc/*.cu`` (with the headers beside
+them, ``*.cuh``), all started together, compiles for ``sm_90a``; one more
+``nvcc`` links the objects into one ``.so`` with a plain C interface,
+loaded with ``ctypes``. The sources include no PyTorch
 header: a file that does takes minutes to compile where this takes
 seconds, and PyTorch's extension loader also needs ``ninja``. The
 library's file name carries a hash of the sources, headers and flags, so
@@ -23,10 +24,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def sources() -> list[Path]:
@@ -66,17 +65,27 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate() for proc in procs]  # every compile ends here
+        lib = Path(tmp) / "lib.so"
+        link = [nvcc, *GENCODE, "-shared", "-o", str(lib), *map(str, objs)]
+        for cmd, proc, (stdout, stderr) in zip(cmds, procs, outputs):
+            _raise_on_failure(cmd, proc.returncode, stdout, stderr)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_on_failure(link, proc.returncode, proc.stdout, proc.stderr)
+        out.with_suffix(".ptxas.txt").write_text("".join(o + e for o, e in outputs))
+        os.replace(lib, out)
     return out
+
+
+def _raise_on_failure(cmd, returncode, stdout, stderr):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {returncode}): {' '.join(cmd)}\n"
+                           f"{stdout}\n{stderr}")

@@ -14,6 +14,10 @@ wrapper                                     CUDA source
 ``log_base_measure_packed_logdets``         ``csrc/packed_mniw.cu``
 ``draw_update_factor_gather_packed_blocks`` ``csrc/packed_mniw.cu``
 ``draw_update_dedup_gather_packed_blocks``  ``csrc/dedup_gather.cu``
+``factorize_blocks``                        ``csrc/unpacked_mniw.cu``
+``factorize_project_blocks``                ``csrc/unpacked_mniw.cu``
+``project_blocks``                          ``csrc/unpacked_mniw.cu``
+``log_base_measure_logdets``                ``csrc/unpacked_mniw.cu``
 =========================================== =========================
 
 Each wrapper's plain version is the ``*_plain`` function beside it (a thin
@@ -29,9 +33,12 @@ runs ``packed_mniw_kernel<24, MODE>``, the counterpart of the TPU's tiled
 kernels, and 24 < m <= 48 runs ``<48, MODE>``, the counterpart of its
 cs-layout ``_cs_call`` / ``_cs_du_gather_call``; the factor-emitting
 projection, ``<24, kEmit>``, counts apart from the plain one). The factor
-pair and the dedup gather take m <= 24 only. The kernels take f32 only,
-launch on the current stream and never synchronise; the wrapper
-allocates the outputs.
+pair and the dedup gather take m <= 24 only. The four unpacked wrappers
+(``UNPACKED``) take structured or flat ``T0, T1, T2`` leaves, or a given
+factor, and count their launches per instantiation too; they serve
+m <= 48 where the JAX package's ``factorize_blocks`` and ``project_blocks``
+stop at 24. The kernels take f32 only, launch on the current stream and
+never synchronise; the wrapper allocates the outputs.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from bipk_tpu_torch.ops import _build, mniw, resampling
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "bipk_factorize_project_packed": [
         _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P,
@@ -62,6 +70,12 @@ _SIGNATURES = {
     ],
     "bipk_systematic_ancestors": [_P, _P, _I, _P, _P, _P],
     "bipk_log_base_measure_packed": [_P, _P, _I, _I, _I, _F, _P, _P],
+    "bipk_factorize_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    "bipk_factorize_project_blocks": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
+    ],
+    "bipk_log_base_measure_logdets": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "bipk_project_blocks": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
 }
 MAX_M = 48
 MAX_N = 2
@@ -463,6 +477,189 @@ def log_base_measure_packed_logdets(
     return ld[0], ld[1]
 
 
+# ---------------------------------------------------------------------------
+# The unpacked kernels (csrc/unpacked_mniw.cu): structured or flat
+# statistics, and the projection from a given factor.
+# ---------------------------------------------------------------------------
+
+
+def _unpacked_mn(name, T0, T1, T2, m, n):
+    """``(m, n)`` of structured (``T0 (m, n, N)``) or flat (``T0 (m*n,
+    N)``, pass ``m`` and ``n``) statistics; raise outside the kernels'
+    widths or on leaves of another shape."""
+    if T0.dim() == 3:
+        m, n = T0.shape[0], T0.shape[1]
+        shapes = ((m, n), (m, m), (n, n))
+    else:
+        if not m or not n:
+            raise ValueError(f"{name}: flat statistics need m and n")
+        shapes = ((m * n,), (m * m,), (n * n,))
+    if not (1 <= m <= MAX_M and 1 <= n <= MAX_N):
+        raise ValueError(f"{name}: needs 1 <= m <= {MAX_M}, 1 <= n <= {MAX_N}; got m={m}, n={n}")
+    N = T0.shape[-1]
+    for arg, t, lead in zip(("T0", "T1", "T2"), (T0, T1, T2), shapes):
+        if tuple(t.shape) != (*lead, N):
+            raise ValueError(f"{name}: {arg} must be {(*lead, N)}; got {tuple(t.shape)}")
+    return m, n
+
+
+def _require_unpacked(name, T0, T1, T2, **tensors) -> int:
+    """Check the leaves and ``tensors`` (f32, contiguous, on T0's device);
+    return N."""
+    _require(name, T0.device, torch.float32, T0=(T0, T0.shape), T1=(T1, T1.shape),
+             T2=(T2, T2.shape), **tensors)
+    return T0.shape[-1]
+
+
+def factorize_blocks_plain(T0, T1, T2, jitter, lam=1.0, prior=None):
+    """Plain PyTorch version of :func:`factorize_blocks`."""
+    f = mniw._factorize_scaled_bl_plain(
+        mniw.MNIW(T0, T1, T2, torch.zeros(T0.shape[-1], dtype=T0.dtype, device=T0.device)),
+        _prior_mniw(prior, 0.0, T0), lam, jitter)
+    return f.chol, f.white_T0, f.row_scale
+
+
+def factorize_blocks(
+    T0: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor, jitter: float,
+    lam: float = 1.0, prior: Sequence[torch.Tensor] | None = None,
+):
+    """Factor ``prior + lam * stats`` per particle: ``T0 (m, n, N)``, ``T1
+    (m, m, N)``, ``T2 (n, n, N)``, ``prior`` the unbatched ``(P0, P1,
+    P2)`` or None -> ``(chol (m, m, N)`` lower with zeros above the
+    diagonal, ``white (m, n, N) = L^{-1}(P0 + lam T0)``, ``row (n, n, N) =
+    P2 + lam T2 - white^T white)``, ``chol`` the Cholesky factor of ``P1
+    + lam sym(T1)`` with the relative jitter ``jitter * trace / m`` on its
+    diagonal."""
+    name = "factorize_blocks"
+    if T0.dim() != 3:
+        raise ValueError(f"{name}: needs structured statistics, T0 (m, n, N)")
+    m, n = _unpacked_mn(name, T0, T1, T2, 0, 0)
+    if not _on_cuda(name, T0):
+        return factorize_blocks_plain(T0, T1, T2, jitter, lam, prior)
+    N = _require_unpacked(name, T0, T1, T2)
+    pbuf = _prior_buffer(name, prior, m, n, T0)
+    chol = torch.empty((m, m, N), dtype=T0.dtype, device=T0.device)
+    white = torch.empty((m, n, N), dtype=T0.dtype, device=T0.device)
+    row = torch.empty((n, n, N), dtype=T0.dtype, device=T0.device)
+    rc = _lib().bipk_factorize_blocks(
+        T0.data_ptr(), T1.data_ptr(), T2.data_ptr(), _ptr(pbuf), N, m, n,
+        float(jitter), float(lam), chol.data_ptr(), white.data_ptr(),
+        row.data_ptr(), _stream(T0.device),
+    )
+    _count(factorize_blocks, m)
+    _check(rc, name)
+    return chol, white, row
+
+
+def factorize_project_blocks_plain(T0, T1, T2, phi, jitter, lam=1.0, prior=None,
+                                   m=None, n=None):
+    """Plain PyTorch version of :func:`factorize_project_blocks`."""
+    stats = mniw.MNIW(T0, T1, T2, torch.zeros(T0.shape[-1], dtype=T0.dtype, device=T0.device))
+    fp = mniw._factorize_project_bl_plain(stats, phi, _prior_mniw(prior, 0.0, T0), lam, jitter)
+    return fp[:5]
+
+
+def factorize_project_blocks(
+    T0: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor, phi: torch.Tensor,
+    jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None,
+    m: int | None = None, n: int | None = None,
+):
+    """:func:`factorize_blocks` projected at ``phi (m, N)``, the factor
+    never written: ``(mean (n, N), col_scale (N,), row_scale (n, n, N),
+    logdet_T1 (N,), logdet_Psi (N,))``. Statistics structured, or flat
+    ``(m*n, N)``, ``(m*m, N)``, ``(n*n, N)`` with ``m`` and ``n``."""
+    name = "factorize_project_blocks"
+    m, n = _unpacked_mn(name, T0, T1, T2, m, n)
+    if not _on_cuda(name, T0):
+        return factorize_project_blocks_plain(T0, T1, T2, phi, jitter, lam, prior, m, n)
+    N = _require_unpacked(name, T0, T1, T2, phi=(phi, (m, T0.shape[-1])))
+    pbuf = _prior_buffer(name, prior, m, n, T0)
+    mean = torch.empty((n, N), dtype=T0.dtype, device=T0.device)
+    col = torch.empty((N,), dtype=T0.dtype, device=T0.device)
+    row = torch.empty((n, n, N), dtype=T0.dtype, device=T0.device)
+    ld = torch.empty((2, N), dtype=T0.dtype, device=T0.device)
+    rc = _lib().bipk_factorize_project_blocks(
+        T0.data_ptr(), T1.data_ptr(), T2.data_ptr(), phi.data_ptr(), _ptr(pbuf),
+        N, m, n, float(jitter), float(lam), mean.data_ptr(), col.data_ptr(),
+        row.data_ptr(), ld.data_ptr(), _stream(T0.device),
+    )
+    _count(factorize_project_blocks, m)
+    _check(rc, name)
+    return mean, col, row, ld[0], ld[1]
+
+
+def project_blocks_plain(chol, white, phi):
+    """Plain PyTorch version of :func:`project_blocks`."""
+    return mniw._project_mean_col(chol, white, phi)
+
+
+def project_blocks(chol: torch.Tensor, white: torch.Tensor, phi: torch.Tensor):
+    """From a given factor: ``v = chol^{-1} phi``, ``mean = white^T v``,
+    ``col_scale = v.v + 1`` -> ``(mean (n, N), col_scale (N,))``.
+
+    ``chol (m, m, N)`` (only its lower triangle is read) and ``white (m,
+    n, N)`` may be strided views, e.g. of an augmented factor ``F (p, p,
+    N)`` (``F[:m, :m]`` and ``F[m:, :m]`` transposed), as long as the
+    particle axis has stride 1: the kernel reads them in place."""
+    name = "project_blocks"
+    m, n, N = white.shape[0], white.shape[1], white.shape[-1]
+    if chol.dim() != 3 or tuple(chol.shape) != (m, m, N) or white.dim() != 3:
+        raise ValueError(f"{name}: chol must be (m, m, N) and white (m, n, N); got "
+                         f"{tuple(chol.shape)}, {tuple(white.shape)}")
+    if not (1 <= m <= MAX_M and 1 <= n <= MAX_N):
+        raise ValueError(f"{name}: needs 1 <= m <= {MAX_M}, 1 <= n <= {MAX_N}; got m={m}, n={n}")
+    if not _on_cuda(name, chol):
+        return project_blocks_plain(chol, white, phi)
+    _require(name, chol.device, torch.float32, phi=(phi, (m, N)))
+    for arg, t in (("chol", chol), ("white", white)):
+        if t.device != chol.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be float32 on {chol.device}")
+        if N > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: {arg} needs particle stride 1; got {t.stride()}")
+    mean = torch.empty((n, N), dtype=phi.dtype, device=phi.device)
+    col = torch.empty((N,), dtype=phi.dtype, device=phi.device)
+    rc = _lib().bipk_project_blocks(
+        chol.data_ptr(), chol.stride(0), chol.stride(1), white.data_ptr(),
+        white.stride(0), white.stride(1), phi.data_ptr(), N, m, n,
+        mean.data_ptr(), col.data_ptr(), _stream(phi.device),
+    )
+    _count(project_blocks, m)
+    _check(rc, name)
+    return mean, col
+
+
+def log_base_measure_logdets_plain(T0, T1, T2, jitter, m=None, n=None):
+    """Plain PyTorch version of :func:`log_base_measure_logdets`."""
+    nat = mniw.MNIW(T0, T1, T2, None)
+    if T0.dim() == 2:
+        nat = mniw.from_flat_bl(nat, m, n)
+    return mniw._base_measure_logdets_plain(nat, jitter)
+
+
+def log_base_measure_logdets(
+    T0: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor, jitter: float,
+    m: int | None = None, n: int | None = None,
+):
+    """``(logdet sym(T1) (N,), logdet Psi (N,))`` with ``Psi = T2 - T0^T
+    sym(T1)^{-1} T0`` and the relative jitter on ``sym(T1)``'s diagonal
+    (no ``lam``, no prior). Statistics structured, or flat with ``m`` and
+    ``n``."""
+    name = "log_base_measure_logdets"
+    m, n = _unpacked_mn(name, T0, T1, T2, m, n)
+    if not _on_cuda(name, T0):
+        return log_base_measure_logdets_plain(T0, T1, T2, jitter, m, n)
+    N = _require_unpacked(name, T0, T1, T2)
+    ld = torch.empty((2, N), dtype=T0.dtype, device=T0.device)
+    rc = _lib().bipk_log_base_measure_logdets(
+        T0.data_ptr(), T1.data_ptr(), T2.data_ptr(), N, m, n, float(jitter),
+        ld.data_ptr(), _stream(T0.device),
+    )
+    _count(log_base_measure_logdets, m)
+    _check(rc, name)
+    return ld[0], ld[1]
+
+
 WRAPPERS = (
     factorize_project_packed,
     systematic_ancestors_blocks,
@@ -471,6 +668,10 @@ WRAPPERS = (
     log_base_measure_packed_logdets,
     draw_update_factor_gather_packed_blocks,
     draw_update_dedup_gather_packed_blocks,
+    factorize_blocks,
+    factorize_project_blocks,
+    project_blocks,
+    log_base_measure_logdets,
 )
 PLAIN = {
     factorize_project_packed: factorize_project_packed_plain,
@@ -480,6 +681,10 @@ PLAIN = {
     log_base_measure_packed_logdets: log_base_measure_packed_logdets_plain,
     draw_update_factor_gather_packed_blocks: draw_update_factor_gather_packed_blocks_plain,
     draw_update_dedup_gather_packed_blocks: draw_update_dedup_gather_packed_blocks_plain,
+    factorize_blocks: factorize_blocks_plain,
+    factorize_project_blocks: factorize_project_blocks_plain,
+    project_blocks: project_blocks_plain,
+    log_base_measure_logdets: log_base_measure_logdets_plain,
 }
 
 
@@ -492,24 +697,28 @@ PACKED_MNIW = {
     draw_update_factor_gather_packed_blocks: ("<24>",),
     draw_update_dedup_gather_packed_blocks: ("<24>",),
 }
+# the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths
+UNPACKED = (factorize_blocks, factorize_project_blocks, project_blocks,
+            log_base_measure_logdets)
+PER_INSTANTIATION = {**PACKED_MNIW, **{fn: ("<24>", "<48>") for fn in UNPACKED}}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
-    for fn, kernels in PACKED_MNIW.items():
+    for fn, kernels in PER_INSTANTIATION.items():
         fn.launches_by_kernel = dict.fromkeys(kernels, 0)
 
 
 def launch_counts() -> dict:
     """Launches since the last :func:`reset_launch_counts`: per kernel
-    instantiation for the packed-MNIW wrappers, keyed ``"<wrapper><24>"``,
-    ``"<wrapper><48>"`` and, for the factor-emitting projection,
-    ``"factorize_project_packed[emit]<24>"``; per wrapper for the
-    resampler."""
+    instantiation for the packed-MNIW and unpacked wrappers, keyed
+    ``"<wrapper><24>"``, ``"<wrapper><48>"`` and, for the factor-emitting
+    projection, ``"factorize_project_packed[emit]<24>"``; per wrapper for
+    the resampler."""
     out = {}
     for fn in WRAPPERS:
-        if fn in PACKED_MNIW:
+        if fn in PER_INSTANTIATION:
             out.update({f"{fn.__name__}{k}": c for k, c in fn.launches_by_kernel.items()})
         else:
             out[fn.__name__] = fn.launches

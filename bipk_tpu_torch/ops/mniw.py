@@ -12,8 +12,18 @@ factor ``LW`` it emits), :func:`draw_update_packed_bl` and
 :func:`draw_update_factor_gather_packed_bl` are the plain PyTorch versions
 of the CUDA kernels in :mod:`bipk_tpu_torch.ops.cuda_kernels`;
 :func:`draw_update_gather_packed_bl` picks the gather/draw kernel (or its
-plain version) as the JAX dispatch does. Every random draw is an input
-(``u, v`` uniforms), so each is a deterministic function.
+plain version) as the JAX dispatch does.
+
+The unpacked entry points :func:`factorize_bl`, :func:`factorize_scaled_bl`,
+:func:`factorize_project_bl`, :func:`log_base_measure_bl`,
+:func:`factor_mean_at_bl` and :func:`sample_predictive_bl` launch the
+unpacked kernels on CUDA tensors (float32, m <= 48, n <= 2; any other
+CUDA tensor raises) and compute their plain versions on CPU tensors or
+with ``plain=True``. The
+plain versions of the packed kernels call the private plain cores
+(``_factorize_bl_plain`` and the like), never these entry points, so a
+plain version never launches a kernel. Every random draw is an input
+(``u, v`` uniforms), so each function is deterministic.
 """
 
 from __future__ import annotations
@@ -257,12 +267,31 @@ def _gram_bl(W: torch.Tensor) -> torch.Tensor:
     return (W[:, :, None, :] * W[:, None, :, :]).sum(0)
 
 
-def factorize_bl(nat: MNIW, jitter: float | None = None) -> MNIWFactor:
-    """Factor batch-last ``nat``: symmetrize ``T1``, add the relative
-    jitter ``jitter * trace/m`` to its diagonal, Cholesky, whiten ``T0``
-    and form the Schur complement ``T2 - white^T white``."""
-    if jitter is None:
-        jitter = _default_jitter(nat.T1.dtype)
+def kernels_take(name: str, t: torch.Tensor, m: int, n: int, plain: bool) -> bool:
+    """Whether entry point ``name`` launches its kernel: on a CUDA tensor,
+    unless ``plain`` (the JAX package's ``use_pallas=False``). A CUDA
+    tensor the kernels cannot take (not float32, m > 48 or n > 2) raises,
+    as the packed wrappers do; only ``plain=True`` asks for the plain
+    version on the card. CPU tensors take the plain version."""
+    from bipk_tpu_torch.ops import cuda_kernels as ck
+
+    if plain or t.device.type != "cuda":
+        return False
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernels take float32 on the card, got {t.dtype}; "
+                        "pass plain=True for the plain version")
+    if not (1 <= m <= ck.MAX_M and 1 <= n <= ck.MAX_N):
+        raise ValueError(f"{name}: the kernels need 1 <= m <= {ck.MAX_M}, 1 <= n <= "
+                         f"{ck.MAX_N} on the card; got m={m}, n={n}; pass plain=True "
+                         "for the plain version")
+    return True
+
+
+def _c(*tensors):
+    return tuple(t.contiguous() for t in tensors)
+
+
+def _factorize_bl_plain(nat: MNIW, jitter: float) -> MNIWFactor:
     T1s = 0.5 * (nat.T1 + nat.T1.transpose(0, 1))
     if jitter:
         m = T1s.shape[0]
@@ -274,19 +303,63 @@ def factorize_bl(nat: MNIW, jitter: float | None = None) -> MNIWFactor:
     return MNIWFactor(L, white, nat.T2 - _gram_bl(white), nat.T3)
 
 
-def factorize_scaled_bl(
-    stats: MNIW, prior: MNIW | None = None, lam: float = 1.0,
-    jitter: float | None = None,
-) -> MNIWFactor:
-    """Factor ``prior + lam * stats``; ``prior`` is UNbatched."""
-    df = stats.T3 * lam + (prior.T3 if prior is not None else 0.0)
+def factorize_bl(nat: MNIW, jitter: float | None = None, plain: bool = False) -> MNIWFactor:
+    """Factor batch-last ``nat`` (structured leaves): symmetrize ``T1``,
+    add the relative jitter ``jitter * trace/m`` to its diagonal,
+    Cholesky, whiten ``T0`` and form the Schur complement ``T2 - white^T
+    white``.
+
+    On CUDA leaves this launches ``cuda_kernels.factorize_blocks``
+    (float32, m <= 48, n <= 2; other CUDA leaves raise); CPU leaves, or
+    ``plain=True``, take the plain PyTorch version."""
+    if jitter is None:
+        jitter = _default_jitter(nat.T1.dtype)
+    m, n = nat.T0.shape[0], nat.T0.shape[1]
+    if kernels_take("factorize_bl", nat.T1, m, n, plain):
+        from bipk_tpu_torch.ops import cuda_kernels as ck
+
+        chol, white, row = ck.factorize_blocks(*_c(nat.T0, nat.T1, nat.T2), jitter)
+        return MNIWFactor(chol, white, row, nat.T3)
+    return _factorize_bl_plain(nat, jitter)
+
+
+def _scaled_df(stats: MNIW, prior: MNIW | None, lam: float):
+    return stats.T3 * lam + (prior.T3 if prior is not None else 0.0)
+
+
+def _factorize_scaled_bl_plain(stats: MNIW, prior: MNIW | None, lam: float,
+                               jitter: float) -> MNIWFactor:
+    df = _scaled_df(stats, prior, lam)
     nat = MNIW(stats.T0 * lam, stats.T1 * lam, stats.T2 * lam, df)
     if prior is not None:
         nat = MNIW(
             nat.T0 + prior.T0[..., None], nat.T1 + prior.T1[..., None],
             nat.T2 + prior.T2[..., None], df,
         )
-    return factorize_bl(nat, jitter=jitter)
+    return _factorize_bl_plain(nat, jitter)
+
+
+def _prior_blocks(prior: MNIW | None):
+    return None if prior is None else _c(prior.T0, prior.T1, prior.T2)
+
+
+def factorize_scaled_bl(
+    stats: MNIW, prior: MNIW | None = None, lam: float = 1.0,
+    jitter: float | None = None, plain: bool = False,
+) -> MNIWFactor:
+    """Factor ``prior + lam * stats`` (structured leaves); ``prior`` is
+    UNbatched. Dispatches as :func:`factorize_bl` does, the prior and
+    ``lam`` folded into the kernel."""
+    if jitter is None:
+        jitter = _default_jitter(stats.T1.dtype)
+    m, n = stats.T0.shape[0], stats.T0.shape[1]
+    if kernels_take("factorize_scaled_bl", stats.T1, m, n, plain):
+        from bipk_tpu_torch.ops import cuda_kernels as ck
+
+        chol, white, row = ck.factorize_blocks(
+            *_c(stats.T0, stats.T1, stats.T2), jitter, lam, _prior_blocks(prior))
+        return MNIWFactor(chol, white, row, _scaled_df(stats, prior, lam))
+    return _factorize_scaled_bl_plain(stats, prior, lam, jitter)
 
 
 def _logdet_psi(psi: torch.Tensor) -> torch.Tensor:
@@ -300,28 +373,86 @@ def _logdet_psi(psi: torch.Tensor) -> torch.Tensor:
     return bla.logdet_from_chol_bl(bla.chol_lower_bl(sym))
 
 
+def _project_mean_col(chol, white, phi):
+    """``v = chol^{-1} phi``: ``(white^T v (n, N), |v|^2 + 1 (N,))``. A
+    strided ``white`` (a view of an augmented factor) is summed in the
+    order of a contiguous one, so views and copies agree bit for bit."""
+    v = bla.solve_lower_bl(chol, phi)
+    return (white.contiguous() * v[:, None, :]).sum(0), (v * v).sum(0) + 1.0
+
+
 def project_bl(f: MNIWFactor, phi: torch.Tensor) -> ProjectedFactor:
     """Project a factored MNIW at ``phi (m, N)``: ``mean = white^T L^{-1}
     phi``, ``col = |L^{-1} phi|^2 + 1``, ``Psi``, and the two
-    log-determinants."""
-    v = bla.solve_lower_bl(f.chol, phi)
-    mean = (f.white_T0 * v[:, None, :]).sum(0)
-    col = (v * v).sum(0) + 1.0
+    log-determinants (plain PyTorch)."""
+    mean, col = _project_mean_col(f.chol, f.white_T0, phi)
     return ProjectedFactor(
         mean, col, f.row_scale, bla.logdet_from_chol_bl(f.chol),
         _logdet_psi(f.row_scale), f.df,
     )
 
 
+def _factorize_project_bl_plain(stats: MNIW, phi, prior, lam, jitter) -> ProjectedFactor:
+    if stats.T1.dim() == 2:
+        m = phi.shape[0]
+        stats = from_flat_bl(stats, m, stats.T0.shape[0] // m)
+    return project_bl(_factorize_scaled_bl_plain(stats, prior, lam, jitter), phi)
+
+
 def factorize_project_bl(
     stats: MNIW, phi: torch.Tensor, prior: MNIW | None = None,
-    lam: float = 1.0, jitter: float | None = None,
+    lam: float = 1.0, jitter: float | None = None, plain: bool = False,
 ) -> ProjectedFactor:
-    """Factor ``prior + lam * stats`` (structured batch-last) and project
-    at ``phi (m, N)`` (:func:`project_bl`)."""
-    return project_bl(
-        factorize_scaled_bl(stats, prior=prior, lam=lam, jitter=jitter), phi
-    )
+    """Factor ``prior + lam * stats`` and project at ``phi (m, N)``
+    (:func:`project_bl`); the factor is never formed in memory by the
+    kernel. ``stats`` structured or flat (``(m*n, N)`` etc.; ``m`` is
+    ``phi``'s). Dispatches to ``cuda_kernels.factorize_project_blocks``
+    as :func:`factorize_bl` does."""
+    if jitter is None:
+        jitter = _default_jitter(stats.T1.dtype)
+    m = phi.shape[0]
+    n = stats.T0.shape[0] // m if stats.T1.dim() == 2 else stats.T0.shape[1]
+    if kernels_take("factorize_project_bl", stats.T1, m, n, plain):
+        from bipk_tpu_torch.ops import cuda_kernels as ck
+
+        out = ck.factorize_project_blocks(
+            *_c(stats.T0, stats.T1, stats.T2, phi), jitter, lam, _prior_blocks(prior),
+            m=m, n=n)
+        return ProjectedFactor(*out, _scaled_df(stats, prior, lam))
+    return _factorize_project_bl_plain(stats, phi, prior, lam, jitter)
+
+
+def _project_factor(name: str, factor: MNIWFactor, phi, plain: bool):
+    """``(mean, col)`` of :func:`project_bl` from a given factor: on the
+    card the projection kernel, which reads ``chol`` and ``white`` in
+    place (strided views, e.g. of an augmented factor, included), as
+    :func:`kernels_take` decides; else the plain version."""
+    m, n = factor.white_T0.shape[0], factor.white_T0.shape[1]
+    if kernels_take(name, factor.chol, m, n, plain):
+        from bipk_tpu_torch.ops import cuda_kernels as ck
+
+        return ck.project_blocks(factor.chol, factor.white_T0, phi.contiguous())
+    return _project_mean_col(factor.chol, factor.white_T0, phi)
+
+
+def factor_mean_at_bl(factor: MNIWFactor, phi: torch.Tensor, plain: bool = False):
+    """Posterior-mean prediction from a factor, ``phi (m, N) -> (n, N)``:
+    ``white^T chol^{-1} phi``, through the projection kernel on CUDA
+    tensors (:func:`_project_factor`)."""
+    return _project_factor("factor_mean_at_bl", factor, phi, plain)[0]
+
+
+def sample_predictive_bl(
+    factor: MNIWFactor, phi: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Matrix-t predictive draw from a factor at ``phi (m, N)``: the
+    projection of :func:`factor_mean_at_bl` (one kernel for the mean and
+    the column scale), then :func:`sample_projected_bl`'s draw with the
+    uniforms ``u, v (n, N)`` and ``df = factor.df``."""
+    mean, col = _project_factor("sample_predictive_bl", factor, phi, plain)
+    fp = ProjectedFactor(mean, col, factor.row_scale, None, None, factor.df)
+    return sample_projected_bl(fp, u, v)
 
 
 def sample_projected_bl(
@@ -389,10 +520,10 @@ def factorize_project_packed_bl(
     (:func:`factor_to_lw`), or ``(fp, None)`` where ``m >
     FACTOR_MAX_M``, as the JAX function does where its factor pair is
     unavailable."""
-    f = factorize_scaled_bl(
-        from_flat_bl(unpack_stats_bl(S, m, n), m, n), prior=prior, lam=lam,
-        jitter=jitter,
-    )
+    if jitter is None:
+        jitter = _default_jitter(S.dtype)
+    f = _factorize_scaled_bl_plain(
+        from_flat_bl(unpack_stats_bl(S, m, n), m, n), prior, lam, jitter)
     fp = project_bl(f, phi)
     if not emit_factor:
         return fp
@@ -414,10 +545,10 @@ def draw_update_packed_bl(
     layout: returns ``(S_new, y, logdet_T1, logdet_Psi)`` with
     ``S_new = lam * S + suff(y, phi)``. ``u, v (n, N)`` are the raw
     uniforms of the polar Student-t draw."""
+    if jitter is None:
+        jitter = _default_jitter(S.dtype)
     stats = unpack_stats_bl(S, m, n)
-    fp = factorize_project_bl(
-        from_flat_bl(stats, m, n), phi, prior=prior, lam=lam, jitter=jitter
-    )
+    fp = _factorize_project_bl_plain(from_flat_bl(stats, m, n), phi, prior, lam, jitter)
     y = sample_projected_bl(fp, u, v)
     return _update_packed(stats, y, phi, lam), y, fp.logdet_T1, fp.logdet_Psi
 
@@ -524,23 +655,47 @@ def _log_base_measure(logdet_T1, logdet_Psi, nu, m: int, n: int):
     return out + 0.5 * nu * logdet_Psi
 
 
+def _base_measure_logdets_plain(nat: MNIW, jitter: float):
+    """``(logdet sym(T1), logdet sym(Psi))`` of structured ``nat``, the
+    second as :func:`packed_logdets_bl` takes it."""
+    f = _factorize_bl_plain(nat, jitter)
+    return bla.logdet_from_chol_bl(f.chol), _logdet_psi(f.row_scale)
+
+
 def log_base_measure_bl(
     nat: MNIW, m: int | None = None, n: int | None = None,
-    jitter: float | None = None,
+    jitter: float | None = None, plain: bool = False,
 ) -> torch.Tensor:
     """Batch-last MNIW log base measure ``(N,)`` of ``nat`` (structured
     leaves, or flat ones with ``m``/``n``): relative jitter on ``sym(T1)``,
-    Cholesky, Schur complement ``Psi``, and ``logdet Psi`` from the
-    Cholesky of ``sym(Psi)``."""
-    if nat.T1.dim() == 2:
-        nat = from_flat_bl(nat, m, n)
-    m, n = nat.T0.shape[0], nat.T0.shape[1]
-    f = factorize_bl(nat, jitter=jitter)
-    psi = 0.5 * (f.row_scale + f.row_scale.transpose(0, 1))
-    return _log_base_measure(
-        bla.logdet_from_chol_bl(f.chol),
-        bla.logdet_from_chol_bl(bla.chol_lower_bl(psi)), nat.T3, m, n,
-    )
+    Cholesky, Schur complement ``Psi``, and ``logdet Psi``.
+
+    On CUDA leaves the two log-determinants come from
+    ``cuda_kernels.log_base_measure_logdets`` (float32, m <= 48, n <= 2;
+    other CUDA leaves raise); CPU leaves, or ``plain=True``, take the
+    plain PyTorch version."""
+    if jitter is None:
+        jitter = _default_jitter(nat.T1.dtype)
+    if nat.T1.dim() == 3:
+        m, n = nat.T0.shape[0], nat.T0.shape[1]
+    if kernels_take("log_base_measure_bl", nat.T1, m, n, plain):
+        from bipk_tpu_torch.ops import cuda_kernels as ck
+
+        ld1, ldp = ck.log_base_measure_logdets(
+            *_c(nat.T0, nat.T1, nat.T2), jitter, m=m, n=n)
+    else:
+        flat = nat.T1.dim() == 2
+        ld1, ldp = _base_measure_logdets_plain(from_flat_bl(nat, m, n) if flat else nat, jitter)
+    return _log_base_measure(ld1, ldp, nat.T3, m, n)
+
+
+def log_base_measure_from_factor_bl(factor: MNIWFactor) -> torch.Tensor:
+    """The log base measure from an existing factorization (``factor =
+    factorize_scaled_bl(stats, prior)`` gives that of ``prior + stats``):
+    the log-determinants off the factor's diagonal and Schur complement."""
+    m, n = factor.white_T0.shape[0], factor.white_T0.shape[1]
+    return _log_base_measure(bla.logdet_from_chol_bl(factor.chol),
+                             _logdet_psi(factor.row_scale), factor.df, m, n)
 
 
 def log_base_measure_from_projected_bl(fp: ProjectedFactor, m: int) -> torch.Tensor:
@@ -563,7 +718,9 @@ def packed_logdets_bl(
             stats.T0 + prior.T0[..., None], stats.T1 + prior.T1[..., None],
             stats.T2 + prior.T2[..., None], stats.T3,
         )
-    f = factorize_bl(stats, jitter=jitter)
+    if jitter is None:
+        jitter = _default_jitter(S.dtype)
+    f = _factorize_bl_plain(stats, jitter)
     return bla.logdet_from_chol_bl(f.chol), _logdet_psi(f.row_scale)
 
 

@@ -64,10 +64,31 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     and Gibbs sampler (10240 x 1499, 2 sweeps) with ``reuse_factor=True``,
     with exact launches per sweep and phase 6's gate; 100 profiled reuse
     cSMC steps beside 100 default ones; a few oscillator APF steps with
-    reuse (m = 41: only the m <= 48 kernels).
+    reuse (m = 41: only the m <= 48 kernels);
+18. unpacked kernels: the four unpacked kernels (factorize, factorize +
+    project, project from a given factor, log-determinants) against their
+    plain versions on the vehicle APF's statistics after 100 filtering
+    steps, unpacked (N = 32768, 10240, 200, 777), the oscillator's (m =
+    41) and synthetic n = 2 ones, structured and flat; bitwise against the
+    packed kernels on the same statistics and the projection on views of
+    an augmented factor against contiguous copies; timed beside their
+    bounds; then the unpacked entry points (``APFKernel.factorize_all``,
+    ``auxiliary``, ``auxiliary_fused``, ``draw_int_vars_fused``,
+    ``draw_int_vars``, ``mniw.log_base_measure_bl``) once each at N =
+    32768 with exact launches, and the plain versions of every kernel on
+    card tensors launching nothing;
+19. rank-1 path-vs-plain: the rank-1 cSMC sweep (``build_csmc(rank1=
+    True)``) through the kernels and through their plain versions, 10240
+    x 50 over 10 seeds, paired; then the rank-1 and the direct steps on
+    the same draws in f32, to the first step where their ancestors differ;
+20. rank-1 Gibbs: the Gibbs host loop on the rank-1 cSMC at 10240 x 1499
+    (a warm-up and two sweeps) with exact launches per sweep (4 x 1499 of
+    the projection, 1499 resamplings, nothing else), no non-finite
+    ancestor weight and phase 6's trajectory gate; 100 rank-1 cSMC steps
+    under the sync check and profiled beside 100 direct ones.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
-template instantiation: its row in PERF.md's table, launches on the eight
+template instantiation: its row in PERF.md's table, launches on the ten
 main paths, error against the plain version, times and bound);
 the last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the script exits non-zero and prints neither. Needs one CUDA
@@ -85,15 +106,15 @@ import time
 import numpy as np
 import torch
 
-from bipk_tpu_torch.algorithms.apf import build_apf
+from bipk_tpu_torch.algorithms.apf import APFKernel, build_apf
 from bipk_tpu_torch.algorithms.csmc import build_csmc, ref_contributions
-from bipk_tpu_torch.algorithms.gibbs import build_gibbs, summed_reference_stats
+from bipk_tpu_torch.algorithms.gibbs import Gibbs, build_gibbs, summed_reference_stats
 from bipk_tpu_torch.models import oscillator as osc
 from bipk_tpu_torch.models import toy
 from bipk_tpu_torch.models import vehicle as veh
 from bipk_tpu_torch.ops import _build
 from bipk_tpu_torch.ops import cuda_kernels as ck
-from bipk_tpu_torch.ops import mniw
+from bipk_tpu_torch.ops import cholup, mniw, resampling
 from bipk_tpu_torch.parallel.sharded import build_sharded_apf
 from bipk_tpu_torch.utils.matio import sample_reference_trajectory
 
@@ -106,7 +127,7 @@ PEAK_F32_FLOPS = 67e12
 
 # the device functions of csrc/ (the profile's "hand-written kernels")
 OUR_KERNELS = ("packed_mniw_kernel", "systematic_kernel", "factor_gather_kernel",
-               "dedup_gather_kernel")
+               "dedup_gather_kernel", "unpacked_mniw_kernel", "project_kernel")
 
 N = 32768  # particles, as the JAX package's bench.py
 N_GIBBS = 10240  # particles, as the JAX package's benchmarks/bench_gibbs.py
@@ -147,10 +168,19 @@ def time_ms(fn, reps=20, flush=None):
 
 
 def rel_err(got, want):
-    """max |got - want| / max |want| (float64), and max |got - want|."""
+    """max |got - want| / max |want| (float64), and max |got - want|. Equal
+    entries count as no error, infinities of one sign included (a log
+    weight of -inf where a weight is 0); the scale is the largest finite
+    |want|. A NaN on either side where the other differs is an infinite
+    relative error, so no check passes on it."""
     g, w = got.double(), want.double()
-    d = (g - w).abs().max().item()
-    return d / max(w.abs().max().item(), 1e-30), d
+    diff = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
+    d = diff.max().item() if diff.numel() else 0.0
+    if math.isnan(d):  # torch's max propagates a NaN
+        return math.inf, math.nan
+    finite = w[torch.isfinite(w)]
+    scale = finite.abs().max().item() if finite.numel() else 0.0
+    return d / max(scale, 1e-30), d
 
 
 def check_systematic(label, w, u, n):
@@ -363,14 +393,20 @@ def seed_reference(dev, model, Y, U, n_apf, seed):
 
 
 def counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles, n_iterations,
-                  expected, smi, **options):
+                  expected, smi, rank1=False, **options):
     """``build_gibbs`` as a user runs it (``options`` its keywords), with
     the launch counts of every sweep held to ``expected`` (counted from
     zero at each sweep's start) and the sweeps timed on the host's clock.
-    Returns the result, the launches over the run and the seconds of each
-    sweep."""
-    gibbs = build_gibbs(model.ssm, model.gps, n_particles, n_iterations,
-                        dtype=torch.float32, device=dev, **options)
+    With ``rank1`` the sampler's sweep is ``build_csmc(rank1=True)``,
+    handed to the Gibbs host loop as the JAX tests hand it (``build_gibbs``
+    has no ``rank1`` keyword). Returns the result, the launches over the
+    run and the seconds of each sweep."""
+    if rank1:
+        gibbs = Gibbs(build_csmc(model.ssm, model.gps, n_particles, dtype=torch.float32,
+                                 device=dev, rank1=True), n_iterations)
+    else:
+        gibbs = build_gibbs(model.ssm, model.gps, n_particles, n_iterations,
+                            dtype=torch.float32, device=dev, **options)
     totals = dict.fromkeys(ck.launch_counts(), 0)
     seconds = []
 
@@ -404,13 +440,14 @@ def counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles, n_iterati
 
 
 def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, smi,
-               **options):
+               rank1=False, **options):
     """The vehicle Gibbs main path as a user runs it: a ``n_apf``-particle
     APF sweep, a reference draw from it, then ``build_gibbs`` (``options``
-    its keywords) with ``n_iterations - 1`` cSMC sweeps. Checks the launch
-    counts of every sweep, times the sweeps, and holds the last drawn
-    trajectory against the simulated one. Returns the kernels' launches
-    over the Gibbs run."""
+    its keywords; with ``rank1`` the rank-1 cSMC in the Gibbs host loop)
+    with ``n_iterations - 1`` cSMC sweeps. Checks the launch counts of
+    every sweep, times the sweeps, and holds the last drawn trajectory
+    against the simulated one. Returns the kernels' launches over the
+    Gibbs run."""
     g, ref_state, ref_iv = seed_reference(dev, model, Y, U, n_apf, seed=5)
     steps = Y.shape[0] - 1
     reuse = options.get("reuse_factor", False)
@@ -422,8 +459,10 @@ def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, 
         "draw_update_factor_gather_packed_blocks<24>" if reuse
         else "draw_update_gather_packed_blocks<24>": 2 * steps,
     }
+    if rank1:  # two projections per GP and step (look-ahead mean, draw)
+        expected = {"project_blocks<24>": 4 * steps, "systematic_ancestors_blocks": steps}
     res, totals, _ = counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles,
-                                   n_iterations, expected, smi, **options)
+                                   n_iterations, expected, smi, rank1=rank1, **options)
     draw, mu_draw = res.states[:, -1], res.int_vars[0][:, -1, 0]
     rmse = ((draw - X) ** 2).mean(0).sqrt()
     rms = (X ** 2).mean(0).sqrt()
@@ -863,6 +902,10 @@ REUSE_FILTER_STEPS = 100  # vehicle filtering steps before phase 14's statistics
 # multiply-add may differ between the kernels
 SAME_TOL = 1e-5
 FP_NAMES = ("mean", "col", "row", "logdet_T1", "logdet_Psi")
+LD_NAMES = ("logdet_T1", "logdet_Psi")
+FACTOR_NAMES = ("chol", "white", "row")
+UNPACKED = ("factorize_blocks", "factorize_project_blocks", "project_blocks",
+            "log_base_measure_logdets")
 DU_NAMES = ("S_new", "y", "logdet_T1", "logdet_Psi")
 ILL = "f32 rounding of an ill-conditioned SPD factorization"
 
@@ -1174,6 +1217,488 @@ def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi)
     expect_counts("oscillator APF with reuse_factor", osc_counts, {
         "factorize_project_packed<48>": 5, "systematic_ancestors_blocks": 5,
         "draw_update_gather_packed_blocks<48>": 5})
+    return counts, prof["default"]
+
+
+# ---------------------------------------------------------------------------
+# The unpacked kernels (PERF.md rows 10-13, csrc/unpacked_mniw.cu) and the
+# two paths that run them: the unpacked-statistics entry points (rows 10,
+# 11, 13 and 12) and the rank-1 factor-carry cSMC (row 12 only).
+# ---------------------------------------------------------------------------
+
+UNPACKED_FILTER_STEPS = 100  # vehicle filtering steps before phase 18's statistics
+RANK1_DIVERGENCE_STEPS = 200  # phase 19: rank-1 against direct, same draws, f32
+RANK1_PROFILE_STEPS = 50  # phase 20: profiled rank-1 cSMC steps
+
+
+def bitwise(a, b):
+    """Equal bit for bit (NaN patterns included)."""
+    return tuple(a.shape) == tuple(b.shape) and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def check_finite(name, pairs, tol, reason):
+    """:func:`check`, and every output of kernel and plain version finite
+    (phase 18's inputs are proper: a NaN is a fault here)."""
+    pairs = list(pairs)
+    for label, got, want in pairs:
+        require(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+                f"{name} {label}: non-finite output")
+    return check(name, pairs, tol, reason)
+
+
+def cross_layout(name, got, want, names):
+    """A kernel's outputs against another kernel's on the same statistics
+    in another layout: the same per-thread core with another reader, so
+    every output must be equal bit for bit."""
+    equal = [k for k, g, w in zip(names, got, want) if bitwise(g, w)]
+    rels = {k: rel_err(g, w)[0] for k, g, w in zip(names, got, want)}
+    print(f"  {name}: bitwise equal {'all' if len(equal) == len(names) else equal or 'none'}"
+          f" (max rel {max(rels.values()):.3e})", flush=True)
+    require(len(equal) == len(names), f"{name}: not bitwise equal: {rels}")
+
+
+def unpacked_bytes(m, n, N):
+    """Bytes each unpacked kernel must move at ``(m, n)`` and N particles
+    (f32, each input read once, each output written once): #10 (the leaves
+    in, chol, white and row out), #11 (the leaves and phi in, the five
+    small outputs out), #12 (chol's lower triangle, white and phi in, mean
+    and col out), #13 (the leaves in, two log-determinants out)."""
+    leaves = m * n + m * m + n * n
+    prior = m * n + m * m + n * n
+    return {
+        "factorize_blocks": 4 * (2 * N * leaves + prior),
+        "factorize_project_blocks": 4 * (N * (leaves + m + n + 1 + n * n + 2) + prior),
+        "project_blocks": 4 * N * (m * (m + 1) // 2 + m * n + m + n + 1),
+        "log_base_measure_logdets": 4 * N * (leaves + 2),
+    }
+
+
+def unpacked_flops(m, n):
+    """Flops per particle of each unpacked kernel at ``(m, n)``."""
+    core, _, lbm = particle_flops(m, n)
+    chol = sum((m - c) * (2 * c + 1) for c in range(m)) + 2 * m
+    return {
+        "factorize_blocks": chol + n * (m * (m - 1) + m) + 2 * n * n * m,
+        "factorize_project_blocks": core,
+        "project_blocks": m * (m - 1) + m + 2 * n * m + 2 * m,
+        "log_base_measure_logdets": lbm,
+    }
+
+
+def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
+    """The four unpacked kernels on one input set, the packed statistics
+    ``S`` unpacked to structured and flat leaves (T1 mirrored, so exactly
+    symmetric): each against its plain version on the same inputs, and
+    across layouts bit for bit: #11 on unpack(S) against #1 on S, #13 on
+    unpack(S_nat) against #5 on S_nat without a prior (``S_nat = S`` plus
+    the packed prior: #13 takes neither a prior nor lam, and a filter's
+    statistics alone may be singular), #10's row against #1's and (m <=
+    24) its chol and white against #1e's LW, #12 on strided views of an
+    augmented factor against #12 on contiguous copies. Returns per kernel
+    the largest absolute error against the plain version and the calls
+    that run the kernel and its plain version (#12 as the rank-1 path
+    calls it, on views)."""
+    def layouts(S_):
+        st = mniw.unpack_stats_bl(S_, m, n)
+        flat = tuple(t.contiguous() for t in st[:3])
+        return flat, (flat[0].reshape(m, n, -1), flat[1].reshape(m, m, -1),
+                      flat[2].reshape(n, n, -1))
+
+    one = torch.zeros(1, dtype=S.dtype, device=S.device)
+    S_nat = S + mniw.pack_stats_bl(mniw.MNIW(*(b[..., None] for b in prior), one))
+    flat, structured = layouts(S)
+    nat_flat, nat_structured = layouts(S_nat)
+    errs = dict.fromkeys(UNPACKED, 0.0)
+    fp_packed = ck.factorize_project_packed(S, phi, jitter, lam, prior, m=m, n=n)
+    lbm_packed = ck.log_base_measure_packed_logdets(S_nat, jitter, None, m=m, n=n)
+    for layout, leaves, nat, kw in (("structured", structured, nat_structured, {}),
+                                    ("flat", flat, nat_flat, dict(m=m, n=n))):
+        tag = f"{layout} {label}"
+        got = ck.factorize_project_blocks(*leaves, phi, jitter, lam, prior, **kw)
+        want = ck.factorize_project_blocks_plain(*leaves, phi, jitter, lam, prior, **kw)
+        errs["factorize_project_blocks"] = max(errs["factorize_project_blocks"], check_finite(
+            f"factorize_project_blocks {tag}", zip(FP_NAMES, got, want), 1e-3, ILL))
+        cross_layout(f"factorize_project_blocks {tag}, unpack(S) against factorize_project_packed"
+                     " on S", got, fp_packed, FP_NAMES)
+        got = ck.log_base_measure_logdets(*nat, jitter, **kw)
+        want = ck.log_base_measure_logdets_plain(*nat, jitter, **kw)
+        errs["log_base_measure_logdets"] = max(errs["log_base_measure_logdets"], check_finite(
+            f"log_base_measure_logdets {tag} (prior + statistics)", zip(LD_NAMES, got, want),
+            1e-3, ILL))
+        cross_layout(f"log_base_measure_logdets {tag}, unpack(S_nat) against "
+                     "log_base_measure_packed_logdets on S_nat", got, lbm_packed, LD_NAMES)
+    factor = ck.factorize_blocks(*structured, jitter, lam, prior)
+    errs["factorize_blocks"] = check_finite(
+        f"factorize_blocks {label}", zip(FACTOR_NAMES, factor,
+                                         ck.factorize_blocks_plain(*structured, jitter, lam, prior)),
+        1e-3, ILL)
+    require(bool((torch.triu(factor[0].permute(2, 0, 1), 1) == 0).all()),
+            f"factorize_blocks {label}: chol not zero above the diagonal")
+    cross_layout(f"factorize_blocks {label}, row against factorize_project_packed's",
+                 factor[2:], fp_packed[2:3], ("row",))
+    if m <= mniw.FACTOR_MAX_M:
+        lw = ck.factorize_project_packed(S, phi, jitter, lam, prior, m=m, n=n, emit_factor=True)[5]
+        cross_layout(f"factorize_blocks {label}, chol and white against the emitted LW",
+                     factor[:2], mniw.lw_to_factor(lw, m, n), ("chol", "white"))
+    # #12 from that factor: contiguous, and as views of an augmented factor
+    N = phi.shape[1]
+    F = torch.zeros((m + n, m + n, N), dtype=torch.float32, device=phi.device)
+    F[:m, :m] = factor[0]
+    F[m:, :m] = factor[1].transpose(0, 1)
+    views = cholup.aug_to_factor(F, None, m)
+    got = ck.project_blocks(views.chol, views.white_T0, phi)
+    errs["project_blocks"] = check_finite(f"project_blocks {label} (views)", zip(
+        ("mean", "col"), got, ck.project_blocks_plain(views.chol, views.white_T0, phi)), 1e-3, ILL)
+    cross_layout(f"project_blocks {label}, views of F against contiguous copies", got,
+                 ck.project_blocks(factor[0], factor[1], phi), ("mean", "col"))
+    calls = {
+        "factorize_blocks": (lambda: ck.factorize_blocks(*structured, jitter, lam, prior),
+                             lambda: ck.factorize_blocks_plain(*structured, jitter, lam, prior)),
+        "factorize_project_blocks": (
+            lambda: ck.factorize_project_blocks(*structured, phi, jitter, lam, prior),
+            lambda: ck.factorize_project_blocks_plain(*structured, phi, jitter, lam, prior)),
+        "project_blocks": (lambda: ck.project_blocks(views.chol, views.white_T0, phi),
+                           lambda: ck.project_blocks_plain(views.chol, views.white_T0, phi)),
+        "log_base_measure_logdets": (
+            lambda: ck.log_base_measure_logdets(*nat_structured, jitter),
+            lambda: ck.log_base_measure_logdets_plain(*nat_structured, jitter)),
+    }
+    return errs, calls
+
+
+def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
+    """Phase 18: the unpacked kernels against their plain versions and
+    across layouts (:func:`check_unpacked_set`), timed (cold L2) beside
+    their bounds, at
+
+    - the vehicle APF's statistics after ``UNPACKED_FILTER_STEPS``
+      filtering steps (the port's own APF, front GP, m = 20, n = 1),
+      unpacked: N = 32768 at lambda = 0.999 with the prior (the kernels
+      line's numbers), its first 10240 and 200 columns at lambda = 1 (the
+      rank-1 Gibbs widths), its first 777 (ragged);
+    - the oscillator APF's statistics (m = 41) after as many steps at a
+      ragged N = 1000, and synthetic ones at n = 2 (m = 20, N = 777;
+      m = 41, N = 300).
+
+    Returns the APF run's result (the entry-point phase's input)."""
+    m, n = M, NN
+    prior_m = model.gps[0].prior_as(torch.float32, dev)
+    prior = tuple(prior_m[:3])
+    k = UNPACKED_FILTER_STEPS
+    res = build_apf(model.ssm, model.gps, N, LAM, dtype=torch.float32, device=dev)(
+        torch.Generator(device=dev).manual_seed(41), Y[:k + 1], U[:k + 1], model.x0, model.p0)
+    S = mniw.pack_stats_bl(mniw.MNIW(*(leaf.movedim(0, -1)
+                                       for leaf in res.final_stats[0]))).contiguous()
+    phi = model.gps[0].basis_fn_bl(res.states[-1].T.contiguous(), U[k]).contiguous()
+    print(f"  vehicle statistics after {k} filtering steps at {N} particles, S {tuple(S.shape)}",
+          flush=True)
+    errs, calls = check_unpacked_set(f"m={m} n={n} N={N} lam={LAM}", S, phi, LAM, prior, m, n,
+                                     jitter)
+    bytes_, flops = unpacked_bytes(m, n, N), unpacked_flops(m, n)
+    for name in UNPACKED:
+        record_kernel(results, name, *calls[name], bytes_[name], N * flops[name], errs[name],
+                      flush)
+    for width in (N_GIBBS, N_CS_GIBBS, 777):
+        S_w, phi_w = S[:, :width].contiguous(), phi[:, :width].contiguous()
+        _, calls_w = check_unpacked_set(f"m={m} n={n} N={width} lam=1", S_w, phi_w, 1.0, prior,
+                                        m, n, jitter)
+        if width == 777:
+            continue
+        bytes_w = unpacked_bytes(m, n, width)
+        for name in UNPACKED:
+            bound = max(bytes_w[name] / PEAK_BYTES_PER_S,
+                        width * flops[name] / PEAK_F32_FLOPS) * 1e3
+            print(f"  {name} N={width}: {time_ms(calls_w[name][0], flush=flush):.4f} ms (plain "
+                  f"{time_ms(calls_w[name][1], flush=flush):.4f} ms, bound {bound:.5f} ms)",
+                  flush=True)
+
+    o_model, _, o_Y, o_U, _ = cs["osc"]
+    o_res = build_apf(o_model.ssm, o_model.gps, 1000, LAM, dtype=torch.float32, device=dev)(
+        torch.Generator(device=dev).manual_seed(42), o_Y[:k + 1], o_U[:k + 1], o_model.x0,
+        o_model.p0)
+    m_o = o_model.gp.basis_dim
+    S_o = mniw.pack_stats_bl(mniw.MNIW(*(leaf.movedim(0, -1)
+                                         for leaf in o_res.final_stats[0]))).contiguous()
+    phi_o = o_model.gp.basis_fn_bl(o_res.states[-1].T.contiguous(), o_U[k]).contiguous()
+    o_prior = tuple(o_model.gp.prior_as(torch.float32, dev)[:3])
+    check_unpacked_set(f"oscillator m={m_o} n=1 N=1000 lam={LAM}", S_o, phi_o, LAM, o_prior,
+                       m_o, 1, jitter)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    for m_e, n_e, N_e in ((20, 2, 777), (41, 2, 300)):
+        S_e, phi_e, prior_e = edge_case(gen, dev, m_e, n_e, N_e)
+        check_unpacked_set(f"m={m_e} n={n_e} N={N_e} lam={LAM}", S_e, phi_e, LAM, prior_e[:3],
+                           m_e, n_e, jitter)
+    return res
+
+
+def entry_point_calls(dev, model, Y, U, res, jitter):
+    """The unpacked entry points once each at N = 32768 on phase 18's APF
+    carry (both GPs), as a user calls them: ``APFKernel.factorize_all``,
+    ``auxiliary``, ``auxiliary_fused``, ``draw_int_vars_fused``,
+    ``draw_int_vars`` and ``mniw.log_base_measure_bl`` per GP. Each call
+    launches exactly two of its kernel (one per GP) and nothing else, and
+    agrees with the same call on a ``reference=True`` kernel (the plain
+    versions). Then every plain version of rows 1-13 on card tensors
+    launches nothing. Returns the launches of the six calls."""
+    k = UNPACKED_FILTER_STEPS
+    kern = APFKernel(model.ssm, model.gps, torch.float32, dev)
+    plain = APFKernel(model.ssm, model.gps, torch.float32, dev, reference=True)
+    stats = tuple(mniw.MNIW(*(leaf.movedim(0, -1).contiguous() for leaf in st))
+                  for st in res.final_stats)
+    state = res.states[-1].T.contiguous()
+    ivs = tuple(iv[-1].T.contiguous() for iv in res.int_vars)
+    log_w = torch.log(res.weights[-1])
+    gen = torch.Generator(device=dev).manual_seed(44)
+    uvs = tuple((torch.rand((nn, N), generator=gen, device=dev),
+                 torch.rand((nn, N), generator=gen, device=dev)) for nn in kern.ns)
+    z = torch.randn((state.shape[0], N), generator=gen, device=dev)
+    inp_prev, inp_cur, obs = U[k], U[k + 1], Y[k + 1]
+    total = dict.fromkeys(ck.launch_counts(), 0)
+
+    def counted(label, call, expected):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        out = call(kern)
+        torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        print(f"  {label}: launches { {k_: c for k_, c in counts.items() if c} }", flush=True)
+        expect_counts(label, counts, {expected: 2})
+        for name, c in counts.items():
+            total[name] += c
+        leaves = lambda o: [t for t in torch.utils._pytree.tree_leaves(o)
+                            if isinstance(t, torch.Tensor) and t.dtype.is_floating_point]
+        got, want = leaves(out), leaves(call(plain))
+        check(label, [(f"leaf {i}", g, w) for i, (g, w) in enumerate(zip(got, want))], 1e-3, ILL)
+        return out
+
+    factors = counted("APFKernel.factorize_all", lambda kr: kr.factorize_all(stats, LAM),
+                      "factorize_blocks<24>")
+    counted("APFKernel.auxiliary", lambda kr: kr.auxiliary(
+        state, ivs, factors, inp_prev, inp_cur, obs, log_w), "project_blocks<24>")
+    aux = counted("APFKernel.auxiliary_fused", lambda kr: kr.auxiliary_fused(
+        stats, LAM, state, ivs, inp_prev, inp_cur, obs, log_w), "factorize_project_blocks<24>")
+    anc = kern.resample(torch.softmax(aux[2], 0), torch.rand((1,), generator=gen, device=dev))
+    stats_g = tuple(kern.gather(st, anc) for st in stats)
+    factors_g = tuple(kern.gather(f, anc) for f in factors)
+    state_g, *iv_g = kern.packed_gather([state, *ivs], anc)
+    new_state = kern.propagate_all(z, state_g, inp_prev, iv_g)
+    counted("APFKernel.draw_int_vars_fused", lambda kr: kr.draw_int_vars_fused(
+        uvs, stats_g, LAM, new_state, inp_cur), "factorize_project_blocks<24>")
+    counted("APFKernel.draw_int_vars", lambda kr: kr.draw_int_vars(
+        uvs, factors_g, new_state, inp_cur), "project_blocks<24>")
+    # of prior + statistics, a posterior: a filter's statistics alone are
+    # singular at m = 20 (both sides NaN)
+    posts = tuple(mniw.MNIW(*(p[..., None] + leaf for p, leaf in zip(pr, st)))
+                  for pr, st in zip(kern.priors, stats))
+    counted("mniw.log_base_measure_bl per GP", lambda kr: [
+        mniw.log_base_measure_bl(post, plain=kr.reference) for post in posts],
+        "log_base_measure_logdets<24>")
+
+    # the plain versions of every kernel, on card tensors: no launch
+    m, n = M, NN
+    S = mniw.pack_stats_bl(stats[0]).contiguous()
+    phi = kern.basis_all(0, state, inp_cur).contiguous()
+    prior = kern.prior_blocks[0]
+    p3 = kern.p3[0]
+    u, v = uvs[0]
+    LW = ck.factorize_project_packed_plain(S, phi, jitter, LAM, prior, m, n, emit_factor=True)[5]
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    for fn, args in (
+        (ck.factorize_project_packed, (S, phi, jitter, LAM, prior, m, n)),
+        (ck.systematic_ancestors_blocks, (torch.softmax(log_w, 0), u[0, :1], N)),
+        (ck.draw_update_packed_blocks, (S, phi, u, v, jitter, LAM, prior, p3, m, n)),
+        (ck.draw_update_gather_packed_blocks, (S, anc, phi, u, v, jitter, LAM, prior, p3, m, n)),
+        (ck.log_base_measure_packed_logdets, (S, jitter, prior, m, n)),
+        (ck.draw_update_factor_gather_packed_blocks,
+         (S, LW, anc, phi, u, v, jitter, LAM, prior, p3, m, n)),
+        (ck.draw_update_dedup_gather_packed_blocks,
+         (S, anc, phi, u, v, jitter, LAM, prior, p3, m, n)),
+        (ck.factorize_blocks, (*stats[0][:3], jitter, LAM, prior)),
+        (ck.factorize_project_blocks, (*stats[0][:3], phi, jitter, LAM, prior)),
+        (ck.project_blocks, (*factors[0][:2], phi)),
+        (ck.log_base_measure_logdets, (*stats[0][:3], jitter)),
+    ):
+        ck.PLAIN[fn](*args)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    expect_counts("the plain versions of rows 1-13 on card tensors", counts, {})
+    print(f"  the plain versions of all {len(ck.PLAIN)} wrappers on card tensors: "
+          f"{sum(counts.values())} launches", flush=True)
+    if dev.type == "cuda":
+        refused_on_the_card(dev, model, stats[0], phi)
+    return total
+
+
+def refused_on_the_card(dev, model, stats, phi):
+    """Card tensors the kernels cannot take raise, as the packed wrappers'
+    do, and never fall to the plain version: float64 leaves in an unpacked
+    entry point and a float64 rank-1 cSMC build. ``plain=True`` /
+    ``reference=True`` still run them on the card, launching nothing."""
+    f64 = mniw.MNIW(*(leaf.double() for leaf in stats))
+    refusals = (
+        ("mniw.factorize_project_bl on card float64 leaves",
+         lambda: mniw.factorize_project_bl(f64, phi.double())),
+        ("build_csmc(rank1=True, dtype=float64) on the card",
+         lambda: build_csmc(model.ssm, model.gps, 64, dtype=torch.float64, device=dev,
+                            rank1=True)),
+    )
+    for label, call in refusals:
+        try:
+            call()
+        except TypeError as e:
+            print(f"  {label}: raises TypeError ({e})", flush=True)
+        else:
+            require(False, f"{label} did not raise")
+    ck.reset_launch_counts()
+    mniw.factorize_project_bl(f64, phi.double(), plain=True)
+    build_csmc(model.ssm, model.gps, 64, dtype=torch.float64, device=dev, rank1=True,
+               reference=True)
+    torch.cuda.synchronize()
+    expect_counts("plain=True / reference=True in float64 on the card", ck.launch_counts(), {})
+
+
+RANK1_SWEEPS = {  # phase 19's comparison: name -> (rank1, dtype, jitter)
+    "f32 rank-1": (True, torch.float32, None), "f32 direct": (False, torch.float32, None),
+    "f32 rank-1 jitter 0": (True, torch.float32, 0.0),
+    "f32 direct jitter 0": (False, torch.float32, 0.0),
+    "f64 rank-1": (True, torch.float64, None), "f64 direct": (False, torch.float64, None),
+}
+RANK1_PAIRS = (  # the first is the formulations' own f32 comparison
+    ("f32 rank-1", "f32 direct"), ("f32 rank-1 jitter 0", "f32 direct jitter 0"),
+    ("f64 rank-1", "f64 direct"), ("f32 rank-1", "f32 rank-1 jitter 0"),
+    ("f32 direct", "f32 direct jitter 0"), ("f32 rank-1", "f64 direct"),
+    ("f32 direct", "f64 direct"),
+)
+RANK1_F64_TOL = 1e-9  # the bound of tests/test_cholup.py's f64 pair
+
+
+def rank1_against_direct(dev, model, Y, U, X, ref_ivs, n_particles, steps):
+    """Phase 19's second half: the rank-1 and the direct cSMC steps from one
+    initial particle set with the same ``CSMCDraws`` each step, in f32
+    through the kernels (with the dtype's jitter, 1e-9 relative, and with
+    jitter 0) and in f64 through the plain versions (``reference=True``;
+    the f32 particles and draws cast up, so every sweep sees the same
+    values). For each pair of ``RANK1_PAIRS``: the first step at which
+    their ancestors differ and, before it, the largest log-weight gap
+    beside the largest |log-weight| (f32's spacing grows with it) and the
+    largest gap of the normalized weights, which resampling reads; then,
+    over all ``steps``, the largest log-weight gap over the particles whose
+    whole ancestry is the same in both sweeps (f32 and f64 resample apart
+    from the first step). The
+    f64 pair is one sweep in exact arithmetic: its ancestors must agree
+    over every step and its log-weights within ``RANK1_F64_TOL``. The other
+    pairs say whether the jitter policy or f32 rounding parts the f32
+    formulations, and which of them stays nearer the f64 sweep."""
+    T = steps + 1
+    sweeps, data = {}, {}
+    for name, (r1, dtype, jit) in RANK1_SWEEPS.items():
+        sweeps[name] = build_csmc(model.ssm, model.gps, n_particles, dtype=dtype, device=dev,
+                                  rank1=r1, reference=dtype == torch.float64)
+        if jit is not None:
+            sweeps[name].kern.jitter = jit
+    for dtype in (torch.float32, torch.float64):
+        ref = (X[:T].to(dtype), tuple(iv[:T].to(dtype) for iv in ref_ivs))
+        data[dtype] = (Y.to(dtype), U.to(dtype), ref,
+                       summed_reference_stats(model.gps, *ref, U[:T].to(dtype), dtype),
+                       ref_contributions(model.gps, *ref, U[:T].to(dtype)))
+    cast = lambda tree, dtype: torch.utils._pytree.tree_map(
+        lambda t: t.to(dtype) if t.dtype.is_floating_point else t, tree)
+    base = sweeps["f32 direct"]
+    particles = base.kern.init_particles(torch.Generator(device=dev).manual_seed(31),
+                                         n_particles, U[0], model.x0, model.p0)
+    at = lambda ref_T, t: tuple(mniw.MNIW(*(leaf[t] for leaf in st)) for st in ref_T)
+    carries = {}
+    for name, c in sweeps.items():
+        _, _, ref, summed, ref_T = data[c.kern.dtype]
+        carries[name] = c.pin_initial(cast(particles, c.kern.dtype), ref[0][0],
+                                      tuple(iv[0] for iv in ref[1]), at(ref_T, 0), summed)
+    g = torch.Generator(device=dev).manual_seed(32)
+    first, gap = dict.fromkeys(RANK1_PAIRS), dict.fromkeys(RANK1_PAIRS, 0.0)
+    w_gap, scale = dict.fromkeys(RANK1_PAIRS, 0.0), dict.fromkeys(RANK1_PAIRS, 0.0)
+    # per pair, the particles whose whole ancestry is the same in both
+    # sweeps, and the largest log-weight gap over them at any step
+    agree = {p: torch.ones(n_particles, dtype=torch.bool, device=dev) for p in RANK1_PAIRS}
+    line_gap = dict.fromkeys(RANK1_PAIRS, 0.0)
+    for t in range(steps):
+        draws32 = base.draws(g)
+        anc, lw = {}, {}
+        for name, c in sweeps.items():
+            Y_, U_, ref, _, ref_T = data[c.kern.dtype]
+            carries[name], (anc[name], _) = c.step(
+                carries[name], Y_[t + 1], U_[t], U_[t + 1], ref[0][t + 1],
+                tuple(iv[t + 1] for iv in ref[1]), at(ref_T, t + 1),
+                cast(draws32, c.kern.dtype))
+            lw[name] = carries[name][0].double()
+        for pair in RANK1_PAIRS:
+            a_, b_ = pair
+            diff = (lw[a_] - lw[b_]).abs()
+            if first[pair] is None and not torch.equal(anc[a_], anc[b_]):
+                first[pair] = t + 1
+            if first[pair] is None:
+                gap[pair] = max(gap[pair], diff.max().item())
+                scale[pair] = max(scale[pair], lw[a_].abs().max().item())
+                w_gap[pair] = max(w_gap[pair], (torch.softmax(lw[a_], 0)
+                                                - torch.softmax(lw[b_], 0)).abs().max().item())
+            agree[pair] = agree[pair][anc[a_].long()] & (anc[a_] == anc[b_])
+            if bool(agree[pair].any()):
+                line_gap[pair] = max(line_gap[pair], diff[agree[pair]].max().item())
+    for pair in RANK1_PAIRS:
+        where = (f"first differ at step {first[pair]}" if first[pair]
+                 else f"equal over all {steps} steps")
+        print(f"  {pair[0]} against {pair[1]}, the same draws, {n_particles} particles: "
+              f"ancestors {where}; largest |log-weight gap| before that {gap[pair]:.3e} "
+              f"(largest |log-weight| {scale[pair]:.3e}), largest normalized-weight gap "
+              f"{w_gap[pair]:.3e}; over the particles of one ancestry in both "
+              f"({int(agree[pair].sum())} after step {steps}), largest |log-weight gap| "
+              f"{line_gap[pair]:.3e}", flush=True)
+    f64 = ("f64 rank-1", "f64 direct")
+    require(first[f64] is None and gap[f64] <= RANK1_F64_TOL,
+            f"rank-1 against direct in f64: ancestors first differ at step {first[f64]}, "
+            f"log-weights {gap[f64]:.3e} apart (bound {RANK1_F64_TOL})")
+    return first, gap, line_gap
+
+
+def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
+    """Phase 20: the rank-1 Gibbs main path at full width, the vehicle
+    (two GPs, m = 20), 10240 x 1499, seeded as phase 6; a warm-up sweep
+    and two more. Launches per sweep exactly 4 x 1499 of #12 and 1499 of
+    #2 and nothing else; every weight an ancestor (or the trajectory) is
+    drawn from finite (the hyperbolic downdate's sqrt in f32 for 1499
+    steps); phase 6's trajectory gate. Then ``RANK1_PROFILE_STEPS``
+    rank-1 cSMC steps under CUDA's sync debug mode "error" and profiled,
+    beside the direct step's profile of the same call (``direct_prof``,
+    phase 17's default steps). Returns the Gibbs launches."""
+    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+    draws = [0]
+    real = resampling.categorical_from_weights
+
+    def counting(weights, u):
+        nonfinite.add_(torch.isfinite(weights).logical_not().sum())
+        draws[0] += 1
+        return real(weights, u)
+
+    resampling.categorical_from_weights = counting
+    try:
+        counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=4,
+                            smi=smi, rank1=True)
+    finally:
+        resampling.categorical_from_weights = real
+    bad = int(nonfinite)
+    print(f"  non-finite weights over the {draws[0]} categorical draws of the run (ancestor "
+          f"and trajectory draws; {N_GIBBS} weights each but the seeding draw): {bad}",
+          flush=True)
+    require(bad == 0, f"rank-1 Gibbs: {bad} non-finite ancestor weights")
+    prof = {"direct": direct_prof,
+            "rank-1": profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS,
+                                         steps=RANK1_PROFILE_STEPS, rank1=True)}
+    if all(prof.values()):
+        print("  cSMC step, direct (phase 17) against rank-1: " + "; ".join(
+            f"{name} busy {p['busy_us']:.1f} us (hand-written kernels {p['ours_us']:.1f} us, "
+            f"{p['launches']:.1f} launches), step {p['step_us']:.1f} us, idle share "
+            f"{1.0 - p['busy_us'] / p['step_us']:.3f}" for name, p in prof.items())
+            + f", on {smi}", flush=True)
     return counts
 
 
@@ -1187,7 +1712,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---------------------------------------------------------------- 1
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
@@ -1550,20 +2075,46 @@ def main() -> int:
 
     # --------------------------------------------------------------- 17
     t0 = time.perf_counter()
-    gibbs_reuse_counts = reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y,
-                                          o_U, smi)
+    gibbs_reuse_counts, direct_prof = reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs,
+                                                       o_model, o_Y, o_U, smi)
     phase_done("reuse-gibbs", t0)
+
+    # --------------------------------------------------------------- 18
+    # the unpacked kernels and the entry points that run them, after every
+    # earlier phase, so that phases 1-17 run as the parent's do
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
+    unpacked_res = unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush)
+    del flush
+    entry_counts = entry_point_calls(dev, model, Y, U, unpacked_res, jitter)
+    del unpacked_res
+    phase_done("unpacked-kernels", t0)
+
+    # --------------------------------------------------------------- 19
+    t0 = time.perf_counter()
+    csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=50, seeds=10,
+                       label="rank-1 cSMC", rank1=True)
+    rank1_against_direct(dev, model, Y, U, X, ref_ivs, N_GIBBS, RANK1_DIVERGENCE_STEPS)
+    phase_done("rank1-path-vs-plain", t0)
+
+    # --------------------------------------------------------------- 20
+    t0 = time.perf_counter()
+    gibbs_rank1_counts = rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi)
+    phase_done("rank1-gibbs", t0)
 
     # one entry per kernel: rows 1-5 are the m <= 24 instantiation and the
     # resampler, rows 6 and 7 the m <= 48 instantiation (the TPU's cs-layout
     # launchers: _cs_call's three kernels, _cs_du_gather_call), rows 1e, 8
-    # and 9 the factor pair and the dedup gather. launches: over the eight
-    # main paths' runs, each counted from zero
+    # and 9 the factor pair and the dedup gather, rows 10-13 the unpacked
+    # kernels' m <= 24 instantiation. launches: over the ten main paths'
+    # runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
              "apf_reuse": reuse_counts, "apf_dedup": dedup_counts,
-             "gibbs_reuse": gibbs_reuse_counts}
+             "gibbs_reuse": gibbs_reuse_counts, "entry_points": entry_counts,
+             "gibbs_rank1": gibbs_rank1_counts}
     mniw_src, sys_src = "bipk_tpu_torch/csrc/packed_mniw.cu", "bipk_tpu_torch/csrc/systematic.cu"
+    unpacked_src = "bipk_tpu_torch/csrc/unpacked_mniw.cu"
     pk = "bipk_tpu/ops/pallas_kernels.py"
     rows = (  # (row, name, result and count key, source, replaces)
         (1, "factorize_project_packed", "factorize_project_packed<24>", mniw_src, f"{pk}:1740"),
@@ -1588,6 +2139,12 @@ def main() -> int:
         (9, "draw_update_dedup_gather_packed_blocks",
          "draw_update_dedup_gather_packed_blocks<24>", "bipk_tpu_torch/csrc/dedup_gather.cu",
          f"{pk}:1312"),
+        (10, "factorize_blocks", "factorize_blocks<24>", unpacked_src, f"{pk}:1583"),
+        (11, "factorize_project_blocks", "factorize_project_blocks<24>", unpacked_src,
+         f"{pk}:1634"),
+        (12, "project_blocks", "project_blocks<24>", unpacked_src, f"{pk}:1712"),
+        (13, "log_base_measure_logdets", "log_base_measure_logdets<24>", unpacked_src,
+         f"{pk}:2000"),
     )
     kernels = []
     for row, name, key, source, replaces in rows:
@@ -1600,6 +2157,7 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} seconds", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

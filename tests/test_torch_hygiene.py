@@ -48,6 +48,7 @@ def test_port_imports_with_jax_absent():
         "import bipk_tpu_torch.parallel.sharded, bipk_tpu_torch.ops.cuda_kernels\n"
         "import bipk_tpu_torch.algorithms.gibbs, bipk_tpu_torch.utils.matio\n"
         "import bipk_tpu_torch.models.oscillator, bipk_tpu_torch.models.toy\n"
+        "import bipk_tpu_torch.ops.cholup, bipk_tpu_torch.algorithms.csmc\n"
         "print('ok')"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -116,13 +117,99 @@ def test_launches_count_per_instantiation():
 
 def test_gibbs_slice_unported_modes_raise():
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
-    for kwargs in (dict(rank1=True), dict(mesh=object())):
+    for kwargs in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError):
             build_csmc(model.ssm, model.gps, 64, device="cpu", **kwargs)
     for kwargs in (dict(n_chains=4), dict(mesh=object()), dict(shard_mesh=object()),
                    dict(chain_mesh=object())):
         with pytest.raises(NotImplementedError):
             build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", **kwargs)
+
+
+def test_rank1_csmc_is_a_build_csmc_option_only():
+    """``rank1=True`` builds the factor-carry sweep; with the packed
+    kernels' opt-ins it raises (it never launches them); ``build_gibbs``
+    has no ``rank1`` keyword, as the JAX package's has none; on the
+    default device it needs a card."""
+    from bipk_tpu_torch.algorithms.csmc import CSMCRank1
+
+    model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
+    assert isinstance(build_csmc(model.ssm, model.gps, 64, device="cpu", rank1=True), CSMCRank1)
+    for option in ("reuse_factor", "dedup_gather"):
+        with pytest.raises(ValueError, match="rank1"):
+            build_csmc(model.ssm, model.gps, 64, device="cpu", rank1=True, **{option: True})
+    with pytest.raises(TypeError, match="rank1"):
+        build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", rank1=True)
+
+
+def test_rank1_csmc_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_csmc(model.ssm, model.gps, 64, rank1=True)  # default device: cuda
+
+
+class _CardTensor:
+    """Stands in for a CUDA tensor, which this CPU build of torch cannot
+    make: the unpacked entry points read only a leaf's device, dtype and
+    shape before they decide between the kernel and the plain version."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, *shape, dtype=torch.float32):
+        self.shape, self.dtype = shape, dtype
+
+    def dim(self):
+        return len(self.shape)
+
+
+def _entry_point_call(name, m, n, dtype):
+    from bipk_tpu_torch.ops import mniw
+
+    N = 8
+    leaf = lambda *shape: _CardTensor(*shape, N, dtype=dtype)
+    stats = mniw.MNIW(leaf(m, n), leaf(m, m), leaf(n, n), leaf())
+    factor = mniw.MNIWFactor(leaf(m, m), leaf(m, n), leaf(n, n), leaf())
+    calls = {
+        "factorize_bl": lambda: mniw.factorize_bl(stats),
+        "factorize_scaled_bl": lambda: mniw.factorize_scaled_bl(stats, lam=0.999),
+        "factorize_project_bl": lambda: mniw.factorize_project_bl(stats, leaf(m)),
+        "log_base_measure_bl": lambda: mniw.log_base_measure_bl(stats),
+        "factor_mean_at_bl": lambda: mniw.factor_mean_at_bl(factor, leaf(m)),
+        "sample_predictive_bl": lambda: mniw.sample_predictive_bl(
+            factor, leaf(m), leaf(n), leaf(n)),
+    }
+    return calls[name]()
+
+
+@pytest.mark.parametrize("name", ["factorize_bl", "factorize_scaled_bl", "factorize_project_bl",
+                                  "log_base_measure_bl", "factor_mean_at_bl",
+                                  "sample_predictive_bl"])
+def test_unpacked_entry_points_raise_on_card_tensors_the_kernels_cannot_take(name):
+    """On a CUDA tensor the kernels cannot take (not float32, m > 48,
+    n > 2) an unpacked entry point raises, as the packed wrappers do,
+    naming itself; it never computes the plain version on the card."""
+    with pytest.raises(TypeError, match=f"{name}: .*float64"):
+        _entry_point_call(name, 20, 1, torch.float64)
+    with pytest.raises(ValueError, match=f"{name}: .*m <= 48.*m=49"):
+        _entry_point_call(name, 49, 1, torch.float32)
+    with pytest.raises(ValueError, match=f"{name}: .*n <= 2.*n=3"):
+        _entry_point_call(name, 20, 3, torch.float32)
+
+
+def test_kernels_take_decides_by_device_dtype_and_width():
+    """The dispatch rule itself: the kernel on a CUDA float32 tensor in
+    range; the plain version on a CPU tensor (any dtype or width) or with
+    ``plain=True`` (on the card too); a CUDA float64 tensor raises."""
+    from bipk_tpu_torch.ops import mniw
+
+    assert mniw.kernels_take("f", _CardTensor(1), 48, 2, False)
+    assert not mniw.kernels_take("f", _CardTensor(1, dtype=torch.float64), 20, 1, True)
+    assert not mniw.kernels_take("f", _CardTensor(1), 49, 3, True)
+    for dtype in (torch.float32, torch.float64):
+        assert not mniw.kernels_take("f", torch.zeros(1, dtype=dtype), 49, 3, False)
+    with pytest.raises(TypeError, match="plain=True"):
+        mniw.kernels_take("f", _CardTensor(1, dtype=torch.float64), 20, 1, False)
 
 
 def test_log_base_measure_wrapper_checks_its_bounds():
@@ -132,6 +219,68 @@ def test_log_base_measure_wrapper_checks_its_bounds():
         ck.log_base_measure_packed_logdets(torch.zeros((1, 8)), 0.0, m=5, n=3)
     with pytest.raises(ValueError, match="device"):
         ck.log_base_measure_packed_logdets(torch.zeros((232, 8), device="meta"), 0.0, m=20, n=1)
+
+
+@pytest.mark.parametrize("wrapper", ["factorize_blocks", "factorize_project_blocks",
+                                     "log_base_measure_logdets"])
+def test_unpacked_wrappers_check_their_bounds(wrapper):
+    fn = getattr(ck, wrapper)
+    phi = (torch.zeros((20, 8)),) if wrapper == "factorize_project_blocks" else ()
+
+    def call(T0, T1, T2, **kw):
+        return fn(T0, T1, T2, *phi, 0.0, **kw)
+
+    def leaves(m, n, N=8, **kw):
+        return torch.zeros((m, n, N), **kw), torch.zeros((m, m, N), **kw), torch.zeros((n, n, N), **kw)
+
+    with pytest.raises(ValueError, match="m <= 48"):
+        call(*leaves(49, 1))
+    with pytest.raises(ValueError, match="n <= 2"):
+        call(*leaves(5, 3))
+    with pytest.raises(ValueError, match="T1 must be"):
+        call(torch.zeros((20, 1, 8)), torch.zeros((20, 20, 9)), torch.zeros((1, 1, 8)))
+    with pytest.raises(ValueError, match="device"):
+        call(*leaves(20, 1, device="meta"))
+    if wrapper == "factorize_blocks":
+        with pytest.raises(ValueError, match="structured"):
+            call(torch.zeros((20, 8)), torch.zeros((400, 8)), torch.zeros((1, 8)))
+    else:
+        with pytest.raises(ValueError, match="need m and n"):
+            call(torch.zeros((20, 8)), torch.zeros((400, 8)), torch.zeros((1, 8)))
+        with pytest.raises(ValueError, match="T0 must be"):
+            call(torch.zeros((21, 8)), torch.zeros((400, 8)), torch.zeros((1, 8)), m=20, n=1)
+
+
+def test_project_wrapper_checks_its_bounds():
+    N = 8
+    with pytest.raises(ValueError, match="chol must be"):
+        ck.project_blocks(torch.zeros((20, 19, N)), torch.zeros((20, 1, N)), torch.zeros((20, N)))
+    with pytest.raises(ValueError, match="m <= 48"):
+        ck.project_blocks(torch.zeros((49, 49, N)), torch.zeros((49, 1, N)), torch.zeros((49, N)))
+    with pytest.raises(ValueError, match="n <= 2"):
+        ck.project_blocks(torch.zeros((5, 5, N)), torch.zeros((5, 3, N)), torch.zeros((5, N)))
+    with pytest.raises(ValueError, match="device"):
+        ck.project_blocks(torch.zeros((20, 20, N), device="meta"),
+                          torch.zeros((20, 1, N), device="meta"), torch.zeros((20, N), device="meta"))
+
+
+def test_unpacked_launches_count_per_instantiation():
+    """The unpacked wrappers count launches per width, and the CPU ones
+    (plain versions) count none."""
+    ck.reset_launch_counts()
+    try:
+        ck._count(ck.project_blocks, 20)
+        ck._count(ck.project_blocks, 41)
+        ck._count(ck.factorize_blocks, 24)
+        counts = ck.launch_counts()
+        assert counts["project_blocks<24>"] == 1 and counts["project_blocks<48>"] == 1
+        assert counts["factorize_blocks<24>"] == 1 and sum(counts.values()) == 3
+    finally:
+        ck.reset_launch_counts()
+    F = torch.eye(21)[:, :, None].expand(21, 21, 4).contiguous()
+    ck.project_blocks(F[:20, :20], F[20:, :20].transpose(0, 1), torch.ones((20, 4)))
+    ck.factorize_blocks(F[:20, 20:21], F[:20, :20], F[20:, 20:], 0.0)
+    assert sum(ck.launch_counts().values()) == 0
 
 
 def test_unported_modes_raise():
