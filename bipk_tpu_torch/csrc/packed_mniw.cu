@@ -24,12 +24,27 @@
 //     (factor_gather_kernel below, m <= 24).
 // The first four are compiled twice: packed_mniw_kernel<24, MODE> serves
 // m <= 24, the widths of the TPU's tiled kernels above;
-// packed_mniw_kernel<48, MODE> serves 24 < m <= 48 (the toy, m = 40, and the single-mass oscillator,
-// m = 41) and replaces the TPU's cs-layout kernels of those widths:
-// _cs_call (:2454) with _cs_fp_kernel (:2322), _cs_lbm_kernel (:2341) and
-// _cs_du_kernel (:2353), and _cs_du_gather_call (:2482) with
+// packed_mniw_kernel<48, MODE> covers 24 < m <= 48 (the toy, m = 40, and
+// the single-mass oscillator, m = 41), the widths of the TPU's cs-layout
+// kernels: _cs_call (:2454) with _cs_fp_kernel (:2322), _cs_lbm_kernel
+// (:2341) and _cs_du_kernel (:2353), and _cs_du_gather_call (:2482) with
 // _cs_du_gather_kernel (:2418). It computes what they compute, not their
 // column-on-sublane blocking.
+//
+// Of those widths, the wrappers' look-ahead (_cs_fp_kernel) and draw
+// (_cs_du_kernel, _cs_du_gather_kernel) run the warp-per-particle kernels
+// of warp_mniw.cu (launch_warp_mniw below): one warp per particle, its
+// augmented factor in shared memory, the forward substitutions riding
+// along with a left-looking Cholesky. A lone warp's chain of dependent
+// shared-memory work bounds them, not HBM; at N = 200 they take ~1/15 and
+// at N = 32768 ~1/3 of the per-thread kernels' time (PERF.md). They are bit for bit equal to
+// packed_mniw_kernel<48, kProject / kDraw>: each entry is the same f32
+// operations in the same order, with the roundings nvcc gives this core
+// written out (warp_mniw.cu). That per-thread pair stays compiled as
+// their comparator, behind bipk_factorize_project_packed_per_thread and
+// bipk_draw_update_packed_per_thread below; no wrapper reaches it, and
+// chip_smoke.py holds the warp kernels against it (phase 8). The
+// log-determinants keep packed_mniw_kernel<48, kLogdets>.
 //
 // Layout. S is (rows, N) row-major with rows
 // [T0 (m*n) | column-major tril(T1) | tril(T2) | T3] and the particle index
@@ -59,15 +74,16 @@
 // 67 TFLOP/s f32 rate) -- bytes, in principle. This first version keeps the
 // m(m+1)/2-entry factor in local memory (spilled, L1/L2-cached), so the
 // Cholesky's ~m^3/6 dependent local loads, not HBM, bound it in practice.
-// Shared-memory staging of the factor and tensor-core panels are later work.
+// (At 24 < m <= 48 the look-ahead and the draw now keep it in shared
+// memory, a warp per particle: warp_mniw.cu.)
 // The log-determinant variant moves ~4 B * N * (rows + 2) (9.6 MB at
 // N = 10240, 2.9 us) and does ~m^3/3 + m^2 n flops per particle: bytes in
 // principle, the same local-memory Cholesky in practice. At m = 41
 // (rows = 904) factorize/project moves ~124 MB at N = 32768 (37 us) and
 // the gathered draw/update ~243 MB (73 us); the frame grows to 5.1-5.9 KB
-// and the dependent chain by ~(41/20)^3, so the <48> kernels run ~50x
-// their bound, and at the Gibbs paths' N = 200 (two blocks) one thread's
-// chain is the whole time.
+// and the dependent chain by ~(41/20)^3, so the per-thread <48> kernels
+// run ~50x their bound, and at the Gibbs paths' N = 200 (two blocks) one
+// thread's chain is the whole time.
 //
 // The factor pair (m = 20, n = 1, rows_lw = m(m+1)/2 + m = 230). kEmit is
 // kProject plus one write of LW, 30 MB at N = 32768: ~64 MB in all, 19 us
@@ -88,6 +104,11 @@
 #include "packed_mniw.cuh"
 
 using namespace bipk_mniw;
+
+namespace bipk_mniw {
+// the warp-per-particle look-ahead and draw, 24 < m <= 48 (warp_mniw.cu)
+int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream);
+}  // namespace bipk_mniw
 
 namespace {
 
@@ -195,8 +216,10 @@ bool bad_shape(const Args& a, int max_m) {
   return a.m < 1 || a.m > max_m || a.n < 1 || a.n > 2;
 }
 
+// launch_per_thread: packed_mniw_kernel<24, MODE> for m <= 24, else
+// <48, MODE> (the comparator of the warp kernels, and the log-determinants)
 template <int MODE>
-int launch(const Args& a, cudaStream_t stream) {
+int launch_per_thread(const Args& a, cudaStream_t stream) {
   // the factor pair serves m <= 24 only, as the TPU's (supported_factor)
   if (bad_shape(a, MODE == kEmit ? 24 : 48)) return (int)cudaErrorInvalidValue;
   if (a.n_out == 0) return (int)cudaGetLastError();
@@ -209,17 +232,46 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// what the wrappers launch: the look-ahead and the draw take the warp
+// kernels (warp_mniw.cu) for 24 < m <= 48
+template <int MODE>
+int launch(const Args& a, cudaStream_t stream) {
+  if constexpr (MODE == kProject || MODE == kDraw) {
+    if (a.m > 24 && !bad_shape(a, 48)) return launch_warp_mniw(a, MODE, stream);
+  }
+  return launch_per_thread<MODE>(a, stream);
+}
+
+Args project_args(const float* S, const float* phi, const float* prior, int n_particles,
+                  int m, int n, float jitter, float lam, float* mean, float* col,
+                  float* row, float* ld) {
+  Args a = {};
+  a.S = S; a.anc = nullptr; a.phi = phi; a.prior = prior;
+  a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
+  a.jitter = jitter; a.lam = lam;
+  a.mean = mean; a.col = col; a.row = row; a.ld = ld;
+  return a;
+}
+
+Args draw_args(const float* S, int n_in, const int* anc, int n_out, const float* phi,
+               const float* u, const float* v, const float* prior, float p3, int m, int n,
+               float jitter, float lam, float* S_new, float* y, float* ld) {
+  Args a = {};
+  a.S = S; a.anc = anc; a.phi = phi; a.u = u; a.v = v; a.prior = prior;
+  a.n_in = n_in; a.n_out = n_out; a.m = m; a.n = n;
+  a.jitter = jitter; a.lam = lam; a.p3 = p3;
+  a.S_new = S_new; a.y = y; a.ld = ld;
+  return a;
+}
+
 }  // namespace
 
 extern "C" int bipk_factorize_project_packed(
     const float* S, const float* phi, const float* prior, int n_particles,
     int m, int n, float jitter, float lam, float* mean, float* col,
     float* row, float* ld, float* lw, void* stream) {
-  Args a = {};
-  a.S = S; a.anc = nullptr; a.phi = phi; a.prior = prior;
-  a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
-  a.jitter = jitter; a.lam = lam;
-  a.mean = mean; a.col = col; a.row = row; a.ld = ld; a.lw_out = lw;
+  Args a = project_args(S, phi, prior, n_particles, m, n, jitter, lam, mean, col, row, ld);
+  a.lw_out = lw;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return lw ? launch<kEmit>(a, s) : launch<kProject>(a, s);
 }
@@ -229,12 +281,39 @@ extern "C" int bipk_draw_update_packed(
     const float* u, const float* v, const float* prior, float p3, int m,
     int n, float jitter, float lam, float* S_new, float* y, float* ld,
     void* stream) {
-  Args a = {};
-  a.S = S; a.anc = anc; a.phi = phi; a.u = u; a.v = v; a.prior = prior;
-  a.n_in = n_in; a.n_out = n_out; a.m = m; a.n = n;
-  a.jitter = jitter; a.lam = lam; a.p3 = p3;
-  a.S_new = S_new; a.y = y; a.ld = ld;
-  return launch<kDraw>(a, static_cast<cudaStream_t>(stream));
+  return launch<kDraw>(draw_args(S, n_in, anc, n_out, phi, u, v, prior, p3, m, n, jitter,
+                                 lam, S_new, y, ld),
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The comparator: the per-thread packed_mniw_kernel<48, kProject> and
+// <48, kDraw> (1 <= m <= 48), which the warp kernels replace on the
+// wrappers' path and must equal bit for bit. chip_smoke.py calls these
+// entries; no wrapper does.
+extern "C" int bipk_factorize_project_packed_per_thread(
+    const float* S, const float* phi, const float* prior, int n_particles,
+    int m, int n, float jitter, float lam, float* mean, float* col,
+    float* row, float* ld, float* lw, void* stream) {
+  Args a = project_args(S, phi, prior, n_particles, m, n, jitter, lam, mean, col, row, ld);
+  if (bad_shape(a, 48) || lw) return (int)cudaErrorInvalidValue;  // no factor to emit
+  if (n_particles == 0) return (int)cudaGetLastError();
+  const dim3 grid((n_particles + kThreads - 1) / kThreads);
+  packed_mniw_kernel<48, kProject><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bipk_draw_update_packed_per_thread(
+    const float* S, int n_in, const int* anc, int n_out, const float* phi,
+    const float* u, const float* v, const float* prior, float p3, int m,
+    int n, float jitter, float lam, float* S_new, float* y, float* ld,
+    void* stream) {
+  const Args a = draw_args(S, n_in, anc, n_out, phi, u, v, prior, p3, m, n, jitter, lam,
+                           S_new, y, ld);
+  if (bad_shape(a, 48)) return (int)cudaErrorInvalidValue;
+  if (n_out == 0) return (int)cudaGetLastError();
+  const dim3 grid((n_out + kThreads - 1) / kThreads);
+  packed_mniw_kernel<48, kDraw><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int bipk_draw_update_factor_gather_packed(

@@ -7,10 +7,13 @@ arguments minus the TPU's tiling plan:
 =========================================== =========================
 wrapper                                     CUDA source
 =========================================== =========================
-``factorize_project_packed``                ``csrc/packed_mniw.cu``
+``factorize_project_packed``                ``csrc/packed_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
 ``systematic_ancestors_blocks``             ``csrc/systematic.cu``
-``draw_update_packed_blocks``               ``csrc/packed_mniw.cu``
-``draw_update_gather_packed_blocks``        ``csrc/packed_mniw.cu``
+``draw_update_packed_blocks``               ``csrc/packed_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
+``draw_update_gather_packed_blocks``        ``csrc/packed_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
 ``log_base_measure_packed_logdets``         ``csrc/packed_mniw.cu``
 ``draw_update_factor_gather_packed_blocks`` ``csrc/packed_mniw.cu``
 ``draw_update_dedup_gather_packed_blocks``  ``csrc/dedup_gather.cu``
@@ -30,10 +33,15 @@ versions on the card (to hold the kernels against them) call the
 in its ``launches`` attribute; the packed-MNIW ones (``PACKED_MNIW``) also
 count them per kernel instantiation (``launches_by_kernel``: m <= 24
 runs ``packed_mniw_kernel<24, MODE>``, the counterpart of the TPU's tiled
-kernels, and 24 < m <= 48 runs ``<48, MODE>``, the counterpart of its
-cs-layout ``_cs_call`` / ``_cs_du_gather_call``; the factor-emitting
-projection, ``<24, kEmit>``, counts apart from the plain one). The factor
-pair and the dedup gather take m <= 24 only. The four unpacked wrappers
+kernels; for 24 < m <= 48, the counterpart of its cs-layout ``_cs_call``
+/ ``_cs_du_gather_call``, the look-ahead and the draw run the
+warp-per-particle ``warp_mniw_kernel`` (``csrc/warp_mniw.cu``), counted
+as ``"<48w>"``, and the log-determinants ``<48, kLogdets>``, ``"<48>"``;
+the factor-emitting projection, ``<24, kEmit>``, counts apart from the
+plain one). The per-thread ``<48>`` look-ahead and draw stay compiled as
+the warp kernels' comparator (``*_per_thread`` below, counted as
+``"<48>"``), which no wrapper calls. The factor pair and the dedup gather
+take m <= 24 only. The four unpacked wrappers
 (``UNPACKED``) take structured or flat ``T0, T1, T2`` leaves, or a given
 factor, and count their launches per instantiation too; they serve
 m <= 48 where the JAX package's ``factorize_blocks`` and ``project_blocks``
@@ -70,6 +78,13 @@ _SIGNATURES = {
     ],
     "bipk_systematic_ancestors": [_P, _P, _I, _P, _P, _P],
     "bipk_log_base_measure_packed": [_P, _P, _I, _I, _I, _F, _P, _P],
+    "bipk_factorize_project_packed_per_thread": [
+        _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P,
+    ],
+    "bipk_draw_update_packed_per_thread": [
+        _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
+    ],
+    "bipk_warp_mniw_plan": [_I, _I, _I, _P, _P],
     "bipk_factorize_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "bipk_factorize_project_blocks": [
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
@@ -124,13 +139,17 @@ def _require(name: str, device, dtype, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _count(fn, m: int | None = None, mode: str = "") -> None:
+def _count(fn, m: int | None = None, mode: str = "", per_thread: bool = False) -> None:
     """One launch of ``fn``'s kernel; with ``m``, also of the kernel
-    instantiation that serves it, keyed like ``"<24>"`` or, with ``mode``
-    ``"[emit]"``, ``"[emit]<24>"``."""
+    instantiation that serves it, keyed like ``"<24>"``, ``"<48w>"`` (the
+    warp kernels of ``WARP_48``) or, with ``mode`` ``"[emit]"``,
+    ``"[emit]<24>"``; ``per_thread``: the per-thread comparator,
+    ``"<48>"``."""
     fn.launches += 1
     if m is not None:
-        fn.launches_by_kernel[f"{mode}<{next(w for w in WIDTHS if m <= w)}>"] += 1
+        width = next(w for w in WIDTHS if m <= w)
+        warp = "w" if width == 48 and fn in WARP_48 and not per_thread else ""
+        fn.launches_by_kernel[f"{mode}<{width}{warp}>"] += 1
 
 
 def _check_mn(name: str, S: torch.Tensor, m: int, n: int, max_m: int = MAX_M) -> None:
@@ -196,6 +215,18 @@ def factorize_project_packed(
     _check_mn(name, S, m, n, mniw.FACTOR_MAX_M if emit_factor else MAX_M)
     if not _on_cuda(name, S):
         return factorize_project_packed_plain(S, phi, jitter, lam, prior, m, n, emit_factor)
+    rc, out = _factorize_project(name, S, phi, jitter, lam, prior, m, n, emit_factor)
+    _count(factorize_project_packed, m, "[emit]" if emit_factor else "")
+    _check(rc, name)
+    return out if emit_factor else out[:5]
+
+
+def _factorize_project(name, S, phi, jitter, lam, prior, m, n, emit_factor=False, launch=None):
+    """Check, allocate and launch a look-ahead kernel with the C signature
+    of ``bipk_factorize_project_packed`` (the default ``launch``); the
+    outputs end with ``LW``, None without ``emit_factor``."""
+    if launch is None:
+        launch = _lib().bipk_factorize_project_packed
     N = S.shape[1]
     _require(name, S.device, torch.float32, S=(S, S.shape), phi=(phi, (m, N)))
     pbuf = _prior_buffer(name, prior, m, n, S)
@@ -205,16 +236,12 @@ def factorize_project_packed(
     ld = torch.empty((2, N), dtype=S.dtype, device=S.device)
     lw = (torch.empty((mniw.lw_rows(m, n), N), dtype=S.dtype, device=S.device)
           if emit_factor else None)
-    rc = _lib().bipk_factorize_project_packed(
+    rc = launch(
         S.data_ptr(), phi.data_ptr(), _ptr(pbuf), N, m, n, float(jitter),
         float(lam), mean.data_ptr(), col.data_ptr(), row.data_ptr(),
         ld.data_ptr(), _ptr(lw), _stream(S.device),
     )
-    _count(factorize_project_packed, m, "[emit]" if emit_factor else "")
-    _check(rc, name)
-    if emit_factor:
-        return mean, col, row, ld[0], ld[1], lw
-    return mean, col, row, ld[0], ld[1]
+    return rc, (mean, col, row, ld[0], ld[1], lw)
 
 
 def systematic_ancestors_blocks_plain(w, u, n):
@@ -478,6 +505,66 @@ def log_base_measure_packed_logdets(
 
 
 # ---------------------------------------------------------------------------
+# The per-thread comparator of the warp kernels (24 < m <= 48): the
+# packed_mniw_kernel<48, kProject / kDraw> that the wrappers launched
+# before the warp kernels replaced them, kept to hold the warp kernels
+# against bit for bit and to time beside them. No wrapper calls these.
+# ---------------------------------------------------------------------------
+
+
+def _per_thread_device(name: str, S: torch.Tensor) -> None:
+    if not _on_cuda(name, S):
+        raise ValueError(f"{name}: the per-thread comparator runs on a CUDA tensor only")
+
+
+def factorize_project_packed_per_thread(
+    S: torch.Tensor, phi: torch.Tensor, jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
+):
+    """:func:`factorize_project_packed` through the per-thread
+    ``packed_mniw_kernel<48, kProject>``: the same outputs, which the warp
+    kernel must equal bit for bit."""
+    name = "factorize_project_packed_per_thread"
+    _check_mn(name, S, m, n)
+    _per_thread_device(name, S)
+    rc, out = _factorize_project(name, S, phi, jitter, lam, prior, m, n,
+                                 launch=_lib().bipk_factorize_project_packed_per_thread)
+    _count(factorize_project_packed, m, per_thread=True)
+    _check(rc, name)
+    return out[:5]
+
+
+def draw_update_gather_packed_blocks_per_thread(
+    S: torch.Tensor, ancestors: torch.Tensor | None, phi: torch.Tensor,
+    u: torch.Tensor, v: torch.Tensor, jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None, p3: float = 0.0,
+    m: int = 0, n: int = 0,
+):
+    """:func:`draw_update_gather_packed_blocks` (``ancestors`` None:
+    :func:`draw_update_packed_blocks`) through the per-thread
+    ``packed_mniw_kernel<48, kDraw>``."""
+    name = "draw_update_gather_packed_blocks_per_thread"
+    _check_mn(name, S, m, n)
+    _per_thread_device(name, S)
+    rc, out = _draw_update(name, S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n,
+                           _lib().bipk_draw_update_packed_per_thread)
+    _count(draw_update_packed_blocks if ancestors is None else draw_update_gather_packed_blocks,
+           m, per_thread=True)
+    _check(rc, name)
+    return out
+
+
+def warp_plan(m: int, n: int, N: int) -> tuple[int, int]:
+    """``(warps per block, dynamic shared memory in bytes)`` of the warp
+    kernels' launch at ``(m, n)`` and N particles on the current card, as
+    ``csrc/warp_mniw.cu`` chooses them. For reports."""
+    warps, smem = ctypes.c_int(), ctypes.c_int()
+    _check(_lib().bipk_warp_mniw_plan(m, n, N, ctypes.byref(warps), ctypes.byref(smem)),
+           "warp_plan")
+    return warps.value, smem.value
+
+
+# ---------------------------------------------------------------------------
 # The unpacked kernels (csrc/unpacked_mniw.cu): structured or flat
 # statistics, and the projection from a given factor.
 # ---------------------------------------------------------------------------
@@ -688,11 +775,14 @@ PLAIN = {
 }
 
 
-# the packed-MNIW wrappers and the instantiations each launches
+# the wrappers whose 24 < m <= 48 launches run the warp kernels
+WARP_48 = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks)
+# the packed-MNIW wrappers and the instantiations each launches ("<48>"
+# of the WARP_48 wrappers: the per-thread comparator only)
 PACKED_MNIW = {
-    factorize_project_packed: ("<24>", "<48>", "[emit]<24>"),
-    draw_update_packed_blocks: ("<24>", "<48>"),
-    draw_update_gather_packed_blocks: ("<24>", "<48>"),
+    factorize_project_packed: ("<24>", "<48w>", "<48>", "[emit]<24>"),
+    draw_update_packed_blocks: ("<24>", "<48w>", "<48>"),
+    draw_update_gather_packed_blocks: ("<24>", "<48w>", "<48>"),
     log_base_measure_packed_logdets: ("<24>", "<48>"),
     draw_update_factor_gather_packed_blocks: ("<24>",),
     draw_update_dedup_gather_packed_blocks: ("<24>",),
@@ -713,9 +803,10 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """Launches since the last :func:`reset_launch_counts`: per kernel
     instantiation for the packed-MNIW and unpacked wrappers, keyed
-    ``"<wrapper><24>"``, ``"<wrapper><48>"`` and, for the factor-emitting
-    projection, ``"factorize_project_packed[emit]<24>"``; per wrapper for
-    the resampler."""
+    ``"<wrapper><24>"``, ``"<wrapper><48w>"`` (the warp kernels),
+    ``"<wrapper><48>"`` and, for the factor-emitting projection,
+    ``"factorize_project_packed[emit]<24>"``; per wrapper for the
+    resampler."""
     out = {}
     for fn in WRAPPERS:
         if fn in PER_INSTANTIATION:

@@ -28,10 +28,16 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
    debug mode set to "error" (no step may wait for the device), the same
    steps timed, then under ``torch.profiler``: device time and launches
    per step, the largest kernels, the device's idle share;
-8. cs kernels: phase 2 for the m <= 48 instantiation at the cs paths'
-   shapes (the oscillator APF's ``S (904, 32768)`` after 100 filtering
-   steps; the toy / oscillator Gibbs paths' ``(862, 200)`` / ``(904,
-   200)`` at lambda = 1), and the resampler on partly-NaN weights;
+8. cs kernels: phase 2 for the m <= 48 kernels at the cs paths' shapes
+   (the oscillator APF's ``S (904, 32768)`` after 100 filtering steps, its
+   first 777 columns and a synthetic m = 41, n = 2 set; the toy /
+   oscillator Gibbs paths' ``(862, 200)`` / ``(904, 200)`` at lambda = 1),
+   and the resampler on partly-NaN weights. The look-ahead and the draws
+   (the warp kernels, ``csrc/warp_mniw.cu``) are also held bit for bit
+   against the per-thread kernels they replace on every set, with and
+   without ancestors, and timed in turns with them (per-thread, warp,
+   warp, per-thread) at N = 32768 and 200, beside their registers, stack
+   and shared memory;
 9. oscillator path-vs-plain: the single-mass oscillator's online APF
    (m = 41, one GP), 32768 particles x 50 steps, kernels and plain
    versions with the same draws, paired over 10 seeds;
@@ -53,8 +59,9 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     equality reported), timed beside their bounds, at the APF's
     statistics after 100 filtering steps (and how many blocks the dedup
     kernel staged there), at the Gibbs shapes and at edge shapes; an
-    out-of-range ancestor in a child process per gathering kernel must
-    fail with CUDA's device-side assertion;
+    out-of-range ancestor in a child process per gathering kernel (the
+    warp gather/draw at m = 41 too) must fail with CUDA's device-side
+    assertion;
 15. reuse/dedup path-vs-plain: phase 3 with ``reuse_factor=True`` and
     with ``dedup_gather=True``;
 16. reuse/dedup main path: the vehicle APF at 32768 x 1499 in the
@@ -89,7 +96,9 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the ten
-main paths, error against the plain version, times and bound);
+main paths, error against the plain version, times and bound; for the
+warp kernels also the per-thread kernels' times from the same turns, and
+both at the Gibbs paths' 200 particles);
 the last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the script exits non-zero and prints neither. Needs one CUDA
 card.
@@ -127,7 +136,8 @@ PEAK_F32_FLOPS = 67e12
 
 # the device functions of csrc/ (the profile's "hand-written kernels")
 OUR_KERNELS = ("packed_mniw_kernel", "systematic_kernel", "factor_gather_kernel",
-               "dedup_gather_kernel", "unpacked_mniw_kernel", "project_kernel")
+               "dedup_gather_kernel", "unpacked_mniw_kernel", "project_kernel",
+               "warp_mniw_kernel")
 
 N = 32768  # particles, as the JAX package's bench.py
 N_GIBBS = 10240  # particles, as the JAX package's benchmarks/bench_gibbs.py
@@ -593,15 +603,79 @@ def late_future(gps, X, ivs, U, left):
     return fut, contrib.T1[T_all - left:].double().sum(0)
 
 
+# the warp-per-particle kernels that serve 24 < m <= 48 (csrc/warp_mniw.cu),
+# by mode: the look-ahead, the draw without and with ancestors
+WARP_KEYS = {"fp": "factorize_project_packed<48w>", "du": "draw_update_packed_blocks<48w>",
+             "dug": "draw_update_gather_packed_blocks<48w>"}
+
+
+def warp_calls(S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
+    """Per mode, the calls that run the warp kernel and its per-thread
+    comparator on one input set, and the outputs' names (``anc`` gathers;
+    the draw without ancestors takes ``phi, u, v`` of S's width)."""
+    fp_args, du_args = (S, phi, jitter, lam, prior), (phi, u, v, jitter, lam, prior, p3)
+    return {
+        "fp": (lambda: ck.factorize_project_packed(*fp_args, m=m, n=n),
+               lambda: ck.factorize_project_packed_per_thread(*fp_args, m=m, n=n), FP_NAMES),
+        "du": (lambda: ck.draw_update_packed_blocks(S, *du_args, m=m, n=n),
+               lambda: ck.draw_update_gather_packed_blocks_per_thread(S, None, *du_args, m=m, n=n),
+               DU_NAMES),
+        "dug": (lambda: ck.draw_update_gather_packed_blocks(S, anc, *du_args, m=m, n=n),
+                lambda: ck.draw_update_gather_packed_blocks_per_thread(S, anc, *du_args, m=m, n=n),
+                DU_NAMES),
+    }
+
+
+def warp_vs_per_thread(label, calls):
+    """Each warp kernel against the per-thread comparator on the same
+    inputs: the same f32 operations in the same order (csrc/warp_mniw.cu),
+    so every output must be equal bit for bit."""
+    for key, (warp, per_thread, names) in calls.items():
+        got, want = warp(), per_thread()
+        equal = [k for k, g, w in zip(names, got, want) if bitwise(g, w)]
+        rels = {k: rel_err(g, w)[0] for k, g, w in zip(names, got, want)}
+        print(f"  {WARP_KEYS[key]} {label} against the per-thread kernel: bitwise equal "
+              f"{'all' if len(equal) == len(names) else equal or 'none'} (max rel "
+              f"{max(rels.values()):.3e})", flush=True)
+        require(len(equal) == len(names),
+                f"{WARP_KEYS[key]} {label}: not bitwise equal to the per-thread kernel: {rels}")
+
+
+def in_turns(warp, per_thread, flush):
+    """The warp kernel and the per-thread one timed in turns (per-thread,
+    warp, warp, per-thread; cold L2): the mean of each one's two medians."""
+    t = [time_ms(f, flush=flush) for f in (per_thread, warp, warp, per_thread)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
+def warp_ptxas():
+    """The warp kernels' registers, stack and spills as ``-Xptxas -v``
+    reported them when the library was built, by mode."""
+    report = _build.library_path().with_suffix(".ptxas.txt")
+    lines = report.read_text().splitlines() if report.exists() else []
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "warp_mniw_kernel" in line:
+            mode = "kDraw" if "ILi1E" in line else "kProject"
+            info = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 5]
+                    if "registers" in ln or "stack frame" in ln]
+            out[mode] = "; ".join(dict.fromkeys(info))
+    return out
+
+
 def cs_kernel_checks(dev, cs, results, jitter, flush):
-    """The m <= 48 instantiation of the packed-MNIW kernel, in its three
-    modes, and the resampler at the cs paths' own shapes and statistics,
-    each held against its plain version on the same inputs and timed
-    (cold L2) beside its bound:
+    """The m <= 48 kernels, in their three modes, and the resampler at the
+    cs paths' own shapes and statistics, each held against its plain
+    version on the same inputs and timed (cold L2) beside its bound; the
+    look-ahead and the draws (the warp kernels of csrc/warp_mniw.cu) also
+    bit for bit against the per-thread kernels they replace, and timed in
+    turns with them:
 
     - the oscillator APF's: S (904, 32768), m = 41, lambda = 0.999, the
       model's prior, the statistics, states and weights after
-      ``CS_FILTER_STEPS`` filtering steps of the port's own APF;
+      ``CS_FILTER_STEPS`` filtering steps of the port's own APF; its first
+      777 columns (a ragged width); a synthetic m = 41, n = 2 set
+      (``edge_case``, N = 777);
     - the Gibbs paths': N = 200, lambda = 1, the prior, S (904, 200) at
       m = 41 and (862, 200) at m = 40 from a 200-particle APF at lambda = 1
       (the sampler's seeding sweep), and for the log-determinants the
@@ -632,10 +706,14 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
     u_res = torch.rand((1,), generator=gen, device=dev)
     core_f, draw_f, lbm_f = particle_flops(m, n)
     reason = "f32 rounding of an ill-conditioned SPD factorization"
-    fp_names = ("mean", "col", "row", "logdet_T1", "logdet_Psi")
-    du_names = ("S_new", "y", "logdet_T1", "logdet_Psi")
     print(f"  oscillator statistics after {k} filtering steps at {N} particles, "
           f"S {tuple(S.shape)}, ESS {1.0 / float((w * w).sum()):.1f}", flush=True)
+    for mode, info in warp_ptxas().items():
+        print(f"  warp_mniw_kernel<{mode}> (ptxas): {info}", flush=True)
+    for m_p, n_p, N_p in ((m, n, N), (m, n, N_CS_GIBBS), (40, 1, N_CS_GIBBS), (m, 2, 777)):
+        W, smem = ck.warp_plan(m_p, n_p, N_p)
+        print(f"  warp kernels at m={m_p} n={n_p} N={N_p}: {W} warps (particles) per block, "
+              f"{smem} B of dynamic shared memory per block", flush=True)
 
     label = f"m={m} N={N} lam={LAM}"
     fp_args = (S, phi, jitter, LAM, prior)
@@ -646,9 +724,9 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
     def fp_plain():
         return ck.factorize_project_packed_plain(*fp_args, m=m, n=n)
 
-    max_abs = check(f"factorize_project_packed<48> {label}", zip(fp_names, fp_call(), fp_plain()),
+    max_abs = check(f"{WARP_KEYS['fp']} {label}", zip(FP_NAMES, fp_call(), fp_plain()),
                     CS_TOL, reason)
-    record_kernel(results, "factorize_project_packed<48>", fp_call, fp_plain,
+    record_kernel(results, WARP_KEYS["fp"], fp_call, fp_plain,
                   packed_bytes(m, n, N)[0], N * core_f, max_abs, flush)
 
     anc, _ = check_systematic(f"systematic_ancestors_blocks {label}", w, u_res, N)
@@ -656,11 +734,11 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
     print(f"  gather: {distinct} distinct ancestors of {N}", flush=True)
     du_args = (phi, u, v, jitter, LAM, prior, p3)
     for key, call, plain, bytes_ in (
-        ("draw_update_packed_blocks<48>",
+        (WARP_KEYS["du"],
          lambda: ck.draw_update_packed_blocks(S, *du_args, m=m, n=n),
          lambda: ck.draw_update_packed_blocks_plain(S, *du_args, m=m, n=n),
          packed_bytes(m, n, N)[1]),
-        ("draw_update_gather_packed_blocks<48>",
+        (WARP_KEYS["dug"],
          lambda: ck.draw_update_gather_packed_blocks(S, anc, *du_args, m=m, n=n),
          lambda: ck.draw_update_gather_packed_blocks_plain(S, anc, *du_args, m=m, n=n),
          packed_bytes(m, n, N, distinct)[1]),
@@ -668,9 +746,19 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
         got, want = call(), plain()
         max_abs = check(f"{key} {label}", [("S_new", got[0], want[0])], 1e-4,
                         "f32 rounding of lam*S + suff")
-        max_abs = max(max_abs, check(f"{key} {label}", zip(du_names[1:], got[1:], want[1:]),
+        max_abs = max(max_abs, check(f"{key} {label}", zip(DU_NAMES[1:], got[1:], want[1:]),
                                      CS_TOL, reason))
         record_kernel(results, key, call, plain, bytes_, N * (core_f + draw_f), max_abs, flush)
+    calls = warp_calls(S, anc, phi, u, v, jitter, LAM, prior, p3, m, n)
+    warp_vs_per_thread(label, calls)
+    # the line's times of the warp kernels and the per-thread ones they
+    # replace, from the same turns
+    for key, (warp, per_thread, _) in calls.items():
+        r = results[WARP_KEYS[key]]
+        r["ms"], r["per_thread_ms"] = in_turns(warp, per_thread, flush)
+        print(f"  {WARP_KEYS[key]} {label} in turns: warp {r['ms']:.4f} ms, per-thread "
+              f"{r['per_thread_ms']:.4f} ms ({r['per_thread_ms'] / r['ms']:.2f}x; bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']})", flush=True)
     check(f"log_base_measure_packed_logdets<48> {label}", zip(
         ("logdet_T1", "logdet_Psi"),
         ck.log_base_measure_packed_logdets(S, jitter, prior, m=m, n=n),
@@ -680,6 +768,31 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
           f"{time_ms(lambda: ck.log_base_measure_packed_logdets(S, jitter, prior, m=m, n=n), flush=flush):.4f}"
           f" ms (bound {packed_bytes(m, n, N)[2] / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes)",
           flush=True)
+
+    # ragged widths: the oscillator's first 777 columns, and a synthetic
+    # m = 41, n = 2 set; spread-out sorted ancestors. Checked, not timed
+    N_r = 777
+    g_r = torch.Generator(device=dev).manual_seed(14)
+    S_e, phi_e, prior_e = edge_case(g_r, dev, m, 2, N_r)
+    for label, (S_r, phi_r, prior_r, p3_r, n_r) in (
+        (f"m={m} N={N_r} lam={LAM} (ragged)",
+         (S[:, :N_r].contiguous(), phi[:, :N_r].contiguous(), prior, p3, n)),
+        (f"m={m} n=2 N={N_r} lam={LAM} (edge_case)", (S_e, phi_e, prior_e[:3], prior_e[3], 2)),
+    ):
+        u_r = torch.rand((n_r, N_r), generator=g_r, device=dev)
+        v_r = torch.rand((n_r, N_r), generator=g_r, device=dev)
+        anc_r = torch.sort(torch.randint(0, N_r, (N_r,), generator=g_r, device=dev))[0].int()
+        calls = warp_calls(S_r, anc_r, phi_r, u_r, v_r, jitter, LAM, prior_r, p3_r, m, n_r)
+        warp_vs_per_thread(label, calls)
+        check(f"{WARP_KEYS['fp']} {label}", zip(FP_NAMES, calls["fp"][0](),
+              ck.factorize_project_packed_plain(S_r, phi_r, jitter, LAM, prior_r, m=m, n=n_r)),
+              CS_TOL, reason)
+        got = calls["dug"][0]()
+        want = ck.draw_update_gather_packed_blocks_plain(S_r, anc_r, phi_r, u_r, v_r, jitter, LAM,
+                                                         prior_r, p3_r, m=m, n=n_r)
+        check(f"{WARP_KEYS['dug']} {label}", [("S_new", got[0], want[0])], 1e-4,
+              "f32 rounding of lam*S + suff")
+        check(f"{WARP_KEYS['dug']} {label}", zip(DU_NAMES[1:], got[1:], want[1:]), CS_TOL, reason)
 
     # the Gibbs paths' shapes
     for name, left in (("osc", 10), ("toy", 3)):
@@ -705,16 +818,18 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
         label = f"{name} m={m} N={N_CS_GIBBS} lam=1"
         fp_k = ck.factorize_project_packed(S_g, phi_g, jitter, 1.0, prior, m=m, n=n)
         fp_p = ck.factorize_project_packed_plain(S_g, phi_g, jitter, 1.0, prior, m=m, n=n)
-        check(f"factorize_project_packed<48> {label}", zip(fp_names, fp_k, fp_p), CS_TOL, reason)
+        check(f"{WARP_KEYS['fp']} {label}", zip(FP_NAMES, fp_k, fp_p), CS_TOL, reason)
         anc_g, _ = check_systematic(f"systematic_ancestors_blocks {label}", res.weights[-1],
                                     u_res, N_CS_GIBBS)
         dg_args = (S_g, anc_g, phi_g, u_g, v_g, jitter, 1.0, prior, p3)
         got = ck.draw_update_gather_packed_blocks(*dg_args, m=m, n=n)
         want = ck.draw_update_gather_packed_blocks_plain(*dg_args, m=m, n=n)
-        check(f"draw_update_gather_packed_blocks<48> {label}", [("S_new", got[0], want[0])],
+        check(f"{WARP_KEYS['dug']} {label}", [("S_new", got[0], want[0])],
               1e-4, "f32 rounding of lam*S + suff")
-        check(f"draw_update_gather_packed_blocks<48> {label}",
-              zip(du_names[1:], got[1:], want[1:]), CS_TOL, reason)
+        check(f"{WARP_KEYS['dug']} {label}", zip(DU_NAMES[1:], got[1:], want[1:]), CS_TOL,
+              reason)
+        calls = warp_calls(S_g, anc_g, phi_g, u_g, v_g, jitter, 1.0, prior, p3, m, n)
+        warp_vs_per_thread(label, calls)
         lbm_args = (S_g, jitter, prior_eff)
 
         def lbm_call():
@@ -730,20 +845,23 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
                           packed_bytes(m, n, N_CS_GIBBS)[2], N_CS_GIBBS * lbm_f, max_abs, flush)
         core_g, draw_g, _ = particle_flops(m, n)
         distinct = int(torch.unique_consecutive(anc_g).numel())
-        for key, call, bytes_, flops in (
-            ("factorize_project_packed<48>",
-             lambda: ck.factorize_project_packed(S_g, phi_g, jitter, 1.0, prior, m=m, n=n),
-             packed_bytes(m, n, N_CS_GIBBS)[0], core_g),
-            ("systematic_ancestors_blocks",
-             lambda: ck.systematic_ancestors_blocks(res.weights[-1], u_res, N_CS_GIBBS),
-             4 * (2 * N_CS_GIBBS + 1), 4 + int(math.log2(N_CS_GIBBS))),
-            ("draw_update_gather_packed_blocks<48>",
-             lambda: ck.draw_update_gather_packed_blocks(*dg_args, m=m, n=n),
-             packed_bytes(m, n, N_CS_GIBBS, distinct)[1], core_g + draw_g),
-        ):
-            bound = max(bytes_ / PEAK_BYTES_PER_S, N_CS_GIBBS * flops / PEAK_F32_FLOPS) * 1e3
-            print(f"  {key} {label}: {time_ms(call, flush=flush):.4f} ms (bound {bound:.3g} ms)",
-                  flush=True)
+        bounds = {  # ms: the larger of bytes / HBM rate and flops / f32 rate
+            key: max(bytes_ / PEAK_BYTES_PER_S, N_CS_GIBBS * flops / PEAK_F32_FLOPS) * 1e3
+            for key, bytes_, flops in (
+                ("fp", packed_bytes(m, n, N_CS_GIBBS)[0], core_g),
+                ("dug", packed_bytes(m, n, N_CS_GIBBS, distinct)[1], core_g + draw_g),
+                ("systematic", 4 * (2 * N_CS_GIBBS + 1), 4 + int(math.log2(N_CS_GIBBS))))
+        }
+        for key in ("fp", "dug"):
+            ms_w, ms_pt = in_turns(*calls[key][:2], flush)
+            print(f"  {WARP_KEYS[key]} {label} in turns: warp {ms_w:.4f} ms, per-thread "
+                  f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bounds[key]:.3g} ms)", flush=True)
+            if name == "osc":  # the Gibbs width of the line's rows
+                results[WARP_KEYS[key]].update(ms_gibbs=ms_w, per_thread_ms_gibbs=ms_pt,
+                                               bound_ms_gibbs=bounds[key])
+        print(f"  systematic_ancestors_blocks {label}: "
+              f"{time_ms(lambda: ck.systematic_ancestors_blocks(res.weights[-1], u_res, N_CS_GIBBS), flush=flush):.4f}"
+              f" ms (bound {bounds['systematic']:.3g} ms)", flush=True)
 
     # partly-NaN weights: the clip keeps NaN, the mass is NaN, and the
     # ancestors are uniform (0, 1, ..., n-1) as the plain version gives
@@ -799,9 +917,9 @@ def osc_main_path(dev, model, X, Y, F, U, smi):
     counts = ck.launch_counts()
     print(f"  launches { {k: c for k, c in counts.items() if c} }", flush=True)
     expect_counts("oscillator APF main path", counts, {
-        "factorize_project_packed<48>": steps,
+        WARP_KEYS["fp"]: steps,
         "systematic_ancestors_blocks": steps,
-        "draw_update_gather_packed_blocks<48>": steps,
+        WARP_KEYS["dug"]: steps,
     })
     finite = all(bool(torch.isfinite(t).all()) for t in (
         res.state_mean, res.ess, *res.int_var_mean,
@@ -830,10 +948,11 @@ def osc_main_path(dev, model, X, Y, F, U, smi):
 def cs_gibbs_paths(dev, cs, toy_iterations, osc_iterations, smi):
     """The toy and oscillator Gibbs samplers at 200 particles as a user
     runs them (a 200-particle APF, a reference draw, ``build_gibbs``),
-    with exact launch counts per sweep (one each of the m <= 48
-    factorize/project, log-determinant and gather/draw kernels and one
-    resampling per step), the seconds per sweep, and a gate on what they
-    recover. Returns the launches over each run."""
+    with exact launch counts per sweep (one each of the warp look-ahead,
+    the m <= 48 log-determinants and the warp gather/draw, one resampling
+    per step, and no per-thread look-ahead or draw), the seconds per
+    sweep, and a gate on what they recover. Returns the launches over each
+    run."""
     totals = {}
     for name, iterations, seed in (("toy", toy_iterations, 6), ("osc", osc_iterations, 7)):
         model, X, Y, U, (iv_true,) = cs[name]
@@ -842,10 +961,10 @@ def cs_gibbs_paths(dev, cs, toy_iterations, osc_iterations, smi):
         g, ref_state, ref_iv = seed_reference(dev, model, Y, U, N_CS_GIBBS, seed)
         steps = Y.shape[0] - 1
         expected = {
-            "factorize_project_packed<48>": steps,
+            WARP_KEYS["fp"]: steps,
             "systematic_ancestors_blocks": steps,
             "log_base_measure_packed_logdets<48>": steps,
-            "draw_update_gather_packed_blocks<48>": steps,
+            WARP_KEYS["dug"]: steps,
         }
         res, totals[name], _ = counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv,
                                              N_CS_GIBBS, iterations, expected, smi)
@@ -914,7 +1033,7 @@ ILL = "f32 rounding of an ill-conditioned SPD factorization"
 OOB_CHILD = r"""
 import sys, torch
 from bipk_tpu_torch.ops import cuda_kernels as ck, mniw
-m, n, N = 20, 1, 256
+m, n, N = (41 if sys.argv[1] == "gather41" else 20), 1, 256
 dev = torch.device("cuda")
 S = torch.zeros((mniw.packed_rows(m, n), N), device=dev)
 anc = torch.arange(N, dtype=torch.int32, device=dev)
@@ -1026,8 +1145,9 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
       (three distinct) ancestors.
 
     Then an out-of-range ancestor in a child process per gathering kernel
-    (#4, factor-gather, dedup): the launch returns, and the next
-    synchronisation fails with CUDA's device-side assertion."""
+    (#4, factor-gather, dedup, and the warp gather/draw at m = 41): the
+    launch returns, and the next synchronisation fails with CUDA's
+    device-side assertion."""
     m, n = M, NN
     prior_m = model.gps[0].prior_as(torch.float32, dev)
     prior, p3 = tuple(prior_m[:3]), float(np.asarray(model.gps[0].prior.T3))
@@ -1116,7 +1236,8 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
                   f"{ck.dedup_staged_blocks(anc_e, m_e, n_e)}", flush=True)
 
     # an out-of-range ancestor, one child process per gathering kernel
-    for which in ("gather", "factor", "dedup"):
+    # ("gather41": the warp gather/draw at m = 41)
+    for which in ("gather", "factor", "dedup", "gather41"):
         out = subprocess.run([sys.executable, "-c", OOB_CHILD, which], cwd=REPO,
                              capture_output=True, text=True, timeout=600)
         trapped = (out.returncode != 0 and "launched without a host synchronisation" in out.stdout
@@ -1193,7 +1314,7 @@ def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi)
     phase 6, two sweeps with exact launches per sweep and phase 6's
     trajectory gate; 100 profiled reuse cSMC steps beside 100 default
     ones; and a few oscillator APF steps with reuse (m = 41: no factor
-    pair, only the <48> kernels). Returns the Gibbs launches."""
+    pair, only the warp kernels). Returns the Gibbs launches."""
     csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=50, seeds=10,
                        label="reuse cSMC", reuse_factor=True)
     counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=3,
@@ -1215,8 +1336,7 @@ def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi)
     print(f"  oscillator APF, 5 steps with reuse_factor=True: launches "
           f"{ {k: c for k, c in osc_counts.items() if c} }", flush=True)
     expect_counts("oscillator APF with reuse_factor", osc_counts, {
-        "factorize_project_packed<48>": 5, "systematic_ancestors_blocks": 5,
-        "draw_update_gather_packed_blocks<48>": 5})
+        WARP_KEYS["fp"]: 5, "systematic_ancestors_blocks": 5, WARP_KEYS["dug"]: 5})
     return counts, prof["default"]
 
 
@@ -2103,8 +2223,9 @@ def main() -> int:
     phase_done("rank1-gibbs", t0)
 
     # one entry per kernel: rows 1-5 are the m <= 24 instantiation and the
-    # resampler, rows 6 and 7 the m <= 48 instantiation (the TPU's cs-layout
-    # launchers: _cs_call's three kernels, _cs_du_gather_call), rows 1e, 8
+    # resampler, rows 6 and 7 the m <= 48 kernels (the TPU's cs-layout
+    # launchers: _cs_call's three kernels, _cs_du_gather_call; the look-ahead
+    # and the draws the warp kernels, the log-determinants <48>), rows 1e, 8
     # and 9 the factor pair and the dedup gather, rows 10-13 the unpacked
     # kernels' m <= 24 instantiation. launches: over the ten main paths'
     # runs, each counted from zero
@@ -2114,6 +2235,7 @@ def main() -> int:
              "gibbs_reuse": gibbs_reuse_counts, "entry_points": entry_counts,
              "gibbs_rank1": gibbs_rank1_counts}
     mniw_src, sys_src = "bipk_tpu_torch/csrc/packed_mniw.cu", "bipk_tpu_torch/csrc/systematic.cu"
+    warp_src = "bipk_tpu_torch/csrc/warp_mniw.cu"
     unpacked_src = "bipk_tpu_torch/csrc/unpacked_mniw.cu"
     pk = "bipk_tpu/ops/pallas_kernels.py"
     rows = (  # (row, name, result and count key, source, replaces)
@@ -2124,14 +2246,11 @@ def main() -> int:
          mniw_src, f"{pk}:1041"),
         (5, "log_base_measure_packed_logdets", "log_base_measure_packed_logdets<24>",
          mniw_src, f"{pk}:1941"),
-        (6, "factorize_project_packed<48>", "factorize_project_packed<48>", mniw_src,
-         f"{pk}:2454"),
+        (6, WARP_KEYS["fp"], WARP_KEYS["fp"], warp_src, f"{pk}:2454"),
         (6, "log_base_measure_packed_logdets<48>", "log_base_measure_packed_logdets<48>",
          mniw_src, f"{pk}:2454"),
-        (6, "draw_update_packed_blocks<48>", "draw_update_packed_blocks<48>", mniw_src,
-         f"{pk}:2454"),
-        (7, "draw_update_gather_packed_blocks<48>", "draw_update_gather_packed_blocks<48>",
-         mniw_src, f"{pk}:2482"),
+        (6, WARP_KEYS["du"], WARP_KEYS["du"], warp_src, f"{pk}:2454"),
+        (7, WARP_KEYS["dug"], WARP_KEYS["dug"], warp_src, f"{pk}:2482"),
         ("1e", "factorize_project_packed[emit]", "factorize_project_packed[emit]<24>",
          mniw_src, f"{pk}:526"),
         (8, "draw_update_factor_gather_packed_blocks",
@@ -2156,6 +2275,9 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
+            # the warp kernels: the per-thread kernels they replace, timed in
+            # turns with them, and both at the Gibbs paths' 200 particles
+            **{k: v for k, v in r.items() if "per_thread" in k or "gibbs" in k},
         ))
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} seconds", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

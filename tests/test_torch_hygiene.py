@@ -23,7 +23,8 @@ from bipk_tpu_torch.algorithms.gibbs import build_gibbs
 from bipk_tpu_torch.parallel.sharded import build_sharded_apf
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "bipk_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "bipk_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                              REPO / "chip_compare.py"]
 
 
 def _imported_modules(path):
@@ -92,21 +93,36 @@ def test_cs_models_run_on_the_card_unless_asked(monkeypatch):
 
 def test_launches_count_per_instantiation():
     """The packed-MNIW wrappers count each launch once in total and once
-    for the kernel instantiation that serves its m (<= 24 or <= 48), the
-    factor-emitting projection apart from the plain one."""
+    for the kernel that serves its m: ``<24>`` for m <= 24; for 24 < m <=
+    48 the warp kernels (``<48w>``) for the look-ahead and both draws,
+    ``<48>`` for the log-determinants; the factor-emitting projection
+    apart from the plain one, the per-thread comparator under ``<48>``."""
+    warp = (ck.factorize_project_packed, ck.draw_update_packed_blocks,
+            ck.draw_update_gather_packed_blocks)
+    assert ck.WARP_48 == warp
     ck.reset_launch_counts()
     try:
-        for m in (20, 24, 25, 41, 48):
-            ck._count(ck.factorize_project_packed, m)
+        for fn in (*warp, ck.log_base_measure_packed_logdets):
+            for m in (20, 24, 25, 41, 48):
+                ck._count(fn, m)
         ck._count(ck.systematic_ancestors_blocks)
         ck._count(ck.factorize_project_packed, 20, "[emit]")
+        ck._count(ck.draw_update_gather_packed_blocks, 41, per_thread=True)
         counts = ck.launch_counts()
-        assert counts["factorize_project_packed<24>"] == 2
-        assert counts["factorize_project_packed<48>"] == 3
+        for fn in warp:
+            assert counts[f"{fn.__name__}<24>"] == 2
+            assert counts[f"{fn.__name__}<48w>"] == 3
+        assert counts["factorize_project_packed<48>"] == 0
+        assert counts["draw_update_packed_blocks<48>"] == 0
+        assert counts["draw_update_gather_packed_blocks<48>"] == 1
+        assert counts["log_base_measure_packed_logdets<24>"] == 2
+        assert counts["log_base_measure_packed_logdets<48>"] == 3
+        assert "log_base_measure_packed_logdets<48w>" not in counts
         assert counts["factorize_project_packed[emit]<24>"] == 1
         assert counts["systematic_ancestors_blocks"] == 1
         assert ck.factorize_project_packed.launches == 6
-        assert sum(counts.values()) == 7
+        assert ck.draw_update_gather_packed_blocks.launches == 6
+        assert sum(counts.values()) == 23
     finally:
         ck.reset_launch_counts()
     # the CPU computes the plain version and counts no launch
@@ -162,6 +178,12 @@ class _CardTensor:
     def dim(self):
         return len(self.shape)
 
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0
+
 
 def _entry_point_call(name, m, n, dtype):
     from bipk_tpu_torch.ops import mniw
@@ -195,6 +217,104 @@ def test_unpacked_entry_points_raise_on_card_tensors_the_kernels_cannot_take(nam
         _entry_point_call(name, 49, 1, torch.float32)
     with pytest.raises(ValueError, match=f"{name}: .*n <= 2.*n=3"):
         _entry_point_call(name, 20, 3, torch.float32)
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records the C entry each launch
+    reaches and returns success."""
+
+    def __init__(self):
+        self.called = []
+
+    def __getattr__(self, name):
+        if not name.startswith("bipk_"):
+            raise AttributeError(name)
+        return lambda *args: self.called.append(name) or 0
+
+
+def _packed_wrapper_calls(m, n=1, N=8):
+    """Every packed-MNIW wrapper that takes width m, on stand-ins for CUDA
+    tensors."""
+    rows = ck.mniw.packed_rows(m, n)
+    S, phi, u = _CardTensor(rows, N), _CardTensor(m, N), _CardTensor(n, N)
+    anc = _CardTensor(N, dtype=torch.int32)
+    calls = {
+        "factorize_project_packed": lambda: ck.factorize_project_packed(S, phi, 0.0, m=m, n=n),
+        "draw_update_packed_blocks": lambda: ck.draw_update_packed_blocks(
+            S, phi, u, u, 0.0, m=m, n=n),
+        "draw_update_gather_packed_blocks": lambda: ck.draw_update_gather_packed_blocks(
+            S, anc, phi, u, u, 0.0, m=m, n=n),
+        "log_base_measure_packed_logdets": lambda: ck.log_base_measure_packed_logdets(
+            S, 0.0, m=m, n=n),
+    }
+    if m <= ck.mniw.FACTOR_MAX_M:
+        LW = _CardTensor(ck.mniw.lw_rows(m, n), N)
+        calls["factorize_project_packed[emit]"] = lambda: ck.factorize_project_packed(
+            S, phi, 0.0, m=m, n=n, emit_factor=True)
+        calls["draw_update_factor_gather_packed_blocks"] = (
+            lambda: ck.draw_update_factor_gather_packed_blocks(S, LW, anc, phi, u, u, 0.0,
+                                                               m=m, n=n))
+        calls["draw_update_dedup_gather_packed_blocks"] = (
+            lambda: ck.draw_update_dedup_gather_packed_blocks(S, anc, phi, u, u, 0.0, m=m, n=n))
+    return calls
+
+
+@pytest.mark.parametrize("m", [20, 25, 41, 48])
+def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
+    """On a CUDA tensor every packed wrapper reaches its own C entry, which
+    launches the warp kernels for 24 < m <= 48 (counted ``<48w>``); none
+    reaches the per-thread comparator's entries, and none falls back to
+    the plain version (a stand-in tensor has no data to compute on)."""
+    lib = _RecordingLib()
+    empty = torch.empty
+    monkeypatch.setattr(ck, "_lib", lambda: lib)
+    monkeypatch.setattr(ck, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype=None, device=None: empty(shape, dtype=dtype))
+    ck.reset_launch_counts()
+    try:
+        calls = _packed_wrapper_calls(m)
+        for call in calls.values():
+            call()
+        counts = ck.launch_counts()
+    finally:
+        ck.reset_launch_counts()
+    assert len(lib.called) == len(calls)
+    assert not [c for c in lib.called if "per_thread" in c]
+    width = "<24>" if m <= 24 else "<48w>"
+    for fn in ck.WARP_48:
+        assert counts[f"{fn.__name__}{width}"] == 1
+        assert counts[f"{fn.__name__}<48>"] == 0
+    assert counts["log_base_measure_packed_logdets" + ("<24>" if m <= 24 else "<48>")] == 1
+    assert sum(counts.values()) == len(calls)
+
+
+def test_per_thread_comparator_is_called_by_no_module_of_the_port():
+    """The comparator functions are referenced only by their own
+    definitions in ``ops/cuda_kernels.py`` (``chip_smoke.py`` calls them
+    from outside the package)."""
+    names = ("factorize_project_packed_per_thread", "draw_update_gather_packed_blocks_per_thread",
+             "bipk_factorize_project_packed_per_thread", "bipk_draw_update_packed_per_thread")
+    for path in sorted((REPO / "bipk_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        own = set()
+        if path.name == "cuda_kernels.py":
+            for node in tree.body:
+                if isinstance(node, ast.FunctionDef) and node.name in names:
+                    own |= {id(sub) for sub in ast.walk(node)}
+        for node in ast.walk(tree):
+            text = node.id if isinstance(node, ast.Name) else (
+                node.attr if isinstance(node, ast.Attribute) else None)
+            if text in names:
+                assert id(node) in own, (path, text, node.lineno)
+
+
+def test_per_thread_comparator_needs_a_card():
+    S = torch.zeros((ck.mniw.packed_rows(41, 1), 4))
+    phi, u = torch.zeros((41, 4)), torch.zeros((1, 4))
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        ck.factorize_project_packed_per_thread(S, phi, 0.0, m=41, n=1)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        ck.draw_update_gather_packed_blocks_per_thread(S, None, phi, u, u, 0.0, m=41, n=1)
 
 
 def test_kernels_take_decides_by_device_dtype_and_width():
