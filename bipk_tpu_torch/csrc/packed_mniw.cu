@@ -22,8 +22,9 @@
 //     _du_factor_gather_kernel (:560): the gathered draw/update reading
 //     L and white from LW[:, anc[j]] instead of factoring again
 //     (factor_gather_kernel below, m <= 24).
-// The first four are compiled twice: packed_mniw_kernel<24, MODE> serves
-// m <= 24, the widths of the TPU's tiled kernels above;
+// The first four are compiled twice (as the comparator of the look-ahead
+// and the draw, see below): packed_mniw_kernel<24, MODE> serves m <= 24,
+// the widths of the TPU's tiled kernels above;
 // packed_mniw_kernel<48, MODE> covers 24 < m <= 48 (the toy, m = 40, and
 // the single-mass oscillator, m = 41), the widths of the TPU's cs-layout
 // kernels: _cs_call (:2454) with _cs_fp_kernel (:2322), _cs_lbm_kernel
@@ -31,20 +32,23 @@
 // _cs_du_gather_kernel (:2418). It computes what they compute, not their
 // column-on-sublane blocking.
 //
-// Of those widths, the wrappers' look-ahead (_cs_fp_kernel) and draw
-// (_cs_du_kernel, _cs_du_gather_kernel) run the warp-per-particle kernels
-// of warp_mniw.cu (launch_warp_mniw below): one warp per particle, its
-// augmented factor in shared memory, the forward substitutions riding
-// along with a left-looking Cholesky. A lone warp's chain of dependent
-// shared-memory work bounds them, not HBM; at N = 200 they take ~1/15 and
-// at N = 32768 ~1/3 of the per-thread kernels' time (PERF.md). They are bit for bit equal to
-// packed_mniw_kernel<48, kProject / kDraw>: each entry is the same f32
-// operations in the same order, with the roundings nvcc gives this core
-// written out (warp_mniw.cu). That per-thread pair stays compiled as
-// their comparator, behind bipk_factorize_project_packed_per_thread and
-// bipk_draw_update_packed_per_thread below; no wrapper reaches it, and
-// chip_smoke.py holds the warp kernels against it (phase 8). The
-// log-determinants keep packed_mniw_kernel<48, kLogdets>.
+// At both widths the wrappers' look-ahead and draw (the first three above;
+// _cs_fp_kernel, _cs_du_kernel and _cs_du_gather_kernel) run the
+// warp-per-particle kernels of warp_mniw.cu (launch_warp_mniw below): two
+// particles per warp at m <= 24, one above, the augmented factor in shared
+// memory, the forward substitutions riding along with a left-looking
+// Cholesky. The instructions a particle's lanes issue bound them, not HBM;
+// at m = 20 they take ~1/2 of the per-thread kernels' time at N = 32768
+// and ~1/3 at N = 10240, at m = 41 ~1/3 at N = 32768 and ~1/15 at N = 200
+// (PERF.md). They are bit for bit equal to packed_mniw_kernel<24 | 48,
+// kProject / kDraw>: each entry is the same f32 operations in the same
+// order, with the roundings nvcc gives this core written out
+// (warp_mniw.cu). Those per-thread kernels stay compiled as their
+// comparator, behind bipk_factorize_project_packed_per_thread and
+// bipk_draw_update_packed_per_thread below; no wrapper reaches them, and
+// chip_smoke.py holds the warp kernels against them (phases 2 and 8). The
+// log-determinants keep packed_mniw_kernel<24 | 48, kLogdets>, the
+// factor-emitting look-ahead packed_mniw_kernel<24, kEmit>.
 //
 // Layout. S is (rows, N) row-major with rows
 // [T0 (m*n) | column-major tril(T1) | tril(T2) | T3] and the particle index
@@ -74,8 +78,8 @@
 // 67 TFLOP/s f32 rate) -- bytes, in principle. This first version keeps the
 // m(m+1)/2-entry factor in local memory (spilled, L1/L2-cached), so the
 // Cholesky's ~m^3/6 dependent local loads, not HBM, bound it in practice.
-// (At 24 < m <= 48 the look-ahead and the draw now keep it in shared
-// memory, a warp per particle: warp_mniw.cu.)
+// (The look-ahead and the draw now keep it in shared memory, a warp or a
+// half warp per particle: warp_mniw.cu.)
 // The log-determinant variant moves ~4 B * N * (rows + 2) (9.6 MB at
 // N = 10240, 2.9 us) and does ~m^3/3 + m^2 n flops per particle: bytes in
 // principle, the same local-memory Cholesky in practice. At m = 41
@@ -106,7 +110,7 @@
 using namespace bipk_mniw;
 
 namespace bipk_mniw {
-// the warp-per-particle look-ahead and draw, 24 < m <= 48 (warp_mniw.cu)
+// the warp-per-particle look-ahead and draw, 1 <= m <= 48 (warp_mniw.cu)
 int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream);
 }  // namespace bipk_mniw
 
@@ -217,7 +221,9 @@ bool bad_shape(const Args& a, int max_m) {
 }
 
 // launch_per_thread: packed_mniw_kernel<24, MODE> for m <= 24, else
-// <48, MODE> (the comparator of the warp kernels, and the log-determinants)
+// <48, MODE> (the log-determinants and the factor-emitting projection on
+// the wrappers' path; the look-ahead and the draw as the comparator of the
+// warp kernels)
 template <int MODE>
 int launch_per_thread(const Args& a, cudaStream_t stream) {
   // the factor pair serves m <= 24 only, as the TPU's (supported_factor)
@@ -233,13 +239,14 @@ int launch_per_thread(const Args& a, cudaStream_t stream) {
 }
 
 // what the wrappers launch: the look-ahead and the draw take the warp
-// kernels (warp_mniw.cu) for 24 < m <= 48
+// kernels (warp_mniw.cu) at every width, the other modes the per-thread ones
 template <int MODE>
 int launch(const Args& a, cudaStream_t stream) {
   if constexpr (MODE == kProject || MODE == kDraw) {
-    if (a.m > 24 && !bad_shape(a, 48)) return launch_warp_mniw(a, MODE, stream);
+    return launch_warp_mniw(a, MODE, stream);
+  } else {
+    return launch_per_thread<MODE>(a, stream);
   }
-  return launch_per_thread<MODE>(a, stream);
 }
 
 Args project_args(const float* S, const float* phi, const float* prior, int n_particles,
@@ -286,20 +293,18 @@ extern "C" int bipk_draw_update_packed(
                        static_cast<cudaStream_t>(stream));
 }
 
-// The comparator: the per-thread packed_mniw_kernel<48, kProject> and
-// <48, kDraw> (1 <= m <= 48), which the warp kernels replace on the
-// wrappers' path and must equal bit for bit. chip_smoke.py calls these
-// entries; no wrapper does.
+// The comparator: the per-thread packed_mniw_kernel<24, kProject / kDraw>
+// for m <= 24 and <48, kProject / kDraw> above, which the warp kernels
+// replace on the wrappers' path and must equal bit for bit. chip_smoke.py
+// calls these entries; no wrapper does.
 extern "C" int bipk_factorize_project_packed_per_thread(
     const float* S, const float* phi, const float* prior, int n_particles,
     int m, int n, float jitter, float lam, float* mean, float* col,
     float* row, float* ld, float* lw, void* stream) {
-  Args a = project_args(S, phi, prior, n_particles, m, n, jitter, lam, mean, col, row, ld);
-  if (bad_shape(a, 48) || lw) return (int)cudaErrorInvalidValue;  // no factor to emit
-  if (n_particles == 0) return (int)cudaGetLastError();
-  const dim3 grid((n_particles + kThreads - 1) / kThreads);
-  packed_mniw_kernel<48, kProject><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  if (lw) return (int)cudaErrorInvalidValue;  // no factor to emit
+  return launch_per_thread<kProject>(
+      project_args(S, phi, prior, n_particles, m, n, jitter, lam, mean, col, row, ld),
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bipk_draw_update_packed_per_thread(
@@ -307,13 +312,9 @@ extern "C" int bipk_draw_update_packed_per_thread(
     const float* u, const float* v, const float* prior, float p3, int m,
     int n, float jitter, float lam, float* S_new, float* y, float* ld,
     void* stream) {
-  const Args a = draw_args(S, n_in, anc, n_out, phi, u, v, prior, p3, m, n, jitter, lam,
-                           S_new, y, ld);
-  if (bad_shape(a, 48)) return (int)cudaErrorInvalidValue;
-  if (n_out == 0) return (int)cudaGetLastError();
-  const dim3 grid((n_out + kThreads - 1) / kThreads);
-  packed_mniw_kernel<48, kDraw><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return launch_per_thread<kDraw>(draw_args(S, n_in, anc, n_out, phi, u, v, prior, p3, m, n,
+                                            jitter, lam, S_new, y, ld),
+                                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bipk_draw_update_factor_gather_packed(

@@ -31,17 +31,19 @@ raises — there is no fallback on the card. Callers that want the plain
 versions on the card (to hold the kernels against them) call the
 ``*_plain`` functions themselves. Each wrapper counts its kernel launches
 in its ``launches`` attribute; the packed-MNIW ones (``PACKED_MNIW``) also
-count them per kernel instantiation (``launches_by_kernel``: m <= 24
-runs ``packed_mniw_kernel<24, MODE>``, the counterpart of the TPU's tiled
-kernels; for 24 < m <= 48, the counterpart of its cs-layout ``_cs_call``
-/ ``_cs_du_gather_call``, the look-ahead and the draw run the
-warp-per-particle ``warp_mniw_kernel`` (``csrc/warp_mniw.cu``), counted
-as ``"<48w>"``, and the log-determinants ``<48, kLogdets>``, ``"<48>"``;
-the factor-emitting projection, ``<24, kEmit>``, counts apart from the
-plain one). The per-thread ``<48>`` look-ahead and draw stay compiled as
-the warp kernels' comparator (``*_per_thread`` below, counted as
-``"<48>"``), which no wrapper calls. The factor pair and the dedup gather
-take m <= 24 only. The four unpacked wrappers
+count them per kernel instantiation (``launches_by_kernel``, keyed by
+the width that serves m: ``<24>`` for m <= 24, the counterpart of the
+TPU's tiled kernels, ``<48>`` for 24 < m <= 48, the counterpart of its
+cs-layout ``_cs_call`` / ``_cs_du_gather_call``). The look-ahead and the
+draw run the warp-per-particle ``warp_mniw_kernel`` (``csrc/warp_mniw.cu``)
+at both widths, counted as ``"<24w>"`` and ``"<48w>"``; the
+log-determinants run the per-thread ``packed_mniw_kernel<24 | 48,
+kLogdets>``, ``"<24>"`` / ``"<48>"``, and the factor-emitting projection
+``<24, kEmit>``, ``"[emit]<24>"``. The per-thread ``<24>`` and ``<48>``
+look-ahead and draw stay compiled as the warp kernels' comparator
+(``*_per_thread`` below, counted as ``"<24>"`` / ``"<48>"``), which no
+wrapper calls. The factor pair and the dedup gather take m <= 24 only.
+The four unpacked wrappers
 (``UNPACKED``) take structured or flat ``T0, T1, T2`` leaves, or a given
 factor, and count their launches per instantiation too; they serve
 m <= 48 where the JAX package's ``factorize_blocks`` and ``project_blocks``
@@ -84,7 +86,7 @@ _SIGNATURES = {
     "bipk_draw_update_packed_per_thread": [
         _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
     ],
-    "bipk_warp_mniw_plan": [_I, _I, _I, _P, _P],
+    "bipk_warp_mniw_plan": [_I, _I, _I, _P, _P, _P],
     "bipk_factorize_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "bipk_factorize_project_blocks": [
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
@@ -141,14 +143,14 @@ def _require(name: str, device, dtype, **tensors) -> None:
 
 def _count(fn, m: int | None = None, mode: str = "", per_thread: bool = False) -> None:
     """One launch of ``fn``'s kernel; with ``m``, also of the kernel
-    instantiation that serves it, keyed like ``"<24>"``, ``"<48w>"`` (the
-    warp kernels of ``WARP_48``) or, with ``mode`` ``"[emit]"``,
-    ``"[emit]<24>"``; ``per_thread``: the per-thread comparator,
-    ``"<48>"``."""
+    instantiation that serves it, keyed like ``"<24>"``, ``"<24w>"`` /
+    ``"<48w>"`` (the warp kernels of the ``WARP`` wrappers) or, with
+    ``mode`` ``"[emit]"``, ``"[emit]<24>"``; ``per_thread``: the
+    per-thread comparator, ``"<24>"`` / ``"<48>"``."""
     fn.launches += 1
     if m is not None:
         width = next(w for w in WIDTHS if m <= w)
-        warp = "w" if width == 48 and fn in WARP_48 and not per_thread else ""
+        warp = "w" if fn in WARP and not (mode or per_thread) else ""
         fn.launches_by_kernel[f"{mode}<{width}{warp}>"] += 1
 
 
@@ -505,10 +507,11 @@ def log_base_measure_packed_logdets(
 
 
 # ---------------------------------------------------------------------------
-# The per-thread comparator of the warp kernels (24 < m <= 48): the
-# packed_mniw_kernel<48, kProject / kDraw> that the wrappers launched
-# before the warp kernels replaced them, kept to hold the warp kernels
-# against bit for bit and to time beside them. No wrapper calls these.
+# The per-thread comparator of the warp kernels: the packed_mniw_kernel<24,
+# kProject / kDraw> (m <= 24) and <48, kProject / kDraw> (24 < m <= 48)
+# that the wrappers launched before the warp kernels replaced them, kept to
+# hold the warp kernels against bit for bit and to time beside them. No
+# wrapper calls these.
 # ---------------------------------------------------------------------------
 
 
@@ -522,8 +525,8 @@ def factorize_project_packed_per_thread(
     prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
 ):
     """:func:`factorize_project_packed` through the per-thread
-    ``packed_mniw_kernel<48, kProject>``: the same outputs, which the warp
-    kernel must equal bit for bit."""
+    ``packed_mniw_kernel<24, kProject>`` (m <= 24) or ``<48, kProject>``:
+    the same outputs, which the warp kernel must equal bit for bit."""
     name = "factorize_project_packed_per_thread"
     _check_mn(name, S, m, n)
     _per_thread_device(name, S)
@@ -542,7 +545,7 @@ def draw_update_gather_packed_blocks_per_thread(
 ):
     """:func:`draw_update_gather_packed_blocks` (``ancestors`` None:
     :func:`draw_update_packed_blocks`) through the per-thread
-    ``packed_mniw_kernel<48, kDraw>``."""
+    ``packed_mniw_kernel<24, kDraw>`` (m <= 24) or ``<48, kDraw>``."""
     name = "draw_update_gather_packed_blocks_per_thread"
     _check_mn(name, S, m, n)
     _per_thread_device(name, S)
@@ -554,14 +557,15 @@ def draw_update_gather_packed_blocks_per_thread(
     return out
 
 
-def warp_plan(m: int, n: int, N: int) -> tuple[int, int]:
-    """``(warps per block, dynamic shared memory in bytes)`` of the warp
-    kernels' launch at ``(m, n)`` and N particles on the current card, as
-    ``csrc/warp_mniw.cu`` chooses them. For reports."""
-    warps, smem = ctypes.c_int(), ctypes.c_int()
-    _check(_lib().bipk_warp_mniw_plan(m, n, N, ctypes.byref(warps), ctypes.byref(smem)),
-           "warp_plan")
-    return warps.value, smem.value
+def warp_plan(m: int, n: int, N: int) -> tuple[int, int, int]:
+    """``(warps per block, particles per block, dynamic shared memory in
+    bytes)`` of the warp kernels' launch at ``(m, n)`` and N particles on
+    the current card, as ``csrc/warp_mniw.cu`` chooses them (two particles
+    per warp at m <= 24, one above). For reports."""
+    warps, particles, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _check(_lib().bipk_warp_mniw_plan(m, n, N, ctypes.byref(warps), ctypes.byref(particles),
+                                      ctypes.byref(smem)), "warp_plan")
+    return warps.value, particles.value, smem.value
 
 
 # ---------------------------------------------------------------------------
@@ -775,14 +779,15 @@ PLAIN = {
 }
 
 
-# the wrappers whose 24 < m <= 48 launches run the warp kernels
-WARP_48 = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks)
-# the packed-MNIW wrappers and the instantiations each launches ("<48>"
-# of the WARP_48 wrappers: the per-thread comparator only)
+# the wrappers whose launches run the warp kernels (all but the
+# factor-emitting projection)
+WARP = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks)
+# the packed-MNIW wrappers and the instantiations each launches ("<24>" and
+# "<48>" of the WARP wrappers: the per-thread comparator only)
 PACKED_MNIW = {
-    factorize_project_packed: ("<24>", "<48w>", "<48>", "[emit]<24>"),
-    draw_update_packed_blocks: ("<24>", "<48w>", "<48>"),
-    draw_update_gather_packed_blocks: ("<24>", "<48w>", "<48>"),
+    factorize_project_packed: ("<24w>", "<48w>", "<24>", "<48>", "[emit]<24>"),
+    draw_update_packed_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
+    draw_update_gather_packed_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
     log_base_measure_packed_logdets: ("<24>", "<48>"),
     draw_update_factor_gather_packed_blocks: ("<24>",),
     draw_update_dedup_gather_packed_blocks: ("<24>",),
@@ -803,8 +808,8 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """Launches since the last :func:`reset_launch_counts`: per kernel
     instantiation for the packed-MNIW and unpacked wrappers, keyed
-    ``"<wrapper><24>"``, ``"<wrapper><48w>"`` (the warp kernels),
-    ``"<wrapper><48>"`` and, for the factor-emitting projection,
+    ``"<wrapper><24>"``, ``"<wrapper><24w>"`` / ``"<wrapper><48w>"`` (the
+    warp kernels), ``"<wrapper><48>"`` and, for the factor-emitting projection,
     ``"factorize_project_packed[emit]<24>"``; per wrapper for the
     resampler."""
     out = {}

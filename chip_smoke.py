@@ -11,7 +11,15 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
    (packed statistics ``S (232, 32768)`` for the APF, ``(232, 10240)`` and
    ``(232, 256)`` at lambda = 1 for the Gibbs sampler, m = 20, n = 1, f32)
    and at edge shapes, held against its plain PyTorch version on the same
-   inputs, and timed;
+   inputs, and timed. The look-ahead and the draws (the warp kernels,
+   ``csrc/warp_mniw.cu``, at m = 20) are also held bit for bit against the
+   per-thread ``<24>`` kernels they replace, on the vehicle APF's
+   statistics of both GPs after 100 filtering steps (degenerate
+   ancestors), the Gibbs shapes (10240 and 256 columns at lambda = 1, the
+   prior with and without a late reference future), a ragged N = 777 and
+   synthetic m = 9, 6 and n = 2 sets, with and without ancestors, and
+   timed in turns with them (per-thread, warp, warp, per-thread) at 32768
+   and 10240, beside their registers, stack and launch plan;
 3. path-vs-plain: the vehicle online APF, 32768 particles x 50 steps,
    through the kernels and through their plain versions with the same
    draws, over 10 seeds; the paired weighted means must agree;
@@ -92,13 +100,16 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     (a warm-up and two sweeps) with exact launches per sweep (4 x 1499 of
     the projection, 1499 resamplings, nothing else), no non-finite
     ancestor weight and phase 6's trajectory gate; 100 rank-1 cSMC steps
-    under the sync check and profiled beside 100 direct ones.
+    under the sync check and profiled beside 100 direct ones;
+21. APF profile: phase 7 for 50 steps of the vehicle online APF at 32768
+    particles (its step's device time, launches and idle share).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the ten
 main paths, error against the plain version, times and bound; for the
 warp kernels also the per-thread kernels' times from the same turns, and
-both at the Gibbs paths' 200 particles);
+both at the Gibbs paths' widths, 10240 particles at m = 20 and 200 at
+m = 40, 41);
 the last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the script exits non-zero and prints neither. Needs one CUDA
 card.
@@ -462,12 +473,11 @@ def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, 
     steps = Y.shape[0] - 1
     reuse = options.get("reuse_factor", False)
     expected = {
-        "factorize_project_packed[emit]<24>" if reuse else "factorize_project_packed<24>":
-            2 * steps,
+        "factorize_project_packed[emit]<24>" if reuse else WARP24_KEYS["fp"]: 2 * steps,
         "systematic_ancestors_blocks": steps,
         "log_base_measure_packed_logdets<24>": 2 * steps,
-        "draw_update_factor_gather_packed_blocks<24>" if reuse
-        else "draw_update_gather_packed_blocks<24>": 2 * steps,
+        "draw_update_factor_gather_packed_blocks<24>" if reuse else WARP24_KEYS["dug"]:
+            2 * steps,
     }
     if rank1:  # two projections per GP and step (look-ahead mean, draw)
         expected = {"project_blocks<24>": 4 * steps, "systematic_ancestors_blocks": steps}
@@ -496,15 +506,8 @@ def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps,
                        **options):
     """Where a cSMC step's time goes at the Gibbs width (``options`` the
     keywords of ``build_csmc``). After a warm-up sweep, the same ``steps``
-    steps (``CSMC.run`` from one pinned carry) run three times: with
-    CUDA's sync debug mode set to "error" (a step that waits for the
-    device, a read-back or a blocking copy, fails the phase), on the
-    host's clock, and under ``torch.profiler``. Prints the device time and
-    kernel launches per step, the largest kernels, and the device's idle
-    share: one minus the profiled device time over the unprofiled wall
-    time of the same steps."""
-    from torch.profiler import ProfilerActivity, profile
-
+    steps (``CSMC.run`` from one pinned carry) run three times
+    (:func:`profile_steps`)."""
     T = steps + 1
     ref = (ref_state[:T], tuple(iv[:T] for iv in ref_ivs))
     summed = summed_reference_stats(model.gps, *ref, U[:T], torch.float32)
@@ -521,13 +524,49 @@ def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps,
         csmc.run(carry, Y[:T], U[:T], *ref, ref_T, (csmc.draws(g) for _ in range(steps)))
         torch.cuda.synchronize()
 
+    return profile_steps(run_steps, steps, "cSMC", n_particles)
+
+
+def profile_apf_steps(dev, model, Y, U, n_particles, steps, **options):
+    """Where an online APF step's time goes (``options`` the keywords of
+    ``build_sharded_apf``): after a warm-up run, the same ``steps`` steps
+    (``ShardedAPF.step`` from one pinned carry, the weighted moments
+    included, as the sweep runs them) run three times
+    (:func:`profile_steps`)."""
+    apf = build_sharded_apf(model.ssm, model.gps, n_particles, forgetting_factor=LAM,
+                            dtype=torch.float32, device=dev, **options)
+    g = torch.Generator(device=dev).manual_seed(8)
+    apf(g, Y[:steps + 1], U[:steps + 1], model.x0, model.p0)
+    obs = Y.reshape(Y.shape[0], -1)
+    carry0 = apf.init(g, U[0], model.x0, model.p0)
+
+    def run_steps():
+        carry = carry0
+        for t in range(steps):
+            carry, _ = apf.step(carry, obs[t + 1], U[t], U[t + 1], apf.draws(g))
+        torch.cuda.synchronize()
+
+    return profile_steps(run_steps, steps, "APF", n_particles)
+
+
+def profile_steps(run_steps, steps, kind, n_particles):
+    """``run_steps()`` (``steps`` steps of a ``kind`` sweep, ending in a
+    synchronisation) three times: with CUDA's sync debug mode set to
+    "error" (a step that waits for the device, a read-back or a blocking
+    copy, fails the phase), on the host's clock, and under
+    ``torch.profiler``. Prints the device time and kernel launches per
+    step, the largest kernels, and the device's idle share: one minus the
+    profiled device time over the unprofiled wall time of the same steps.
+    Returns them (None where the profiler recorded no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         run_steps()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    print(f"  {steps} cSMC steps ran with CUDA sync debug mode \"error\": no host "
+    print(f"  {steps} {kind} steps ran with CUDA sync debug mode \"error\": no host "
           f"synchronisation inside a step", flush=True)
     tw = time.perf_counter()
     run_steps()
@@ -544,7 +583,7 @@ def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps,
     launches = sum(e.count for e in on_device) / steps
     ours = sum(e.self_device_time_total for e in on_device
                if any(k in e.key for k in OUR_KERNELS)) / steps
-    print(f"  cSMC step at {n_particles} particles ({steps} steps profiled): device busy "
+    print(f"  {kind} step at {n_particles} particles ({steps} steps profiled): device busy "
           f"{busy_us:.1f} us per step over {launches:.1f} device launches, of which the "
           f"hand-written kernels {ours:.1f} us; the same steps unprofiled {step_us:.1f} us "
           f"per step, device idle share {1.0 - busy_us / step_us:.3f}", flush=True)
@@ -603,10 +642,12 @@ def late_future(gps, X, ivs, U, left):
     return fut, contrib.T1[T_all - left:].double().sum(0)
 
 
-# the warp-per-particle kernels that serve 24 < m <= 48 (csrc/warp_mniw.cu),
-# by mode: the look-ahead, the draw without and with ancestors
+# the warp-per-particle kernels (csrc/warp_mniw.cu) as they count for
+# 24 < m <= 48 and for m <= 24, by mode: the look-ahead, the draw without
+# and with ancestors
 WARP_KEYS = {"fp": "factorize_project_packed<48w>", "du": "draw_update_packed_blocks<48w>",
              "dug": "draw_update_gather_packed_blocks<48w>"}
+WARP24_KEYS = {k: v.replace("<48w>", "<24w>") for k, v in WARP_KEYS.items()}
 
 
 def warp_calls(S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
@@ -626,19 +667,20 @@ def warp_calls(S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
     }
 
 
-def warp_vs_per_thread(label, calls):
+def warp_vs_per_thread(label, calls, keys=WARP_KEYS):
     """Each warp kernel against the per-thread comparator on the same
     inputs: the same f32 operations in the same order (csrc/warp_mniw.cu),
-    so every output must be equal bit for bit."""
+    so every output must be equal bit for bit. ``keys`` name the kernels
+    (``WARP24_KEYS`` at m <= 24)."""
     for key, (warp, per_thread, names) in calls.items():
         got, want = warp(), per_thread()
         equal = [k for k, g, w in zip(names, got, want) if bitwise(g, w)]
         rels = {k: rel_err(g, w)[0] for k, g, w in zip(names, got, want)}
-        print(f"  {WARP_KEYS[key]} {label} against the per-thread kernel: bitwise equal "
+        print(f"  {keys[key]} {label} against the per-thread kernel: bitwise equal "
               f"{'all' if len(equal) == len(names) else equal or 'none'} (max rel "
               f"{max(rels.values()):.3e})", flush=True)
         require(len(equal) == len(names),
-                f"{WARP_KEYS[key]} {label}: not bitwise equal to the per-thread kernel: {rels}")
+                f"{keys[key]} {label}: not bitwise equal to the per-thread kernel: {rels}")
 
 
 def in_turns(warp, per_thread, flush):
@@ -650,17 +692,132 @@ def in_turns(warp, per_thread, flush):
 
 def warp_ptxas():
     """The warp kernels' registers, stack and spills as ``-Xptxas -v``
-    reported them when the library was built, by mode."""
+    reported them when the library was built, by mode and lanes per
+    particle (16: m <= 24, two particles per warp; 32: 24 < m <= 48)."""
     report = _build.library_path().with_suffix(".ptxas.txt")
     lines = report.read_text().splitlines() if report.exists() else []
     out = {}
     for i, line in enumerate(lines):
         if "Compiling entry" in line and "warp_mniw_kernel" in line:
             mode = "kDraw" if "ILi1E" in line else "kProject"
+            lanes = 16 if "Li16E" in line else 32
             info = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 5]
                     if "registers" in ln or "stack frame" in ln]
-            out[mode] = "; ".join(dict.fromkeys(info))
+            out[f"{mode}, {lanes}"] = "; ".join(dict.fromkeys(info))
     return out
+
+
+def print_warp_plan(m, n, N):
+    W, P, smem = ck.warp_plan(m, n, N)
+    print(f"  warp kernels at m={m} n={n} N={N}: {W} warps, {P} particles per block, "
+          f"{smem} B of dynamic shared memory per block", flush=True)
+
+
+VEHICLE_FILTER_STEPS = 100  # vehicle filtering steps before phase 2's warp sets
+
+
+def vehicle_warp_checks(dev, model, Y, U, fut, jitter, timed, results, flush):
+    """Phase 2's gate of the warp kernels at the vehicle's m = 20: the
+    look-ahead, the draw and the gathered draw (``csrc/warp_mniw.cu``, the
+    wrappers' kernels at every m) against the per-thread
+    ``packed_mniw_kernel<24, kProject / kDraw>`` they replace, bit for bit,
+    each set with and without ancestors, on
+
+    - the vehicle APF's statistics of both GPs after
+      ``VEHICLE_FILTER_STEPS`` filtering steps (the port's own APF,
+      32768 particles, lambda = 0.999, each GP's prior), with the
+      resampler's ancestors on the filter's degenerate weights;
+    - the Gibbs shapes: their first 10240 and 256 columns at lambda = 1,
+      with the prior and with the prior plus a late reference future
+      (``fut``, the first GP's);
+    - a ragged N = 777 (the first 777 columns, spread-out ancestors);
+    - synthetic m = 9, n = 1, m = 6, n = 2 and m = 20, n = 2 sets
+      (``edge_case``), spread-out and degenerate ancestors;
+    - ``timed``: phase 2's own inputs at 32768 and its first 10240
+      columns, on which the warp kernels are then timed in turns with the
+      per-thread ones (per-thread, warp, warp, per-thread; cold L2). The
+      times at 32768 replace the rows' ``ms`` (the kernels line), with
+      ``per_thread_ms``; those at 10240 go in as ``ms_gibbs``,
+      ``per_thread_ms_gibbs`` and ``bound_ms_gibbs``.
+
+    Also prints the warp kernels' ptxas report and their launch plans."""
+    m, n = M, NN
+    for mode, info in warp_ptxas().items():
+        print(f"  warp_mniw_kernel<{mode}> (ptxas): {info}", flush=True)
+    for m_p, n_p, N_p in ((m, n, N), (m, n, N_GIBBS), (m, n, 256), (m, n, 777), (m, 2, 777),
+                          (9, 1, 1000), (6, 2, 777)):
+        print_warp_plan(m_p, n_p, N_p)
+
+    k = VEHICLE_FILTER_STEPS
+    res = build_apf(model.ssm, model.gps, N, LAM, dtype=torch.float32, device=dev)(
+        torch.Generator(device=dev).manual_seed(51), Y[:k + 1], U[:k + 1], model.x0, model.p0)
+    gen = torch.Generator(device=dev).manual_seed(52)
+    u = torch.rand((n, N), generator=gen, device=dev)
+    v = torch.rand((n, N), generator=gen, device=dev)
+    u_res = torch.rand((1,), generator=gen, device=dev)
+    w = res.weights[-1]
+    anc = ck.systematic_ancestors_blocks(w, u_res, N)
+    print(f"  vehicle APF after {k} filtering steps at {N} particles: ESS "
+          f"{1.0 / float((w * w).sum()):.2f}, {int(torch.unique_consecutive(anc).numel())} "
+          f"distinct ancestors", flush=True)
+    for i, gp in enumerate(model.gps):
+        S_i = mniw.pack_stats_bl(mniw.MNIW(*(leaf.movedim(0, -1)
+                                             for leaf in res.final_stats[i]))).contiguous()
+        phi_i = gp.basis_fn_bl(res.states[-1].T.contiguous(), U[k]).contiguous()
+        prior = tuple(gp.prior_as(torch.float32, dev)[:3])
+        p3 = float(np.asarray(gp.prior.T3))
+        warp_vs_per_thread(f"GP {i} m={m} N={N} lam={LAM}", warp_calls(
+            S_i, anc, phi_i, u, v, jitter, LAM, prior, p3, m, n), WARP24_KEYS)
+        if i:
+            continue
+        sets = []
+        for width in (N_GIBBS, 256):
+            anc_w = ck.systematic_ancestors_blocks(w[:width].contiguous(), u_res, width)
+            for which, prior_w in (("prior", prior),
+                                   ("prior + future", tuple(p + f for p, f in zip(prior, fut[:3])))):
+                sets.append((f"GP 0 N={width} lam=1, {which}", width, anc_w, 1.0, prior_w))
+        spread = torch.sort(torch.randint(0, 777, (777,), generator=gen, device=dev))[0].int()
+        sets.append((f"GP 0 N=777 lam={LAM} (ragged)", 777, spread, LAM, prior))
+        for label, width, anc_w, lam, prior_w in sets:
+            cols = [t[:, :width].contiguous() for t in (S_i, phi_i, u, v)]
+            warp_vs_per_thread(label, warp_calls(cols[0], anc_w, *cols[1:], jitter, lam, prior_w,
+                                                 p3, m, n), WARP24_KEYS)
+    for m_e, n_e, N_e in ((9, 1, 1000), (6, 2, 777), (m, 2, 777)):
+        S_e, phi_e, prior_e = edge_case(gen, dev, m_e, n_e, N_e)
+        u_e = torch.rand((n_e, N_e), generator=gen, device=dev)
+        v_e = torch.rand((n_e, N_e), generator=gen, device=dev)
+        spread = torch.sort(torch.randint(0, N_e, (N_e,), generator=gen, device=dev))[0]
+        few = torch.randint(0, N_e, (3,), generator=gen, device=dev)
+        degen = torch.sort(few[torch.randint(0, 3, (N_e,), generator=gen, device=dev)])[0]
+        for kind, anc_e in (("spread", spread.int()), ("degenerate", degen.int())):
+            warp_vs_per_thread(f"m={m_e} n={n_e} N={N_e} lam={LAM} (edge_case, {kind} ancestors)",
+                               warp_calls(S_e, anc_e, phi_e, u_e, v_e, jitter, LAM, prior_e[:3],
+                                          prior_e[3], m_e, n_e), WARP24_KEYS)
+
+    names = {"fp": "factorize_project_packed", "du": "draw_update_packed_blocks",
+             "dug": "draw_update_gather_packed_blocks"}
+    for width, (S_t, anc_t, phi_t, u_t, v_t, lam, prior, p3) in timed.items():
+        label = f"m={m} N={width} lam={lam} (phase 2's inputs)"
+        calls = warp_calls(S_t, anc_t, phi_t, u_t, v_t, jitter, lam, prior, p3, m, n)
+        warp_vs_per_thread(label, calls, WARP24_KEYS)
+        distinct = int(torch.unique_consecutive(anc_t).numel())
+        core_f, draw_f, _ = particle_flops(m, n)
+        bounds = {  # ms: the larger of bytes / HBM rate and flops / f32 rate
+            key: max(bytes_ / PEAK_BYTES_PER_S, width * flops / PEAK_F32_FLOPS) * 1e3
+            for key, bytes_, flops in (
+                ("fp", packed_bytes(m, n, width)[0], core_f),
+                ("du", packed_bytes(m, n, width)[1], core_f + draw_f),
+                ("dug", packed_bytes(m, n, width, distinct)[1], core_f + draw_f))
+        }
+        for key, (warp, per_thread, _) in calls.items():
+            ms_w, ms_pt = in_turns(warp, per_thread, flush)
+            print(f"  {WARP24_KEYS[key]} {label} in turns: warp {ms_w:.4f} ms, per-thread "
+                  f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bounds[key]:.5f} ms)", flush=True)
+            r = results[names[key]]
+            if width == N:
+                r.update(ms=ms_w, per_thread_ms=ms_pt)
+            else:
+                r.update(ms_gibbs=ms_w, per_thread_ms_gibbs=ms_pt, bound_ms_gibbs=bounds[key])
 
 
 def cs_kernel_checks(dev, cs, results, jitter, flush):
@@ -711,9 +868,7 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
     for mode, info in warp_ptxas().items():
         print(f"  warp_mniw_kernel<{mode}> (ptxas): {info}", flush=True)
     for m_p, n_p, N_p in ((m, n, N), (m, n, N_CS_GIBBS), (40, 1, N_CS_GIBBS), (m, 2, 777)):
-        W, smem = ck.warp_plan(m_p, n_p, N_p)
-        print(f"  warp kernels at m={m_p} n={n_p} N={N_p}: {W} warps (particles) per block, "
-              f"{smem} B of dynamic shared memory per block", flush=True)
+        print_warp_plan(m_p, n_p, N_p)
 
     label = f"m={m} N={N} lam={LAM}"
     fp_args = (S, phi, jitter, LAM, prior)
@@ -1145,7 +1300,8 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
       (three distinct) ancestors.
 
     Then an out-of-range ancestor in a child process per gathering kernel
-    (#4, factor-gather, dedup, and the warp gather/draw at m = 41): the
+    (#4, which is the warp gather/draw at m = 20, factor-gather, dedup, and
+    the warp gather/draw at m = 41): the
     launch returns, and the next synchronisation fails with CUDA's
     device-side assertion."""
     m, n = M, NN
@@ -1236,7 +1392,7 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
                   f"{ck.dedup_staged_blocks(anc_e, m_e, n_e)}", flush=True)
 
     # an out-of-range ancestor, one child process per gathering kernel
-    # ("gather41": the warp gather/draw at m = 41)
+    # ("gather": the warp gather/draw at m = 20, "gather41" at m = 41)
     for which in ("gather", "factor", "dedup", "gather41"):
         out = subprocess.run([sys.executable, "-c", OOB_CHILD, which], cwd=REPO,
                              capture_output=True, text=True, timeout=600)
@@ -1260,13 +1416,12 @@ def apf_configs_main_path(dev, model, X, Y, U, smi):
     last run."""
     steps = Y.shape[0] - 1
     configs = {
-        "default": ({}, {"factorize_project_packed<24>": 2 * steps,
-                         "draw_update_gather_packed_blocks<24>": 2 * steps}),
+        "default": ({}, {WARP24_KEYS["fp"]: 2 * steps, WARP24_KEYS["dug"]: 2 * steps}),
         "reuse": (dict(reuse_factor=True),
                   {"factorize_project_packed[emit]<24>": 2 * steps,
                    "draw_update_factor_gather_packed_blocks<24>": 2 * steps}),
         "dedup": (dict(dedup_gather=True),
-                  {"factorize_project_packed<24>": 2 * steps,
+                  {WARP24_KEYS["fp"]: 2 * steps,
                    "draw_update_dedup_gather_packed_blocks<24>": 2 * steps}),
     }
     apfs = {}
@@ -1992,6 +2147,7 @@ def main() -> int:
     # (the cSMC's look-ahead and draw; the reference future enters only
     # #5), at the sweep's width and at the seeding APF's 256 particles.
     # Held against the plain versions as above, and timed (not in the line)
+    anc_widths = {}
     for width in (N_GIBBS, 256):
         S_w, phi_w = S[:, :width].contiguous(), phi[:, :width].contiguous()
         u_w, v_w = u[:, :width].contiguous(), v[:, :width].contiguous()
@@ -2002,6 +2158,7 @@ def main() -> int:
             ck.factorize_project_packed_plain(S_w, phi_w, jitter, 1.0, prior, m=M, n=NN),
         ), 1e-3, "f32 rounding of an ill-conditioned SPD factorization")
         anc_w, _ = check_systematic(f"systematic_ancestors_blocks N={width}", w_w, u_res, width)
+        anc_widths[width] = anc_w
         dg_k = ck.draw_update_gather_packed_blocks(S_w, anc_w, phi_w, u_w, v_w, jitter, 1.0,
                                                    prior, p3, m=M, n=NN)
         dg_p = ck.draw_update_gather_packed_blocks_plain(S_w, anc_w, phi_w, u_w, v_w, jitter,
@@ -2028,6 +2185,14 @@ def main() -> int:
         ):
             print(f"  {name} N={width}: {time_ms(call, flush=flush):.4f} ms (bound "
                   f"{bounds[name]:.5f} ms)", flush=True)
+    # the warp kernels at m = 20 against the per-thread <24> ones they
+    # replace, bit for bit, and in turns with them at 32768 and 10240
+    G = N_GIBBS
+    vehicle_warp_checks(dev, model, Y, U, fut, jitter, {
+        N: (S, anc, phi, u, v, LAM, prior, p3),
+        G: (S[:, :G].contiguous(), anc_widths[G], phi[:, :G].contiguous(),
+            u[:, :G].contiguous(), v[:, :G].contiguous(), 1.0, prior, p3),
+    }, results, flush)
     del S64, flush
 
     # the same kernels at the widths of later slices and at ragged sizes:
@@ -2094,9 +2259,9 @@ def main() -> int:
     apf_counts = counts = ck.launch_counts()
     print(f"  launches { {k: c for k, c in counts.items() if c} }", flush=True)
     expect_counts("vehicle APF main path", counts, {
-        "factorize_project_packed<24>": 2 * steps,
+        WARP24_KEYS["fp"]: 2 * steps,
         "systematic_ancestors_blocks": steps,
-        "draw_update_gather_packed_blocks<24>": 2 * steps,
+        WARP24_KEYS["dug"]: 2 * steps,
     })
     finite = all(
         bool(torch.isfinite(t).all())
@@ -2222,8 +2387,15 @@ def main() -> int:
     gibbs_rank1_counts = rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi)
     phase_done("rank1-gibbs", t0)
 
-    # one entry per kernel: rows 1-5 are the m <= 24 instantiation and the
-    # resampler, rows 6 and 7 the m <= 48 kernels (the TPU's cs-layout
+    # --------------------------------------------------------------- 21
+    # after every earlier phase, so that phases 1-20 run as the parent's do
+    t0 = time.perf_counter()
+    profile_apf_steps(dev, model, Y, U, N, steps=50)
+    phase_done("apf-profile", t0)
+
+    # one entry per kernel: rows 1, 3 and 4 are the warp kernels at m <= 24
+    # (the per-thread <24> kernels they replace timed beside them), 2 the
+    # resampler, 5 the <24> log-determinants, rows 6 and 7 the m <= 48 kernels (the TPU's cs-layout
     # launchers: _cs_call's three kernels, _cs_du_gather_call; the look-ahead
     # and the draws the warp kernels, the log-determinants <48>), rows 1e, 8
     # and 9 the factor pair and the dedup gather, rows 10-13 the unpacked
@@ -2239,11 +2411,10 @@ def main() -> int:
     unpacked_src = "bipk_tpu_torch/csrc/unpacked_mniw.cu"
     pk = "bipk_tpu/ops/pallas_kernels.py"
     rows = (  # (row, name, result and count key, source, replaces)
-        (1, "factorize_project_packed", "factorize_project_packed<24>", mniw_src, f"{pk}:1740"),
+        (1, "factorize_project_packed", WARP24_KEYS["fp"], warp_src, f"{pk}:1740"),
         (2, "systematic_ancestors_blocks", "systematic_ancestors_blocks", sys_src, f"{pk}:2761"),
-        (3, "draw_update_packed_blocks", "draw_update_packed_blocks<24>", mniw_src, f"{pk}:1848"),
-        (4, "draw_update_gather_packed_blocks", "draw_update_gather_packed_blocks<24>",
-         mniw_src, f"{pk}:1041"),
+        (3, "draw_update_packed_blocks", WARP24_KEYS["du"], warp_src, f"{pk}:1848"),
+        (4, "draw_update_gather_packed_blocks", WARP24_KEYS["dug"], warp_src, f"{pk}:1041"),
         (5, "log_base_measure_packed_logdets", "log_base_measure_packed_logdets<24>",
          mniw_src, f"{pk}:1941"),
         (6, WARP_KEYS["fp"], WARP_KEYS["fp"], warp_src, f"{pk}:2454"),

@@ -93,13 +93,14 @@ def test_cs_models_run_on_the_card_unless_asked(monkeypatch):
 
 def test_launches_count_per_instantiation():
     """The packed-MNIW wrappers count each launch once in total and once
-    for the kernel that serves its m: ``<24>`` for m <= 24; for 24 < m <=
-    48 the warp kernels (``<48w>``) for the look-ahead and both draws,
-    ``<48>`` for the log-determinants; the factor-emitting projection
-    apart from the plain one, the per-thread comparator under ``<48>``."""
+    for the kernel that serves its m: the warp kernels for the look-ahead
+    and both draws, ``<24w>`` for m <= 24 and ``<48w>`` for 24 < m <= 48;
+    the per-thread log-determinants ``<24>`` / ``<48>``; the
+    factor-emitting projection ``[emit]<24>``; the per-thread comparator
+    ``<24>`` / ``<48>``."""
     warp = (ck.factorize_project_packed, ck.draw_update_packed_blocks,
             ck.draw_update_gather_packed_blocks)
-    assert ck.WARP_48 == warp
+    assert ck.WARP == warp
     ck.reset_launch_counts()
     try:
         for fn in (*warp, ck.log_base_measure_packed_logdets):
@@ -108,21 +109,27 @@ def test_launches_count_per_instantiation():
         ck._count(ck.systematic_ancestors_blocks)
         ck._count(ck.factorize_project_packed, 20, "[emit]")
         ck._count(ck.draw_update_gather_packed_blocks, 41, per_thread=True)
+        ck._count(ck.factorize_project_packed, 20, per_thread=True)
         counts = ck.launch_counts()
         for fn in warp:
-            assert counts[f"{fn.__name__}<24>"] == 2
+            assert counts[f"{fn.__name__}<24w>"] == 2
             assert counts[f"{fn.__name__}<48w>"] == 3
+        assert counts["factorize_project_packed<24>"] == 1
         assert counts["factorize_project_packed<48>"] == 0
+        assert counts["draw_update_packed_blocks<24>"] == 0
         assert counts["draw_update_packed_blocks<48>"] == 0
+        assert counts["draw_update_gather_packed_blocks<24>"] == 0
         assert counts["draw_update_gather_packed_blocks<48>"] == 1
         assert counts["log_base_measure_packed_logdets<24>"] == 2
         assert counts["log_base_measure_packed_logdets<48>"] == 3
+        assert "log_base_measure_packed_logdets<24w>" not in counts
         assert "log_base_measure_packed_logdets<48w>" not in counts
         assert counts["factorize_project_packed[emit]<24>"] == 1
+        assert "factorize_project_packed[emit]<24w>" not in counts
         assert counts["systematic_ancestors_blocks"] == 1
-        assert ck.factorize_project_packed.launches == 6
+        assert ck.factorize_project_packed.launches == 7
         assert ck.draw_update_gather_packed_blocks.launches == 6
-        assert sum(counts.values()) == 23
+        assert sum(counts.values()) == 24
     finally:
         ck.reset_launch_counts()
     # the CPU computes the plain version and counts no launch
@@ -259,17 +266,25 @@ def _packed_wrapper_calls(m, n=1, N=8):
     return calls
 
 
-@pytest.mark.parametrize("m", [20, 25, 41, 48])
-def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
-    """On a CUDA tensor every packed wrapper reaches its own C entry, which
-    launches the warp kernels for 24 < m <= 48 (counted ``<48w>``); none
-    reaches the per-thread comparator's entries, and none falls back to
-    the plain version (a stand-in tensor has no data to compute on)."""
+def _recording_lib(monkeypatch):
+    """The recording stand-in library in place of the kernels', with the
+    stream and the outputs' allocation made to work on the CPU."""
     lib = _RecordingLib()
     empty = torch.empty
     monkeypatch.setattr(ck, "_lib", lambda: lib)
     monkeypatch.setattr(ck, "_stream", lambda device: 0)
     monkeypatch.setattr(torch, "empty", lambda shape, dtype=None, device=None: empty(shape, dtype=dtype))
+    return lib
+
+
+@pytest.mark.parametrize("m", [20, 25, 41, 48])
+def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
+    """On a CUDA tensor every packed wrapper reaches its own C entry, which
+    launches the warp kernels for the look-ahead and the draws at every m
+    (counted ``<24w>`` for m <= 24, ``<48w>`` above); none reaches the
+    per-thread comparator's entries, and none falls back to the plain
+    version (a stand-in tensor has no data to compute on)."""
+    lib = _recording_lib(monkeypatch)
     ck.reset_launch_counts()
     try:
         calls = _packed_wrapper_calls(m)
@@ -280,12 +295,41 @@ def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
         ck.reset_launch_counts()
     assert len(lib.called) == len(calls)
     assert not [c for c in lib.called if "per_thread" in c]
-    width = "<24>" if m <= 24 else "<48w>"
-    for fn in ck.WARP_48:
-        assert counts[f"{fn.__name__}{width}"] == 1
+    width = "<24" if m <= 24 else "<48"
+    for fn in ck.WARP:
+        assert counts[f"{fn.__name__}{width}w>"] == 1
+        assert counts[f"{fn.__name__}<24>"] == 0
         assert counts[f"{fn.__name__}<48>"] == 0
-    assert counts["log_base_measure_packed_logdets" + ("<24>" if m <= 24 else "<48>")] == 1
+    assert counts[f"log_base_measure_packed_logdets{width}>"] == 1
+    if m <= 24:
+        assert counts["factorize_project_packed[emit]<24>"] == 1
     assert sum(counts.values()) == len(calls)
+
+
+@pytest.mark.parametrize("m", [20, 41])
+def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatch, m):
+    """The comparator, given (stand-ins for) CUDA tensors, reaches the
+    ``*_per_thread`` C entries and counts the per-thread instantiation
+    that serves m: ``<24>`` for m <= 24, ``<48>`` above; no warp key."""
+    lib = _recording_lib(monkeypatch)
+    N = 8
+    S, phi = _CardTensor(ck.mniw.packed_rows(m, 1), N), _CardTensor(m, N)
+    u, anc = _CardTensor(1, N), _CardTensor(N, dtype=torch.int32)
+    ck.reset_launch_counts()
+    try:
+        ck.factorize_project_packed_per_thread(S, phi, 0.0, m=m, n=1)
+        ck.draw_update_gather_packed_blocks_per_thread(S, None, phi, u, u, 0.0, m=m, n=1)
+        ck.draw_update_gather_packed_blocks_per_thread(S, anc, phi, u, u, 0.0, m=m, n=1)
+        counts = ck.launch_counts()
+    finally:
+        ck.reset_launch_counts()
+    assert lib.called == ["bipk_factorize_project_packed_per_thread",
+                          "bipk_draw_update_packed_per_thread",
+                          "bipk_draw_update_packed_per_thread"]
+    width = "<24>" if m <= 24 else "<48>"
+    for fn in ck.WARP:
+        assert counts[f"{fn.__name__}{width}"] == 1
+    assert sum(counts.values()) == 3
 
 
 def test_per_thread_comparator_is_called_by_no_module_of_the_port():
