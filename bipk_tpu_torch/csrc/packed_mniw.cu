@@ -22,8 +22,8 @@
 //     _du_factor_gather_kernel (:560): the gathered draw/update reading
 //     L and white from LW[:, anc[j]] instead of factoring again
 //     (factor_gather_kernel below, m <= 24).
-// The first four are compiled twice (as the comparator of the look-ahead
-// and the draw, see below): packed_mniw_kernel<24, MODE> serves m <= 24,
+// The first four are compiled twice (as the comparator of the warp
+// kernels, see below): packed_mniw_kernel<24, MODE> serves m <= 24,
 // the widths of the TPU's tiled kernels above;
 // packed_mniw_kernel<48, MODE> covers 24 < m <= 48 (the toy, m = 40, and
 // the single-mass oscillator, m = 41), the widths of the TPU's cs-layout
@@ -32,23 +32,22 @@
 // _cs_du_gather_kernel (:2418). It computes what they compute, not their
 // column-on-sublane blocking.
 //
-// At both widths the wrappers' look-ahead and draw (the first three above;
-// _cs_fp_kernel, _cs_du_kernel and _cs_du_gather_kernel) run the
-// warp-per-particle kernels of warp_mniw.cu (launch_warp_mniw below): two
-// particles per warp at m <= 24, one above, the augmented factor in shared
-// memory, the forward substitutions riding along with a left-looking
-// Cholesky. The instructions a particle's lanes issue bound them, not HBM;
-// at m = 20 they take ~1/2 of the per-thread kernels' time at N = 32768
-// and ~1/3 at N = 10240, at m = 41 ~1/3 at N = 32768 and ~1/15 at N = 200
-// (PERF.md). They are bit for bit equal to packed_mniw_kernel<24 | 48,
-// kProject / kDraw>: each entry is the same f32 operations in the same
-// order, with the roundings nvcc gives this core written out
-// (warp_mniw.cu). Those per-thread kernels stay compiled as their
-// comparator, behind bipk_factorize_project_packed_per_thread and
-// bipk_draw_update_packed_per_thread below; no wrapper reaches them, and
-// chip_smoke.py holds the warp kernels against them (phases 2 and 8). The
-// log-determinants keep packed_mniw_kernel<24 | 48, kLogdets>, the
-// factor-emitting look-ahead packed_mniw_kernel<24, kEmit>.
+// At both widths the wrappers' look-ahead, draw and log-determinants (the
+// first four above; _cs_fp_kernel, _cs_lbm_kernel, _cs_du_kernel and
+// _cs_du_gather_kernel) run the warp-per-particle kernels of warp_mniw.cu
+// (launch_warp_mniw below): two particles per warp at m <= 24, one above,
+// the augmented factor in shared memory, the forward substitutions riding
+// along with a left-looking Cholesky. The instructions a particle's lanes
+// issue bound them, not HBM; at m = 20 they take ~1/2 of the per-thread
+// kernels' time at N = 32768 and ~1/3 at N = 10240, at m = 41 ~1/3 at
+// N = 32768 and ~1/15 at N = 200 (PERF.md). They are bit for bit equal to
+// packed_mniw_kernel<24 | 48, kProject / kDraw / kLogdets>: each entry is
+// the same f32 operations in the same order, with the roundings nvcc gives
+// this core written out (warp_mniw.cu). Those per-thread kernels stay
+// compiled as their comparator, behind the bipk_*_per_thread entries
+// below; no wrapper reaches them, and chip_smoke.py holds the warp kernels
+// against them (phases 2 and 8). The factor-emitting look-ahead keeps
+// packed_mniw_kernel<24, kEmit>.
 //
 // Layout. S is (rows, N) row-major with rows
 // [T0 (m*n) | column-major tril(T1) | tril(T2) | T3] and the particle index
@@ -78,8 +77,8 @@
 // 67 TFLOP/s f32 rate) -- bytes, in principle. This first version keeps the
 // m(m+1)/2-entry factor in local memory (spilled, L1/L2-cached), so the
 // Cholesky's ~m^3/6 dependent local loads, not HBM, bound it in practice.
-// (The look-ahead and the draw now keep it in shared memory, a warp or a
-// half warp per particle: warp_mniw.cu.)
+// (The look-ahead, the draw and the log-determinants now keep it in shared
+// memory, a warp or a half warp per particle: warp_mniw.cu.)
 // The log-determinant variant moves ~4 B * N * (rows + 2) (9.6 MB at
 // N = 10240, 2.9 us) and does ~m^3/3 + m^2 n flops per particle: bytes in
 // principle, the same local-memory Cholesky in practice. At m = 41
@@ -221,8 +220,8 @@ bool bad_shape(const Args& a, int max_m) {
 }
 
 // launch_per_thread: packed_mniw_kernel<24, MODE> for m <= 24, else
-// <48, MODE> (the log-determinants and the factor-emitting projection on
-// the wrappers' path; the look-ahead and the draw as the comparator of the
+// <48, MODE> (the factor-emitting projection on the wrappers' path; the
+// look-ahead, the draw and the log-determinants as the comparator of the
 // warp kernels)
 template <int MODE>
 int launch_per_thread(const Args& a, cudaStream_t stream) {
@@ -238,11 +237,12 @@ int launch_per_thread(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// what the wrappers launch: the look-ahead and the draw take the warp
-// kernels (warp_mniw.cu) at every width, the other modes the per-thread ones
+// what the wrappers launch: the look-ahead, the draw and the
+// log-determinants take the warp kernels (warp_mniw.cu) at every width, the
+// factor-emitting look-ahead the per-thread one
 template <int MODE>
 int launch(const Args& a, cudaStream_t stream) {
-  if constexpr (MODE == kProject || MODE == kDraw) {
+  if constexpr (MODE == kProject || MODE == kDraw || MODE == kLogdets) {
     return launch_warp_mniw(a, MODE, stream);
   } else {
     return launch_per_thread<MODE>(a, stream);
@@ -271,6 +271,17 @@ Args draw_args(const float* S, int n_in, const int* anc, int n_out, const float*
   return a;
 }
 
+// lam = 1 at run time, as the per-thread core reads it: scaled_prior and
+// the core still round the product raw * lam, exactly
+Args logdets_args(const float* S, const float* prior, int n_particles, int m, int n,
+                  float jitter, float* ld) {
+  Args a = {};
+  a.S = S; a.anc = nullptr; a.phi = nullptr; a.prior = prior;
+  a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
+  a.jitter = jitter; a.lam = 1.f; a.ld = ld;
+  return a;
+}
+
 }  // namespace
 
 extern "C" int bipk_factorize_project_packed(
@@ -296,7 +307,8 @@ extern "C" int bipk_draw_update_packed(
 // The comparator: the per-thread packed_mniw_kernel<24, kProject / kDraw>
 // for m <= 24 and <48, kProject / kDraw> above, which the warp kernels
 // replace on the wrappers' path and must equal bit for bit. chip_smoke.py
-// calls these entries; no wrapper does.
+// calls these entries (and bipk_log_base_measure_packed_per_thread below);
+// no wrapper does.
 extern "C" int bipk_factorize_project_packed_per_thread(
     const float* S, const float* phi, const float* prior, int n_particles,
     int m, int n, float jitter, float lam, float* mean, float* col,
@@ -337,9 +349,16 @@ extern "C" int bipk_draw_update_factor_gather_packed(
 extern "C" int bipk_log_base_measure_packed(
     const float* S, const float* prior, int n_particles, int m, int n,
     float jitter, float* ld, void* stream) {
-  Args a = {};
-  a.S = S; a.anc = nullptr; a.phi = nullptr; a.prior = prior;
-  a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
-  a.jitter = jitter; a.lam = 1.f; a.ld = ld;
-  return launch<kLogdets>(a, static_cast<cudaStream_t>(stream));
+  return launch<kLogdets>(logdets_args(S, prior, n_particles, m, n, jitter, ld),
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The comparator of the warp log-determinants: the per-thread
+// packed_mniw_kernel<24 | 48, kLogdets>, which chip_smoke.py calls and no
+// wrapper does.
+extern "C" int bipk_log_base_measure_packed_per_thread(
+    const float* S, const float* prior, int n_particles, int m, int n,
+    float jitter, float* ld, void* stream) {
+  return launch_per_thread<kLogdets>(logdets_args(S, prior, n_particles, m, n, jitter, ld),
+                                     static_cast<cudaStream_t>(stream));
 }

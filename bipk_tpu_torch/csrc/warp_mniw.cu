@@ -1,9 +1,11 @@
-// Warp-per-particle MNIW look-ahead and gather/draw for 1 <= m <= 48, for
-// NVIDIA Hopper (sm_90a).
+// Warp-per-particle MNIW look-ahead, gather/draw and log-determinants for
+// 1 <= m <= 48, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernels of bipk_tpu/ops/pallas_kernels.py that compute
 // the auxiliary look-ahead (mean / col / row / (logdet_T1, logdet_Psi) of
-// prior + lam * S at phi) and the matrix-t draw with its rank-1 update:
+// prior + lam * S at phi), the matrix-t draw with its rank-1 update, and
+// (logdet_T1, logdet_Psi) of prior + S alone, the cSMC ancestor weights'
+// "with reference future" term:
 //   - for m <= 24, the tiled kernels: _packed_fp_kernel (:501, core :371)
 //     behind factorize_project_packed (:1740); _draw_update_gather_kernel
 //     (:878) behind draw_update_gather_packed_blocks (:1041), the draw on
@@ -14,9 +16,15 @@
 //     _cs_call (:2454), reached from factorize_project_packed (cs branch
 //     :1762-1770); _cs_du_gather_kernel (:2418) behind _cs_du_gather_call
 //     (:2482), reached from draw_update_gather_packed_blocks (cs branch
-//     :1067); _cs_du_kernel (:2353), the same without ancestors.
-// packed_mniw.cu launches these for its look-ahead and draw at every m; the
-// log-determinants and the factor-emitting look-ahead stay per-thread.
+//     :1067); _cs_du_kernel (:2353), the same without ancestors;
+//   - the log-determinants: _packed_lbm_kernel (:1549) behind
+//     log_base_measure_packed_logdets (:1941) for m <= 24, _cs_lbm_kernel
+//     (:2341) behind _cs_call (:2454) above.
+// packed_mniw.cu launches these for its look-ahead, draw and
+// log-determinants at every m; the factor-emitting look-ahead stays
+// per-thread. The log-determinants are a third mode of the same kernel
+// (kLogdets): no phi (no phi rows in the tile, no phi^T row in the
+// triangle), no gather, and lane 0 writes the two log-determinants only.
 //
 // Design. One particle on 32 / PW lanes of a warp, PW = 2 particles per
 // warp for m <= 24 (a half warp each) and 1 above, the factor in shared
@@ -28,12 +36,12 @@
 // augmented lower triangle
 //     rows 0..m-1      A = P1 + lam*T1 (+ jitter * tr/m on the diagonal)
 //     rows m..m+n-1    (P0 + lam*T0)^T, the right-hand sides of white
-//     row  m+n         phi^T, the right-hand side of v
+//     row  m+n         phi^T, the right-hand side of v (not in kLogdets)
 // (row stride m | 1, odd, so 32 lanes on 32 rows hit 32 banks; lane l
 // walks down columns l, l + GW, ... of A, the prior read through the
 // read-only cache) and run the left-looking Cholesky over it, column by
 // column: lane l takes row c + l (and c + l + GW while more rows remain;
-// R = m + n + 1 <= 2 GW rows always). A matrix row is scaled by
+// R = m + n + 1 <= 2 GW rows always, m + n in kLogdets). A matrix row is scaled by
 // rsqrtf(s_cc); a right-hand-side row is divided by the new diagonal: its
 // entry c is then white[c] (or v[c]) of the forward substitution, so the
 // substitutions ride along with the factorization. Psi, mean and col are
@@ -61,18 +69,26 @@
 // operations) and is written out here with explicit roundings: "lam * raw
 // + prior" is a rounded product and a rounded sum (FMUL, then a predicated
 // FADD), the jitter's bump likewise, T3's "lam * T3 + p3" one fused
-// multiply-add; only the arrays' places differ. chip_smoke.py holds these
-// kernels against the per-thread ones bit for bit (phase 2 at m <= 24,
+// multiply-add; only the arrays' places differ. The log-determinants
+// (kLogdets) were read the same way: <24, 2> and <48, 2> issue one
+// sequence of FP operations, and a copy of the core with the prior adds,
+// the bump and the Schur complement's start written out as rounded
+// products and sums compiles to the same counts of each FP opcode, where
+// a copy with the bump or the prior adds fused turns FADDs into FFMAs; so
+// with phi compiled out nvcc still rounds them as written here.
+// chip_smoke.py holds these kernels against the per-thread ones bit for bit (phase 2 at m <= 24,
 // phase 8 above; the comparator is packed_mniw_kernel<24 | 48, kProject /
-// kDraw> behind bipk_*_per_thread in packed_mniw.cu, which no wrapper
-// reaches), and phase 18 against the unpacked kernels;
+// kDraw / kLogdets> behind bipk_*_per_thread in packed_mniw.cu, which no
+// wrapper reaches), and phase 18 against the unpacked kernels;
 // tests/test_torch_warp_rehearsal.py runs both on the host (below).
 //
 // What bounds it on the H100. The bytes are those of the per-thread
 // kernels: at m = 20, N = 32768, S is read once (30 MB: 0.010 ms for the
 // look-ahead, 0.011 ms for the gathered draw with S_new written); at
 // m = 41, 118 MB (0.037 and 0.073 ms); against ~4 and ~26 kflop per
-// particle (0.002 and 0.013 ms at 67 TFLOP/s). In practice the instructions
+// particle (0.002 and 0.013 ms at 67 TFLOP/s). The log-determinants read S
+// alone: 9.6 MB at m = 20, N = 10240 (0.0029 ms), 0.72 MB at m = 41,
+// N = 200 (0.0002 ms). In practice the instructions
 // a particle's lanes issue: most of them are the Cholesky's columns, each
 // a dot product whose terms wait on their shared-memory loads followed by
 // a serial shuffle, rsqrtf, division and stores, with fewer and fewer of
@@ -98,6 +114,15 @@
 // them; one that runs every CUDA thread as a host thread, with barriers for
 // __syncthreads, __syncwarp and the shuffles, can
 // (tests/test_torch_warp_rehearsal.py).
+//
+// Launch state is kept per card: the SM count that sizes the blocks and
+// the raised dynamic shared-memory limit (cudaFuncSetAttribute acts on the
+// current card only) are read and set once per card and kernel, in atomic
+// slots indexed by cudaGetDevice, so host threads on different cards may
+// launch at once. The host rehearsal's stand-in has two cards with
+// different SM counts to show it.
+
+#include <atomic>
 
 #include "packed_mniw.cuh"
 
@@ -109,23 +134,25 @@ constexpr int kLoads = 8;     // global loads in flight per thread while staging
 constexpr unsigned kFull = 0xffffffffu;
 
 // The shared-memory plan of a block of P particles at (m, n), GW lanes per
-// particle: the tile of the P particles' statistics and phi, then per
-// particle its augmented triangle (R = m + n + 1 rows of stride ld) and m
+// particle: the tile of the P particles' statistics (and phi, where the
+// mode reads it), then per particle its augmented triangle (R = m + n + 1
+// rows of stride ld with the phi^T row, m + n without it) and m
 // log-diagonal slots, then P source columns. With two particles on a warp
 // (GW = 16) a particle's area is padded to 16 (mod 32) floats: lane l of
 // the two halves then reads row c + l of its own triangle from banks that
 // differ, as 16 rows of an odd stride cover 16 banks and the other 16 lie
-// 16 further on.
+// 16 further on. The log-determinants (kLogdets) read no phi: no phi rows
+// in the tile, no phi^T row in the triangle.
 struct WarpPlan {
   int rows, tile_rows, ts, ld, R, per_particle, tile_floats;
-  __host__ __device__ WarpPlan(int m, int n, int P, int GW)
+  __host__ __device__ WarpPlan(int m, int n, int P, int GW, bool with_phi)
       : rows(m * n + m * (m + 1) / 2 + n * (n + 1) / 2 + 1),
-        tile_rows(rows + m),
+        tile_rows(rows + (with_phi ? m : 0)),
         ts(P | 1),  // odd row stride: 32 rows of one column hit 32 banks
         ld(m | 1),  // odd: 32 lanes on 32 rows of one column hit 32 banks
-        R(m + n + 1),
-        per_particle(padded((m + n + 1) * (m | 1) + m, GW)),
-        tile_floats((rows + m) * (P | 1)) {}
+        R(m + n + with_phi),
+        per_particle(padded(R * ld + m, GW)),
+        tile_floats(tile_rows * ts) {}
   __host__ __device__ static int padded(int floats, int GW) {
     return GW == 32 ? floats : floats + (48 - floats % 32) % 32;
   }
@@ -147,28 +174,29 @@ __device__ __forceinline__ float scaled_prior(float raw, float lam, const float*
 // and loop counts, since they share m and n, so the warp-wide __syncwarp
 // and shuffles of width GW serve both). x: its column of the block's tile,
 // element r at x[r * ts] (rows [0, rows) its statistics, [rows, rows + m)
-// its phi); L: its augmented triangle; logs: m floats; lane: 0 .. GW - 1;
-// valid: j < n_out (a particle past the end computes on a stand-in column
-// and writes nothing to global memory).
+// its phi, which kLogdets has not); L: its augmented triangle; logs: m
+// floats; lane: 0 .. GW - 1; valid: j < n_out (a particle past the end
+// computes on a stand-in column and writes nothing to global memory).
 template <int MODE, int GW>
 __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, float* x, int ts,
                                               float* L, float* logs, int lane) {
   constexpr bool DRAW = MODE == kDraw;
+  constexpr bool PHI = MODE != kLogdets;
   const int m = a.m, n = a.n;
   const int64_t n_out = a.n_out;
   const int o1 = m * n, o2 = o1 + m * (m + 1) / 2, o3 = o2 + n * (n + 1) / 2;
-  const float* phi = x + (o3 + 1) * ts;
+  const float* phi = x + (o3 + 1) * ts;  // read only where PHI
   const float lam = a.lam;
   const float* P0 = a.prior;
   const float* P1 = a.prior ? a.prior + m * n : nullptr;
   const float* P2 = a.prior ? a.prior + m * n + m * m : nullptr;
-  const int ld = m | 1, R = m + n + 1;
+  const int ld = m | 1, R = m + n + PHI;
 
   // A = P1 + lam*T1: lane l walks down columns c = l, l + GW, ...; T1[i][c]
   // (i >= c) at packed rows o1 + tri_off(c, m) + i - c; the draw writes
   // that row of S_new (lam*T1 + phi phi^T) in place as it reads it
   for (int c = lane; c < m; c += GW) {
-    const float phi_c = phi[c * ts];
+    const float phi_c = DRAW ? phi[c * ts] : 0.f;
     float* t = x + (o1 + tri_off(c, m) - c) * ts;
 #pragma unroll 4
     for (int i = c; i < m; ++i) {
@@ -182,7 +210,7 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
     for (int c = 0; c < n; ++c)
       L[(m + c) * ld + i] =
           scaled_prior(x[(i * n + c) * ts], lam, P0 ? P0 + i * n + c : nullptr);
-    L[(m + n) * ld + i] = phi[i * ts];
+    if constexpr (PHI) L[(m + n) * ld + i] = phi[i * ts];
   }
   __syncwarp();
 
@@ -229,8 +257,9 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
   }
   for (int c = lane; c < m; c += GW) logs[c] = logf(logs[c]);
 
-  // Psi = P2 + lam*T2 - white^T white, mean = white^T v, col = v.v + 1:
-  // one lane per entry, each summed over k in the core's order
+  // Psi = P2 + lam*T2 - white^T white, mean = white^T v, col = v.v + 1
+  // (not kLogdets): one lane per entry, each summed over k in the core's
+  // order
   const int nn = n * n;
   const float* V = L + (m + n) * ld;
   float val = 0.f;
@@ -243,22 +272,26 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
     const float* Wb = L + (m + b) * ld;
     for (int k = 0; k < m; ++k) acc = __fmaf_rn(-Wa[k], Wb[k], acc);
     val = acc;
-  } else if (lane < nn + n) {
-    const float* Wc = L + (m + lane - nn) * ld;
-    float acc = 0.f;
-    for (int k = 0; k < m; ++k) acc = __fmaf_rn(Wc[k], V[k], acc);
-    val = acc;
-  } else if (lane == nn + n) {
-    float acc = 0.f;
-    for (int k = 0; k < m; ++k) acc = __fmaf_rn(V[k], V[k], acc);
-    val = __fadd_rn(acc, 1.f);
+  } else if constexpr (PHI) {
+    if (lane < nn + n) {
+      const float* Wc = L + (m + lane - nn) * ld;
+      float acc = 0.f;
+      for (int k = 0; k < m; ++k) acc = __fmaf_rn(Wc[k], V[k], acc);
+      val = acc;
+    } else if (lane == nn + n) {
+      float acc = 0.f;
+      for (int k = 0; k < m; ++k) acc = __fmaf_rn(V[k], V[k], acc);
+      val = __fadd_rn(acc, 1.f);
+    }
   }
   __syncwarp();
-  float psi[2][2], mean[2];
+  float psi[2][2], mean[2] = {0.f, 0.f}, colv = 0.f;
   for (int a_ = 0; a_ < 2; ++a_)
     for (int b = 0; b < 2; ++b) psi[a_][b] = __shfl_sync(kFull, val, (a_ * n + b) & 31, GW);
-  for (int c = 0; c < 2; ++c) mean[c] = __shfl_sync(kFull, val, nn + c, GW);
-  const float colv = __shfl_sync(kFull, val, nn + n, GW);
+  if constexpr (PHI) {
+    for (int c = 0; c < 2; ++c) mean[c] = __shfl_sync(kFull, val, nn + c, GW);
+    colv = __shfl_sync(kFull, val, nn + n, GW);
+  }
 
   float yv[2] = {0.f, 0.f};
   if (lane == 0 && valid) {
@@ -271,7 +304,7 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
       a.col[j] = colv;
       for (int a_ = 0; a_ < n; ++a_)
         for (int b = 0; b < n; ++b) a.row[(a_ * n + b) * n_out + j] = psi[a_][b];
-    } else {
+    } else if constexpr (DRAW) {
       const float t3raw = x[o3 * ts];
       const float df_pred = __fadd_rn(__fmaf_rn(t3raw, lam, a.p3), 1.f - n);
       matrix_t_draw(a, j, df_pred, psi, mean, colv, yv);
@@ -302,7 +335,7 @@ warp_mniw_kernel(const Args a, int log_w) {
   constexpr int kPerWarp = 32 / GW;
   const int log_p = log_w + (kPerWarp == 2);
   const int P = 1 << log_p;  // particles per block
-  const WarpPlan p(a.m, a.n, P, GW);
+  const WarpPlan p(a.m, a.n, P, GW, MODE != kLogdets);
   float* tile = smem;
   int* src = reinterpret_cast<int*>(smem + p.tile_floats + P * p.per_particle);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & (GW - 1);
@@ -317,8 +350,8 @@ warp_mniw_kernel(const Args a, int log_w) {
     src[threadIdx.x] = j < n_out ? (MODE == kDraw ? source_column(a, (int)j) : (int)j) : 0;
   }
   __syncthreads();
-  // stage S[:, src] and phi[:, j0 .. j0 + P) as the tile, kLoads loads in
-  // flight per thread
+  // stage S[:, src] and (but for kLogdets) phi[:, j0 .. j0 + P) as the
+  // tile, kLoads loads in flight per thread
   const int total = p.tile_rows << log_p;
   for (int e0 = threadIdx.x; e0 < total; e0 += kLoads * blockDim.x) {
     float v[kLoads];
@@ -326,8 +359,9 @@ warp_mniw_kernel(const Args a, int log_w) {
     for (int u = 0; u < kLoads; ++u) {
       const int e = min(e0 + u * (int)blockDim.x, total - 1);
       const int r = e >> log_p, w = e & (P - 1);
-      v[u] = __ldg(r < p.rows ? a.S + r * n_in + src[w]
-                              : a.phi + (r - p.rows) * n_out + min(j0 + w, n_out - 1));
+      v[u] = __ldg(MODE == kLogdets || r < p.rows
+                       ? a.S + r * n_in + src[w]
+                       : a.phi + (r - p.rows) * n_out + min(j0 + w, n_out - 1));
     }
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
@@ -355,15 +389,28 @@ warp_mniw_kernel(const Args a, int log_w) {
 // a whole warp
 int lanes_per_particle(int m) { return m <= 24 ? 16 : 32; }
 
+// The cards a process may use, for the launch state kept per card.
+constexpr int kMaxDevices = 64;
+
+// The current card, checked against kMaxDevices.
+cudaError_t current_device(int& dev) {
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return dev >= 0 && dev < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
+}
+
 // log2 of W, the most warps per block (8, 4, 2, 1) that still gives every
-// SM a block: N = 200 at m = 41 runs 200 blocks of one warp
-int warps_per_block(int n_out, int m, int& log_w) {
-  static int sms = 0;
+// SM of card `dev` a block: N = 200 at m = 41 runs 200 blocks of one warp.
+// Each card's SM count is read once and kept per card; host threads on
+// different cards may plan at once (an atomic per card: two that race on
+// one card both read and store the same count).
+int warps_per_block(int dev, int n_out, int m, int& log_w) {
+  static std::atomic<int> sms_of[kMaxDevices];
+  int sms = sms_of[dev].load(std::memory_order_relaxed);
   if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
+    sms_of[dev].store(sms, std::memory_order_relaxed);
   }
   const int per_warp = 32 / lanes_per_particle(m);
   log_w = 3;  // kMaxWarps
@@ -371,21 +418,28 @@ int warps_per_block(int n_out, int m, int& log_w) {
   return 0;
 }
 
+// The dynamic shared-memory limit of warp_mniw_kernel<MODE, GW>, raised on
+// each card to what its widest shape needs (m = 24 | 48, n = 2, W = 8)
+// before the first launch there: cudaFuncSetAttribute acts on the current
+// card only. Kept per card as an atomic flag; a failed call is tried
+// again at the next launch.
 template <int MODE, int GW>
 int launch_mode(const Args& a, cudaStream_t stream) {
-  static bool raised = false;  // the dynamic shared-memory limit, once
-  if (!raised) {
+  static std::atomic<bool> raised[kMaxDevices];
+  int dev = 0;
+  if (const cudaError_t err = current_device(dev); err != cudaSuccess) return (int)err;
+  if (!raised[dev].load(std::memory_order_acquire)) {
     const int P = kMaxWarps * 32 / GW;
-    const int most = (int)WarpPlan(GW == 16 ? 24 : 48, 2, P, GW).bytes(P);
+    const int most = (int)WarpPlan(GW == 16 ? 24 : 48, 2, P, GW, MODE != kLogdets).bytes(P);
     const cudaError_t err = cudaFuncSetAttribute(
         warp_mniw_kernel<MODE, GW>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return (int)err;
-    raised = true;
+    raised[dev].store(true, std::memory_order_release);
   }
   int log_w = 0;
-  if (const int rc = warps_per_block(a.n_out, a.m, log_w)) return rc;
+  if (const int rc = warps_per_block(dev, a.n_out, a.m, log_w)) return rc;
   const int P = (32 / GW) << log_w;
-  const size_t bytes = WarpPlan(a.m, a.n, P, GW).bytes(P);
+  const size_t bytes = WarpPlan(a.m, a.n, P, GW, MODE != kLogdets).bytes(P);
   const dim3 grid((a.n_out + P - 1) / P);
   warp_mniw_kernel<MODE, GW><<<grid, 32 << log_w, bytes, stream>>>(a, log_w);
   return (int)cudaGetLastError();
@@ -404,21 +458,23 @@ int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream) {
   if (a.n_out == 0) return (int)cudaGetLastError();
   if (mode == kProject) return launch_width<kProject>(a, stream);
   if (mode == kDraw) return launch_width<kDraw>(a, stream);
+  if (mode == kLogdets) return launch_width<kLogdets>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace bipk_mniw
 
-// The warp kernels' launch at (m, n) and n_out particles on the current
-// card: warps and particles per block and dynamic shared memory in bytes,
-// for reports.
-extern "C" int bipk_warp_mniw_plan(int m, int n, int n_out, int* warps, int* particles,
-                                   int* smem_bytes) {
-  int log_w = 0;
-  if (const int rc = bipk_mniw::warps_per_block(n_out, m, log_w)) return rc;
+// The warp kernel's launch in `mode` (kProject, kDraw or kLogdets) at
+// (m, n) and n_out particles on the current card: warps and particles per
+// block and dynamic shared memory in bytes, for reports.
+extern "C" int bipk_warp_mniw_plan(int mode, int m, int n, int n_out, int* warps,
+                                   int* particles, int* smem_bytes) {
+  int dev = 0, log_w = 0;
+  if (const cudaError_t err = bipk_mniw::current_device(dev); err != cudaSuccess) return (int)err;
+  if (const int rc = bipk_mniw::warps_per_block(dev, n_out, m, log_w)) return rc;
   const int GW = bipk_mniw::lanes_per_particle(m), P = (32 / GW) << log_w;
   *warps = 1 << log_w;
   *particles = P;
-  *smem_bytes = (int)bipk_mniw::WarpPlan(m, n, P, GW).bytes(P);
+  *smem_bytes = (int)bipk_mniw::WarpPlan(m, n, P, GW, mode != bipk_mniw::kLogdets).bytes(P);
   return 0;
 }

@@ -14,7 +14,8 @@ wrapper                                     CUDA source
                                             ``csrc/warp_mniw.cu``
 ``draw_update_gather_packed_blocks``        ``csrc/packed_mniw.cu``,
                                             ``csrc/warp_mniw.cu``
-``log_base_measure_packed_logdets``         ``csrc/packed_mniw.cu``
+``log_base_measure_packed_logdets``         ``csrc/packed_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
 ``draw_update_factor_gather_packed_blocks`` ``csrc/packed_mniw.cu``
 ``draw_update_dedup_gather_packed_blocks``  ``csrc/dedup_gather.cu``
 ``factorize_blocks``                        ``csrc/unpacked_mniw.cu``
@@ -34,15 +35,15 @@ in its ``launches`` attribute; the packed-MNIW ones (``PACKED_MNIW``) also
 count them per kernel instantiation (``launches_by_kernel``, keyed by
 the width that serves m: ``<24>`` for m <= 24, the counterpart of the
 TPU's tiled kernels, ``<48>`` for 24 < m <= 48, the counterpart of its
-cs-layout ``_cs_call`` / ``_cs_du_gather_call``). The look-ahead and the
-draw run the warp-per-particle ``warp_mniw_kernel`` (``csrc/warp_mniw.cu``)
-at both widths, counted as ``"<24w>"`` and ``"<48w>"``; the
-log-determinants run the per-thread ``packed_mniw_kernel<24 | 48,
-kLogdets>``, ``"<24>"`` / ``"<48>"``, and the factor-emitting projection
-``<24, kEmit>``, ``"[emit]<24>"``. The per-thread ``<24>`` and ``<48>``
-look-ahead and draw stay compiled as the warp kernels' comparator
-(``*_per_thread`` below, counted as ``"<24>"`` / ``"<48>"``), which no
-wrapper calls. The factor pair and the dedup gather take m <= 24 only.
+cs-layout ``_cs_call`` / ``_cs_du_gather_call``). The look-ahead, the
+draw and the log-determinants run the warp-per-particle
+``warp_mniw_kernel`` (``csrc/warp_mniw.cu``) at both widths, counted as
+``"<24w>"`` and ``"<48w>"``; the factor-emitting projection runs the
+per-thread ``<24, kEmit>``, ``"[emit]<24>"``. The per-thread ``<24>`` and
+``<48>`` look-ahead, draw and log-determinants stay compiled as the warp
+kernels' comparator (``*_per_thread`` below, counted as ``"<24>"`` /
+``"<48>"``), which no wrapper calls. The factor pair and the dedup gather
+take m <= 24 only.
 The four unpacked wrappers
 (``UNPACKED``) take structured or flat ``T0, T1, T2`` leaves, or a given
 factor, and count their launches per instantiation too; they serve
@@ -86,7 +87,8 @@ _SIGNATURES = {
     "bipk_draw_update_packed_per_thread": [
         _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
     ],
-    "bipk_warp_mniw_plan": [_I, _I, _I, _P, _P, _P],
+    "bipk_log_base_measure_packed_per_thread": [_P, _P, _I, _I, _I, _F, _P, _P],
+    "bipk_warp_mniw_plan": [_I, _I, _I, _I, _P, _P, _P],
     "bipk_factorize_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "bipk_factorize_project_blocks": [
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
@@ -493,25 +495,31 @@ def log_base_measure_packed_logdets(
     _check_mn(name, S, m, n)
     if not _on_cuda(name, S):
         return log_base_measure_packed_logdets_plain(S, jitter, prior, m, n)
+    rc, out = _logdets(name, S, jitter, prior, m, n, _lib().bipk_log_base_measure_packed)
+    _count(log_base_measure_packed_logdets, m)
+    _check(rc, name)
+    return out
+
+
+def _logdets(name, S, jitter, prior, m, n, launch):
+    """The log-determinants' launch through the C entry ``launch``
+    (``bipk_log_base_measure_packed`` or its comparator): ``(rc,
+    (logdet_T1, logdet_Psi))``."""
     N = S.shape[1]
     _require(name, S.device, torch.float32, S=(S, S.shape))
     pbuf = _prior_buffer(name, prior, m, n, S)
     ld = torch.empty((2, N), dtype=S.dtype, device=S.device)
-    rc = _lib().bipk_log_base_measure_packed(
-        S.data_ptr(), _ptr(pbuf), N, m, n, float(jitter), ld.data_ptr(),
-        _stream(S.device),
-    )
-    _count(log_base_measure_packed_logdets, m)
-    _check(rc, name)
-    return ld[0], ld[1]
+    rc = launch(S.data_ptr(), _ptr(pbuf), N, m, n, float(jitter), ld.data_ptr(),
+                _stream(S.device))
+    return rc, (ld[0], ld[1])
 
 
 # ---------------------------------------------------------------------------
 # The per-thread comparator of the warp kernels: the packed_mniw_kernel<24,
-# kProject / kDraw> (m <= 24) and <48, kProject / kDraw> (24 < m <= 48)
-# that the wrappers launched before the warp kernels replaced them, kept to
-# hold the warp kernels against bit for bit and to time beside them. No
-# wrapper calls these.
+# kProject / kDraw / kLogdets> (m <= 24) and <48, ...> (24 < m <= 48) that
+# the wrappers launched before the warp kernels replaced them, kept to hold
+# the warp kernels against bit for bit and to time beside them. No wrapper
+# calls these.
 # ---------------------------------------------------------------------------
 
 
@@ -557,14 +565,38 @@ def draw_update_gather_packed_blocks_per_thread(
     return out
 
 
-def warp_plan(m: int, n: int, N: int) -> tuple[int, int, int]:
+def log_base_measure_packed_logdets_per_thread(
+    S: torch.Tensor, jitter: float,
+    prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
+):
+    """:func:`log_base_measure_packed_logdets` through the per-thread
+    ``packed_mniw_kernel<24, kLogdets>`` (m <= 24) or ``<48, kLogdets>``:
+    the same outputs, which the warp kernel must equal bit for bit."""
+    name = "log_base_measure_packed_logdets_per_thread"
+    _check_mn(name, S, m, n)
+    _per_thread_device(name, S)
+    rc, out = _logdets(name, S, jitter, prior, m, n,
+                       _lib().bipk_log_base_measure_packed_per_thread)
+    _count(log_base_measure_packed_logdets, m, per_thread=True)
+    _check(rc, name)
+    return out
+
+
+# the kernels' modes the warp plan is asked for (csrc/packed_mniw.cuh ``Mode``)
+MODE_PROJECT, MODE_LOGDETS = 0, 2
+
+
+def warp_plan(m: int, n: int, N: int, logdets: bool = False) -> tuple[int, int, int]:
     """``(warps per block, particles per block, dynamic shared memory in
-    bytes)`` of the warp kernels' launch at ``(m, n)`` and N particles on
+    bytes)`` of the warp kernel's launch at ``(m, n)`` and N particles on
     the current card, as ``csrc/warp_mniw.cu`` chooses them (two particles
-    per warp at m <= 24, one above). For reports."""
+    per warp at m <= 24, one above): the look-ahead's and the draw's, or
+    with ``logdets`` the log-determinants' (no phi). For reports."""
     warps, particles, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _check(_lib().bipk_warp_mniw_plan(m, n, N, ctypes.byref(warps), ctypes.byref(particles),
-                                      ctypes.byref(smem)), "warp_plan")
+    mode = MODE_LOGDETS if logdets else MODE_PROJECT
+    _check(_lib().bipk_warp_mniw_plan(mode, m, n, N, ctypes.byref(warps),
+                                      ctypes.byref(particles), ctypes.byref(smem)),
+           "warp_plan")
     return warps.value, particles.value, smem.value
 
 
@@ -781,14 +813,15 @@ PLAIN = {
 
 # the wrappers whose launches run the warp kernels (all but the
 # factor-emitting projection)
-WARP = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks)
+WARP = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks,
+        log_base_measure_packed_logdets)
 # the packed-MNIW wrappers and the instantiations each launches ("<24>" and
 # "<48>" of the WARP wrappers: the per-thread comparator only)
 PACKED_MNIW = {
     factorize_project_packed: ("<24w>", "<48w>", "<24>", "<48>", "[emit]<24>"),
     draw_update_packed_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
     draw_update_gather_packed_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
-    log_base_measure_packed_logdets: ("<24>", "<48>"),
+    log_base_measure_packed_logdets: ("<24w>", "<48w>", "<24>", "<48>"),
     draw_update_factor_gather_packed_blocks: ("<24>",),
     draw_update_dedup_gather_packed_blocks: ("<24>",),
 }

@@ -2,6 +2,7 @@
 """The main paths of two checkouts, in turns, on one CUDA card.
 
     python3 chip_compare.py BEFORE_DIR AFTER_DIR    # runs before, after, after, before
+    python3 chip_compare.py BEFORE_DIR AFTER_DIR --oscillator    # its first three parts only
 
 Each run is a child process in one checkout (it builds that checkout's
 kernels) that calls that checkout's ``chip_smoke.py`` phase functions: the
@@ -15,7 +16,8 @@ warm-up and two timed sweeps, phase 6), the profile of 100 cSMC steps
 public ``init`` / ``draws`` / ``step``, so that a checkout without
 ``profile_apf_steps`` runs it too). The APF prints its RMSE and ESS in
 full, so that two checkouts whose kernels agree bit for bit print the
-same digits. Output lines are printed with the run's label, followed by
+same digits. With ``--oscillator`` each run ends after the oscillator's
+three parts. Output lines are printed with the run's label, followed by
 the card's name and power limit. Two versions compare only within one
 such call. A failed run, or no card, ends the script with a non-zero
 exit.
@@ -47,6 +49,8 @@ model, X, Y, U, (F,) = models["osc"]
 cs.osc_main_path(dev, model, X, Y, F, U, smi)
 cs.cs_gibbs_paths(dev, models, toy_iterations=11, osc_iterations=4, smi=smi)
 cs.profile_csmc_steps(dev, model, Y, U, X, (F,), cs.N_CS_GIBBS, steps=100)
+if sys.argv[2:] == ["--oscillator"]:
+    sys.exit(0)
 
 # the vehicle
 cfg = veh.VehicleConfig(t_end=1500 * 0.02, forgetting_factor=cs.LAM)
@@ -119,10 +123,10 @@ for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
 
 
 def main() -> int:
-    if len(sys.argv) != 3:
+    if len(sys.argv) not in (3, 4) or sys.argv[3:] not in ([], ["--oscillator"]):
         print(__doc__, file=sys.stderr)
         return 2
-    before, after = (os.path.abspath(d) for d in sys.argv[1:])
+    before, after = (os.path.abspath(d) for d in sys.argv[1:3])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -130,8 +134,9 @@ def main() -> int:
     for label, root in (("before", before), ("after", after), ("after", after),
                         ("before", before)):
         print(f"== {label}: {root}", flush=True)
-        proc = subprocess.run([sys.executable, "-c", RUN, smi], cwd=root, text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=1200)
+        proc = subprocess.run([sys.executable, "-c", RUN, smi, *sys.argv[3:]], cwd=root,
+                              text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              timeout=1200)
         for line in proc.stdout.splitlines():
             print(f"[{label}] {line}", flush=True)
         if proc.returncode != 0:

@@ -11,15 +11,17 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
    (packed statistics ``S (232, 32768)`` for the APF, ``(232, 10240)`` and
    ``(232, 256)`` at lambda = 1 for the Gibbs sampler, m = 20, n = 1, f32)
    and at edge shapes, held against its plain PyTorch version on the same
-   inputs, and timed. The look-ahead and the draws (the warp kernels,
-   ``csrc/warp_mniw.cu``, at m = 20) are also held bit for bit against the
-   per-thread ``<24>`` kernels they replace, on the vehicle APF's
-   statistics of both GPs after 100 filtering steps (degenerate
-   ancestors), the Gibbs shapes (10240 and 256 columns at lambda = 1, the
-   prior with and without a late reference future), a ragged N = 777 and
-   synthetic m = 9, 6 and n = 2 sets, with and without ancestors, and
-   timed in turns with them (per-thread, warp, warp, per-thread) at 32768
-   and 10240, beside their registers, stack and launch plan;
+   inputs, and timed. The look-ahead, the draws and the log-determinants
+   (the warp kernels, ``csrc/warp_mniw.cu``, at m = 20) are also held bit
+   for bit against the per-thread ``<24>`` kernels they replace, on the
+   vehicle APF's statistics of both GPs after 100 filtering steps
+   (degenerate ancestors), the Gibbs shapes (10240 and 256 columns at
+   lambda = 1, the prior with and without a late reference future), a
+   ragged N = 777 and synthetic m = 9, 6 and n = 2 sets, with and without
+   ancestors, and timed in turns with them (per-thread, warp, warp,
+   per-thread) at 32768 and 10240, beside their registers, stack, launch
+   plan and (the log-determinants) ``torch.linalg.cholesky_ex`` on the
+   same augmented matrices;
 3. path-vs-plain: the vehicle online APF, 32768 particles x 50 steps,
    through the kernels and through their plain versions with the same
    draws, over 10 seeds; the paired weighted means must agree;
@@ -40,12 +42,13 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
    (the oscillator APF's ``S (904, 32768)`` after 100 filtering steps, its
    first 777 columns and a synthetic m = 41, n = 2 set; the toy /
    oscillator Gibbs paths' ``(862, 200)`` / ``(904, 200)`` at lambda = 1),
-   and the resampler on partly-NaN weights. The look-ahead and the draws
-   (the warp kernels, ``csrc/warp_mniw.cu``) are also held bit for bit
-   against the per-thread kernels they replace on every set, with and
-   without ancestors, and timed in turns with them (per-thread, warp,
-   warp, per-thread) at N = 32768 and 200, beside their registers, stack
-   and shared memory;
+   and the resampler on partly-NaN weights. The look-ahead, the draws and
+   the log-determinants (the warp kernels, ``csrc/warp_mniw.cu``) are also
+   held bit for bit against the per-thread kernels they replace on every
+   set, with and without ancestors, and timed in turns with them
+   (per-thread, warp, warp, per-thread) at N = 32768 and 200, beside their
+   registers, stack, shared memory and (the log-determinants)
+   ``torch.linalg.cholesky_ex``;
 9. oscillator path-vs-plain: the single-mass oscillator's online APF
    (m = 41, one GP), 32768 particles x 50 steps, kernels and plain
    versions with the same draws, paired over 10 seeds;
@@ -87,7 +90,8 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     41) and synthetic n = 2 ones, structured and flat; bitwise against the
     packed kernels on the same statistics and the projection on views of
     an augmented factor against contiguous copies; timed beside their
-    bounds; then the unpacked entry points (``APFKernel.factorize_all``,
+    bounds (#13 also beside ``torch.linalg.cholesky_ex`` on the augmented
+    matrices of its input); then the unpacked entry points (``APFKernel.factorize_all``,
     ``auxiliary``, ``auxiliary_fused``, ``draw_int_vars_fused``,
     ``draw_int_vars``, ``mniw.log_base_measure_bl``) once each at N =
     32768 with exact launches, and the plain versions of every kernel on
@@ -109,7 +113,10 @@ template instantiation: its row in PERF.md's table, launches on the ten
 main paths, error against the plain version, times and bound; for the
 warp kernels also the per-thread kernels' times from the same turns, and
 both at the Gibbs paths' widths, 10240 particles at m = 20 and 200 at
-m = 40, 41);
+m = 40, 41; for the log-determinants ``library_ms``, the time of
+``torch.linalg.cholesky_ex`` on the same batch of augmented matrices, and
+``device_ms`` / ``library_device_ms``, the kernel alone and that call on
+the card's time alone, the host's enqueue hidden);
 the last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the script exits non-zero and prints neither. Needs one CUDA
 card.
@@ -169,13 +176,22 @@ def phase_done(name, t0):
     print(f"phase {name} ... {time.perf_counter() - t0:.2f} seconds", flush=True)
 
 
-def time_ms(fn, reps=20, flush=None):
+HIDE_HOST_CYCLES = 4_000_000  # ~2 ms of card clock: longer than any call's host enqueue
+
+
+def time_ms(fn, reps=20, flush=None, hide_host=False):
     """Median device time of ``fn()`` in ms over ``reps`` launches, CUDA
     events around each; ``flush`` (a large buffer) is rewritten before
-    each launch so every launch finds the L2 cache cold, as on the path."""
+    each launch so every launch finds the L2 cache cold, as on the path.
+    With ``hide_host`` a spin kernel runs first, so that the host has
+    queued all of ``fn``'s launches before the start event is reached:
+    the time is then the card's alone, with none of the host's enqueue
+    time between the events."""
     times = []
     fn()
     for _ in range(reps):
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         if flush is not None:
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
@@ -241,8 +257,10 @@ def check(name, pairs, tol, reason):
 def record_kernel(results, key, kernel_call, plain_call, bytes_moved, flops, max_abs, flush):
     """Time a kernel and its plain version (cold L2) and keep them with
     the kernel's bound, the larger of bytes / HBM rate and flops / f32
-    rate, under ``results[key]``."""
-    ms = time_ms(kernel_call, flush=flush)
+    rate, under ``results[key]``. ``kernel_call`` None: the kernel's
+    ``ms`` is left to the warp kernels' timing in turns with the
+    per-thread ones, which follows."""
+    ms = None if kernel_call is None else time_ms(kernel_call, flush=flush)
     plain_ms = time_ms(plain_call, flush=flush)
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -251,7 +269,8 @@ def record_kernel(results, key, kernel_call, plain_call, bytes_moved, flops, max
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, max_abs_err=max_abs,
     )
-    print(f"  {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+    timed = "timed in turns below" if ms is None else f"{ms:.4f} ms"
+    print(f"  {key}: {timed} (plain {plain_ms:.4f} ms, bound "
           f"{max(t_bytes, t_ops):.4f} ms by {results[key]['bound_by']})", flush=True)
 
 
@@ -475,7 +494,7 @@ def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, 
     expected = {
         "factorize_project_packed[emit]<24>" if reuse else WARP24_KEYS["fp"]: 2 * steps,
         "systematic_ancestors_blocks": steps,
-        "log_base_measure_packed_logdets<24>": 2 * steps,
+        WARP24_KEYS["lbm"]: 2 * steps,
         "draw_update_factor_gather_packed_blocks<24>" if reuse else WARP24_KEYS["dug"]:
             2 * steps,
     }
@@ -644,9 +663,10 @@ def late_future(gps, X, ivs, U, left):
 
 # the warp-per-particle kernels (csrc/warp_mniw.cu) as they count for
 # 24 < m <= 48 and for m <= 24, by mode: the look-ahead, the draw without
-# and with ancestors
+# and with ancestors, the log-determinants
 WARP_KEYS = {"fp": "factorize_project_packed<48w>", "du": "draw_update_packed_blocks<48w>",
-             "dug": "draw_update_gather_packed_blocks<48w>"}
+             "dug": "draw_update_gather_packed_blocks<48w>",
+             "lbm": "log_base_measure_packed_logdets<48w>"}
 WARP24_KEYS = {k: v.replace("<48w>", "<24w>") for k, v in WARP_KEYS.items()}
 
 
@@ -665,6 +685,112 @@ def warp_calls(S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
                 lambda: ck.draw_update_gather_packed_blocks_per_thread(S, anc, *du_args, m=m, n=n),
                 DU_NAMES),
     }
+
+
+def lbm_calls(S, jitter, prior, m, n):
+    """The calls that run the warp log-determinants and their per-thread
+    comparator on one input set (lambda = 1), as :func:`warp_calls` gives
+    them for the other modes, and the call of their plain version."""
+    args = (S, jitter, prior)
+    return {"lbm": (lambda: ck.log_base_measure_packed_logdets(*args, m=m, n=n),
+                    lambda: ck.log_base_measure_packed_logdets_per_thread(*args, m=m, n=n),
+                    LD_NAMES)}, lambda: ck.log_base_measure_packed_logdets_plain(*args, m=m, n=n)
+
+
+def lbm_gate(label, S, jitter, prior, m, n, keys=WARP_KEYS, tol=CS_TOL):
+    """The warp log-determinants on one input set: bit for bit against the
+    per-thread kernel, and against the plain version within ``tol``.
+    Returns the largest absolute error against the plain version."""
+    calls, plain = lbm_calls(S, jitter, prior, m, n)
+    warp_vs_per_thread(label, calls, keys)
+    return check(f"{keys['lbm']} {label}", zip(LD_NAMES, calls["lbm"][0](), plain()), tol,
+                 "f32 rounding of an ill-conditioned SPD factorization")
+
+
+def structured(S, m, n):
+    """The packed statistics ``S`` unpacked to structured leaves ``T0 (m,
+    n, N)``, ``T1 (m, m, N)`` (mirrored, so exactly symmetric), ``T2 (n, n,
+    N)``."""
+    st = mniw.unpack_stats_bl(S, m, n)
+    return tuple(t.reshape(r, c, -1) for t, r, c in zip(st[:3], (m, m, n), (n, m, n)))
+
+
+def augmented_batch(T0, T1, T2, jitter, prior):
+    """The batch of augmented matrices ``[[A, B], [B^T, C]]`` (N, m + n,
+    m + n), f32, of ``prior + (T0, T1, T2)`` (structured leaves; ``prior``
+    None: the leaves alone): A = P1 + T1 with the relative jitter on its
+    diagonal, B = P0 + T0, C = P2 + T2. Its Cholesky factor's diagonal
+    holds both log-determinants: twice the sum of the logs of the first m
+    entries is logdet_T1, of the last n logdet_Psi (the Schur complement
+    C - B^T A^-1 B is Psi)."""
+    T0, T1, T2 = (t.permute(2, 0, 1) for t in (T0, T1, T2))
+    if prior is not None:
+        T0, T1, T2 = T0 + prior[0], T1 + prior[1], T2 + prior[2]
+    m = T1.shape[1]
+    A = T1 + torch.diag_embed((jitter / m) * T1.diagonal(dim1=1, dim2=2).sum(1, keepdim=True)
+                              .expand(-1, m))
+    return torch.cat([torch.cat([A, T0], 2), torch.cat([T0.transpose(1, 2), T2], 2)], 1)
+
+
+def logdets_entry(S, jitter, prior, m, n):
+    """The packed log-determinants' C entry (the warp kernel) with its
+    prior buffer and output built once, for timing the kernel alone beside
+    the library call, whose batch is built once too (the wrapper also
+    concatenates the prior, one more small kernel, each call). Returns the
+    launch and its output ``(2, N)``."""
+    name = "logdets_entry"
+    pbuf = ck._prior_buffer(name, prior, m, n, S)
+    ld = torch.empty((2, S.shape[1]), dtype=S.dtype, device=S.device)
+    lib, stream = ck._lib(), ck._stream(S.device)
+
+    def launch():
+        ck._check(lib.bipk_log_base_measure_packed(S.data_ptr(), ck._ptr(pbuf), S.shape[1], m, n,
+                                                   float(jitter), ld.data_ptr(), stream), name)
+    return launch, ld
+
+
+def library_yardstick(label, leaves, jitter, prior, want, kernel, flush, suffix=""):
+    """The library call that computes the log-determinants' function:
+    ``torch.linalg.cholesky_ex`` on the batch of augmented matrices of
+    ``prior + leaves`` (:func:`augmented_batch`), assembled outside the
+    timed window; its log-determinants held against ``want`` (the plain
+    version's) at CS_TOL. Timed (cold L2) as every kernel of the line is
+    (``library_ms``), and on equal terms with ``kernel``, a launch of the
+    kernel alone (its buffers built once): both on the card's time alone,
+    with the host's enqueue hidden (``device_ms``, ``library_device_ms``).
+    Returns the three times (ms), their keys ending in ``suffix``."""
+    aug = augmented_batch(*leaves, jitter, prior).contiguous()
+    m = leaves[1].shape[0]
+    diag = torch.linalg.cholesky_ex(aug).L.diagonal(dim1=1, dim2=2).log()
+    lib_ld = (2 * diag[:, :m].sum(1), 2 * diag[:, m:].sum(1))
+    check(f"torch.linalg.cholesky_ex {label}, batch {tuple(aug.shape)}",
+          zip(LD_NAMES, lib_ld, want), CS_TOL,
+          "f32 rounding of an ill-conditioned SPD factorization")
+
+    def library():
+        return torch.linalg.cholesky_ex(aug)
+
+    out = {"library_ms": time_ms(library, flush=flush),
+           "device_ms": time_ms(kernel, flush=flush, hide_host=True),
+           "library_device_ms": time_ms(library, flush=flush, hide_host=True)}
+    print(f"  torch.linalg.cholesky_ex {label}: {out['library_ms']:.4f} ms; the card's time "
+          f"alone: kernel {out['device_ms']:.4f} ms, cholesky_ex "
+          f"{out['library_device_ms']:.4f} ms", flush=True)
+    return {k + suffix: v for k, v in out.items()}
+
+
+def packed_yardstick(label, S, jitter, prior, m, n, flush, suffix=""):
+    """:func:`library_yardstick` for the packed log-determinants (rows 5
+    and 6 lbm) on ``S``: against the warp kernel's C entry, held bit for
+    bit against the wrapper first."""
+    launch, ld = logdets_entry(S, jitter, prior, m, n)
+    launch()
+    got = ck.log_base_measure_packed_logdets(S, jitter, prior, m=m, n=n)
+    require(all(bitwise(g, w) for g, w in zip(got, ld)),
+            f"logdets_entry {label}: not bitwise equal to the wrapper")
+    want = ck.log_base_measure_packed_logdets_plain(S, jitter, prior, m=m, n=n)
+    return library_yardstick(label, structured(S, m, n), jitter, prior, want, launch, flush,
+                             suffix)
 
 
 def warp_vs_per_thread(label, calls, keys=WARP_KEYS):
@@ -699,7 +825,8 @@ def warp_ptxas():
     out = {}
     for i, line in enumerate(lines):
         if "Compiling entry" in line and "warp_mniw_kernel" in line:
-            mode = "kDraw" if "ILi1E" in line else "kProject"
+            mode = next(name for name, arg in (("kProject", "ILi0E"), ("kDraw", "ILi1E"),
+                                               ("kLogdets", "ILi2E")) if arg in line)
             lanes = 16 if "Li16E" in line else 32
             info = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 5]
                     if "registers" in ln or "stack frame" in ln]
@@ -709,8 +836,10 @@ def warp_ptxas():
 
 def print_warp_plan(m, n, N):
     W, P, smem = ck.warp_plan(m, n, N)
+    smem_lbm = ck.warp_plan(m, n, N, logdets=True)[2]
     print(f"  warp kernels at m={m} n={n} N={N}: {W} warps, {P} particles per block, "
-          f"{smem} B of dynamic shared memory per block", flush=True)
+          f"{smem} B of dynamic shared memory per block ({smem_lbm} B for the "
+          f"log-determinants)", flush=True)
 
 
 VEHICLE_FILTER_STEPS = 100  # vehicle filtering steps before phase 2's warp sets
@@ -718,10 +847,11 @@ VEHICLE_FILTER_STEPS = 100  # vehicle filtering steps before phase 2's warp sets
 
 def vehicle_warp_checks(dev, model, Y, U, fut, jitter, timed, results, flush):
     """Phase 2's gate of the warp kernels at the vehicle's m = 20: the
-    look-ahead, the draw and the gathered draw (``csrc/warp_mniw.cu``, the
-    wrappers' kernels at every m) against the per-thread
-    ``packed_mniw_kernel<24, kProject / kDraw>`` they replace, bit for bit,
-    each set with and without ancestors, on
+    look-ahead, the draw, the gathered draw and the log-determinants
+    (``csrc/warp_mniw.cu``, the wrappers' kernels at every m) against the
+    per-thread ``packed_mniw_kernel<24, kProject / kDraw / kLogdets>`` they
+    replace, bit for bit, each draw with and without ancestors (the
+    log-determinants also against their plain version), on
 
     - the vehicle APF's statistics of both GPs after
       ``VEHICLE_FILTER_STEPS`` filtering steps (the port's own APF,
@@ -735,10 +865,13 @@ def vehicle_warp_checks(dev, model, Y, U, fut, jitter, timed, results, flush):
       (``edge_case``), spread-out and degenerate ancestors;
     - ``timed``: phase 2's own inputs at 32768 and its first 10240
       columns, on which the warp kernels are then timed in turns with the
-      per-thread ones (per-thread, warp, warp, per-thread; cold L2). The
-      times at 32768 replace the rows' ``ms`` (the kernels line), with
+      per-thread ones (per-thread, warp, warp, per-thread; cold L2), the
+      log-determinants with the prior plus the late future. The times at
+      32768 replace the rows' ``ms`` (the kernels line), with
       ``per_thread_ms``; those at 10240 go in as ``ms_gibbs``,
-      ``per_thread_ms_gibbs`` and ``bound_ms_gibbs``.
+      ``per_thread_ms_gibbs`` and ``bound_ms_gibbs``; row 5 also gets the
+      library yardstick (:func:`packed_yardstick`: ``library_ms``,
+      ``device_ms``, ``library_device_ms`` and the same with ``_gibbs``).
 
     Also prints the warp kernels' ptxas report and their launch plans."""
     m, n = M, NN
@@ -768,6 +901,7 @@ def vehicle_warp_checks(dev, model, Y, U, fut, jitter, timed, results, flush):
         p3 = float(np.asarray(gp.prior.T3))
         warp_vs_per_thread(f"GP {i} m={m} N={N} lam={LAM}", warp_calls(
             S_i, anc, phi_i, u, v, jitter, LAM, prior, p3, m, n), WARP24_KEYS)
+        lbm_gate(f"GP {i} m={m} N={N} lam=1", S_i, jitter, prior, m, n, WARP24_KEYS)
         if i:
             continue
         sets = []
@@ -782,6 +916,8 @@ def vehicle_warp_checks(dev, model, Y, U, fut, jitter, timed, results, flush):
             cols = [t[:, :width].contiguous() for t in (S_i, phi_i, u, v)]
             warp_vs_per_thread(label, warp_calls(cols[0], anc_w, *cols[1:], jitter, lam, prior_w,
                                                  p3, m, n), WARP24_KEYS)
+            lbm_gate(label.replace(f"lam={LAM}", "lam=1"), cols[0], jitter, prior_w, m, n,
+                     WARP24_KEYS)
     for m_e, n_e, N_e in ((9, 1, 1000), (6, 2, 777), (m, 2, 777)):
         S_e, phi_e, prior_e = edge_case(gen, dev, m_e, n_e, N_e)
         u_e = torch.rand((n_e, N_e), generator=gen, device=dev)
@@ -793,6 +929,8 @@ def vehicle_warp_checks(dev, model, Y, U, fut, jitter, timed, results, flush):
             warp_vs_per_thread(f"m={m_e} n={n_e} N={N_e} lam={LAM} (edge_case, {kind} ancestors)",
                                warp_calls(S_e, anc_e, phi_e, u_e, v_e, jitter, LAM, prior_e[:3],
                                           prior_e[3], m_e, n_e), WARP24_KEYS)
+        lbm_gate(f"m={m_e} n={n_e} N={N_e} lam=1 (edge_case)", S_e, jitter, prior_e[:3], m_e, n_e,
+                 WARP24_KEYS)
 
     names = {"fp": "factorize_project_packed", "du": "draw_update_packed_blocks",
              "dug": "draw_update_gather_packed_blocks"}
@@ -818,15 +956,35 @@ def vehicle_warp_checks(dev, model, Y, U, fut, jitter, timed, results, flush):
                 r.update(ms=ms_w, per_thread_ms=ms_pt)
             else:
                 r.update(ms_gibbs=ms_w, per_thread_ms_gibbs=ms_pt, bound_ms_gibbs=bounds[key])
+        # #5 at the Gibbs path's prior plus a late reference future
+        prior_eff = tuple(p_ + f for p_, f in zip(prior, fut[:3]))
+        label = f"m={m} N={width} lam=1, prior + future (phase 2's inputs)"
+        calls, _ = lbm_calls(S_t, jitter, prior_eff, m, n)
+        warp_vs_per_thread(label, calls, WARP24_KEYS)
+        ms_w, ms_pt = in_turns(*calls["lbm"][:2], flush)
+        lbm_f = particle_flops(m, n)[2]
+        bound = max(packed_bytes(m, n, width)[2] / PEAK_BYTES_PER_S,
+                    width * lbm_f / PEAK_F32_FLOPS) * 1e3
+        suffix = "" if width == N else "_gibbs"
+        library = packed_yardstick(label, S_t, jitter, prior_eff, m, n, flush, suffix)
+        print(f"  {WARP24_KEYS['lbm']} {label} in turns: warp {ms_w:.4f} ms, per-thread "
+              f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bound:.5f} ms; cholesky_ex "
+              f"{library['library_ms' + suffix]:.4f} ms)", flush=True)
+        r = results["log_base_measure_packed_logdets"]
+        r.update(library)
+        if width == N:
+            r.update(ms=ms_w, per_thread_ms=ms_pt)
+        else:
+            r.update(ms_gibbs=ms_w, per_thread_ms_gibbs=ms_pt, bound_ms_gibbs=bound)
 
 
 def cs_kernel_checks(dev, cs, results, jitter, flush):
     """The m <= 48 kernels, in their three modes, and the resampler at the
     cs paths' own shapes and statistics, each held against its plain
     version on the same inputs and timed (cold L2) beside its bound; the
-    look-ahead and the draws (the warp kernels of csrc/warp_mniw.cu) also
-    bit for bit against the per-thread kernels they replace, and timed in
-    turns with them:
+    look-ahead, the draws and the log-determinants (the warp kernels of
+    csrc/warp_mniw.cu) also bit for bit against the per-thread kernels they
+    replace, and timed in turns with them:
 
     - the oscillator APF's: S (904, 32768), m = 41, lambda = 0.999, the
       model's prior, the statistics, states and weights after
@@ -881,7 +1039,7 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
 
     max_abs = check(f"{WARP_KEYS['fp']} {label}", zip(FP_NAMES, fp_call(), fp_plain()),
                     CS_TOL, reason)
-    record_kernel(results, WARP_KEYS["fp"], fp_call, fp_plain,
+    record_kernel(results, WARP_KEYS["fp"], None, fp_plain,
                   packed_bytes(m, n, N)[0], N * core_f, max_abs, flush)
 
     anc, _ = check_systematic(f"systematic_ancestors_blocks {label}", w, u_res, N)
@@ -903,7 +1061,7 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
                         "f32 rounding of lam*S + suff")
         max_abs = max(max_abs, check(f"{key} {label}", zip(DU_NAMES[1:], got[1:], want[1:]),
                                      CS_TOL, reason))
-        record_kernel(results, key, call, plain, bytes_, N * (core_f + draw_f), max_abs, flush)
+        record_kernel(results, key, None, plain, bytes_, N * (core_f + draw_f), max_abs, flush)
     calls = warp_calls(S, anc, phi, u, v, jitter, LAM, prior, p3, m, n)
     warp_vs_per_thread(label, calls)
     # the line's times of the warp kernels and the per-thread ones they
@@ -914,15 +1072,19 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
         print(f"  {WARP_KEYS[key]} {label} in turns: warp {r['ms']:.4f} ms, per-thread "
               f"{r['per_thread_ms']:.4f} ms ({r['per_thread_ms'] / r['ms']:.2f}x; bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']})", flush=True)
-    check(f"log_base_measure_packed_logdets<48> {label}", zip(
-        ("logdet_T1", "logdet_Psi"),
-        ck.log_base_measure_packed_logdets(S, jitter, prior, m=m, n=n),
-        ck.log_base_measure_packed_logdets_plain(S, jitter, prior, m=m, n=n),
-    ), CS_TOL, reason)
-    print(f"  log_base_measure_packed_logdets<48> {label}: "
-          f"{time_ms(lambda: ck.log_base_measure_packed_logdets(S, jitter, prior, m=m, n=n), flush=flush):.4f}"
-          f" ms (bound {packed_bytes(m, n, N)[2] / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes)",
-          flush=True)
+    # the warp log-determinants (row 6 lbm): at lambda = 1 with the prior
+    label = f"m={m} N={N} lam=1"
+    max_abs = lbm_gate(label, S, jitter, prior, m, n)
+    calls, lbm_plain = lbm_calls(S, jitter, prior, m, n)
+    lbm_warp, lbm_per_thread, _ = calls["lbm"]
+    record_kernel(results, WARP_KEYS["lbm"], None, lbm_plain, packed_bytes(m, n, N)[2],
+                  N * lbm_f, max_abs, flush)
+    r = results[WARP_KEYS["lbm"]]
+    r["ms"], r["per_thread_ms"] = in_turns(lbm_warp, lbm_per_thread, flush)
+    r.update(packed_yardstick(label, S, jitter, prior, m, n, flush))
+    print(f"  {WARP_KEYS['lbm']} {label} in turns: warp {r['ms']:.4f} ms, per-thread "
+          f"{r['per_thread_ms']:.4f} ms ({r['per_thread_ms'] / r['ms']:.2f}x; bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']})", flush=True)
 
     # ragged widths: the oscillator's first 777 columns, and a synthetic
     # m = 41, n = 2 set; spread-out sorted ancestors. Checked, not timed
@@ -948,6 +1110,7 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
         check(f"{WARP_KEYS['dug']} {label}", [("S_new", got[0], want[0])], 1e-4,
               "f32 rounding of lam*S + suff")
         check(f"{WARP_KEYS['dug']} {label}", zip(DU_NAMES[1:], got[1:], want[1:]), CS_TOL, reason)
+        lbm_gate(label.replace(f"lam={LAM}", "lam=1"), S_r, jitter, prior_r, m, n_r)
 
     # the Gibbs paths' shapes
     for name, left in (("osc", 10), ("toy", 3)):
@@ -985,35 +1148,29 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
               reason)
         calls = warp_calls(S_g, anc_g, phi_g, u_g, v_g, jitter, 1.0, prior, p3, m, n)
         warp_vs_per_thread(label, calls)
-        lbm_args = (S_g, jitter, prior_eff)
-
-        def lbm_call():
-            return ck.log_base_measure_packed_logdets(*lbm_args, m=m, n=n)
-
-        def lbm_plain():
-            return ck.log_base_measure_packed_logdets_plain(*lbm_args, m=m, n=n)
-
-        max_abs = check(f"log_base_measure_packed_logdets<48> {label} (prior + future)",
-                        zip(("logdet_T1", "logdet_Psi"), lbm_call(), lbm_plain()), CS_TOL, reason)
-        if name == "osc":  # the line's row: the oscillator sweep's width
-            record_kernel(results, "log_base_measure_packed_logdets<48>", lbm_call, lbm_plain,
-                          packed_bytes(m, n, N_CS_GIBBS)[2], N_CS_GIBBS * lbm_f, max_abs, flush)
-        core_g, draw_g, _ = particle_flops(m, n)
+        lbm_gate(f"{label} (prior + future)", S_g, jitter, prior_eff, m, n)
+        lbm_g = lbm_calls(S_g, jitter, prior_eff, m, n)[0]["lbm"]
+        core_g, draw_g, lbm_fg = particle_flops(m, n)
         distinct = int(torch.unique_consecutive(anc_g).numel())
         bounds = {  # ms: the larger of bytes / HBM rate and flops / f32 rate
             key: max(bytes_ / PEAK_BYTES_PER_S, N_CS_GIBBS * flops / PEAK_F32_FLOPS) * 1e3
             for key, bytes_, flops in (
                 ("fp", packed_bytes(m, n, N_CS_GIBBS)[0], core_g),
                 ("dug", packed_bytes(m, n, N_CS_GIBBS, distinct)[1], core_g + draw_g),
+                ("lbm", packed_bytes(m, n, N_CS_GIBBS)[2], lbm_fg),
                 ("systematic", 4 * (2 * N_CS_GIBBS + 1), 4 + int(math.log2(N_CS_GIBBS))))
         }
-        for key in ("fp", "dug"):
-            ms_w, ms_pt = in_turns(*calls[key][:2], flush)
+        for key, pair in (("fp", calls["fp"][:2]), ("dug", calls["dug"][:2]),
+                          ("lbm", lbm_g[:2])):
+            ms_w, ms_pt = in_turns(*pair, flush)
             print(f"  {WARP_KEYS[key]} {label} in turns: warp {ms_w:.4f} ms, per-thread "
                   f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bounds[key]:.3g} ms)", flush=True)
             if name == "osc":  # the Gibbs width of the line's rows
                 results[WARP_KEYS[key]].update(ms_gibbs=ms_w, per_thread_ms_gibbs=ms_pt,
                                                bound_ms_gibbs=bounds[key])
+        if name == "osc":
+            results[WARP_KEYS["lbm"]].update(packed_yardstick(
+                f"{label} (prior + future)", S_g, jitter, prior_eff, m, n, flush, "_gibbs"))
         print(f"  systematic_ancestors_blocks {label}: "
               f"{time_ms(lambda: ck.systematic_ancestors_blocks(res.weights[-1], u_res, N_CS_GIBBS), flush=flush):.4f}"
               f" ms (bound {bounds['systematic']:.3g} ms)", flush=True)
@@ -1104,8 +1261,8 @@ def cs_gibbs_paths(dev, cs, toy_iterations, osc_iterations, smi):
     """The toy and oscillator Gibbs samplers at 200 particles as a user
     runs them (a 200-particle APF, a reference draw, ``build_gibbs``),
     with exact launch counts per sweep (one each of the warp look-ahead,
-    the m <= 48 log-determinants and the warp gather/draw, one resampling
-    per step, and no per-thread look-ahead or draw), the seconds per
+    log-determinants and gather/draw, one resampling per step, and no
+    per-thread kernel), the seconds per
     sweep, and a gate on what they recover. Returns the launches over each
     run."""
     totals = {}
@@ -1118,7 +1275,7 @@ def cs_gibbs_paths(dev, cs, toy_iterations, osc_iterations, smi):
         expected = {
             WARP_KEYS["fp"]: steps,
             "systematic_ancestors_blocks": steps,
-            "log_base_measure_packed_logdets<48>": steps,
+            WARP_KEYS["lbm"]: steps,
             WARP_KEYS["dug"]: steps,
         }
         res, totals[name], _ = counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv,
@@ -1571,9 +1728,9 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
     statistics alone may be singular), #10's row against #1's and (m <=
     24) its chol and white against #1e's LW, #12 on strided views of an
     augmented factor against #12 on contiguous copies. Returns per kernel
-    the largest absolute error against the plain version and the calls
-    that run the kernel and its plain version (#12 as the rank-1 path
-    calls it, on views)."""
+    the largest absolute error against the plain version, the calls that
+    run the kernel and its plain version (#12 as the rank-1 path calls it,
+    on views) and #13's input, unpack(S_nat), structured."""
     def layouts(S_):
         st = mniw.unpack_stats_bl(S_, m, n)
         flat = tuple(t.contiguous() for t in st[:3])
@@ -1639,13 +1796,14 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
             lambda: ck.log_base_measure_logdets(*nat_structured, jitter),
             lambda: ck.log_base_measure_logdets_plain(*nat_structured, jitter)),
     }
-    return errs, calls
+    return errs, calls, nat_structured
 
 
 def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     """Phase 18: the unpacked kernels against their plain versions and
     across layouts (:func:`check_unpacked_set`), timed (cold L2) beside
-    their bounds, at
+    their bounds (#13 at N = 32768 also beside the library call,
+    :func:`library_yardstick`), at
 
     - the vehicle APF's statistics after ``UNPACKED_FILTER_STEPS``
       filtering steps (the port's own APF, front GP, m = 20, n = 1),
@@ -1668,15 +1826,20 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     phi = model.gps[0].basis_fn_bl(res.states[-1].T.contiguous(), U[k]).contiguous()
     print(f"  vehicle statistics after {k} filtering steps at {N} particles, S {tuple(S.shape)}",
           flush=True)
-    errs, calls = check_unpacked_set(f"m={m} n={n} N={N} lam={LAM}", S, phi, LAM, prior, m, n,
-                                     jitter)
+    label = f"m={m} n={n} N={N} lam={LAM}"
+    errs, calls, nat = check_unpacked_set(label, S, phi, LAM, prior, m, n, jitter)
     bytes_, flops = unpacked_bytes(m, n, N), unpacked_flops(m, n)
     for name in UNPACKED:
         record_kernel(results, name, *calls[name], bytes_[name], N * flops[name], errs[name],
                       flush)
+    # #13's library call: cholesky_ex on the augmented matrices of its own
+    # input (no prior); the wrapper launches the kernel alone
+    lbm = calls["log_base_measure_logdets"]
+    results["log_base_measure_logdets"].update(library_yardstick(
+        f"{label}, unpack(S_nat)", nat, jitter, None, lbm[1](), lbm[0], flush))
     for width in (N_GIBBS, N_CS_GIBBS, 777):
         S_w, phi_w = S[:, :width].contiguous(), phi[:, :width].contiguous()
-        _, calls_w = check_unpacked_set(f"m={m} n={n} N={width} lam=1", S_w, phi_w, 1.0, prior,
+        _, calls_w, _ = check_unpacked_set(f"m={m} n={n} N={width} lam=1", S_w, phi_w, 1.0, prior,
                                         m, n, jitter)
         if width == 777:
             continue
@@ -2060,8 +2223,7 @@ def main() -> int:
         zip(("mean", "col", "row", "logdet_T1", "logdet_Psi"), out_k, out_p),
         1e-3, "f32 rounding of an ill-conditioned SPD factorization",
     )
-    record(ck.factorize_project_packed,
-           lambda: ck.factorize_project_packed(S, phi, jitter, LAM, prior, m=M, n=NN),
+    record(ck.factorize_project_packed, None,
            lambda: ck.factorize_project_packed_plain(S, phi, jitter, LAM, prior, m=M, n=NN),
            packed_bytes(M, NN, N)[0], N * core_flops, max_abs)
 
@@ -2085,8 +2247,7 @@ def main() -> int:
         "draw_update_packed_blocks",
         zip(("y", "logdet_T1", "logdet_Psi"), du_k[1:], du_p[1:]),
         1e-3, "f32 rounding of an ill-conditioned SPD factorization"))
-    record(ck.draw_update_packed_blocks,
-           lambda: ck.draw_update_packed_blocks(S, phi, u, v, jitter, LAM, prior, p3, m=M, n=NN),
+    record(ck.draw_update_packed_blocks, None,
            lambda: ck.draw_update_packed_blocks_plain(S, phi, u, v, jitter, LAM, prior, p3, m=M, n=NN),
            packed_bytes(M, NN, N)[1], N * (core_flops + draw_flops), max_abs)
 
@@ -2103,8 +2264,7 @@ def main() -> int:
         1e-3, "f32 rounding of an ill-conditioned SPD factorization"))
     distinct = int(torch.unique_consecutive(anc).numel())
     print(f"  gather: {distinct} distinct ancestors of {N}", flush=True)
-    record(ck.draw_update_gather_packed_blocks,
-           lambda: ck.draw_update_gather_packed_blocks(S, anc, phi, u, v, jitter, LAM, prior, p3, m=M, n=NN),
+    record(ck.draw_update_gather_packed_blocks, None,
            lambda: ck.draw_update_gather_packed_blocks_plain(S, anc, phi, u, v, jitter, LAM, prior, p3, m=M, n=NN),
            packed_bytes(M, NN, N, distinct)[1],
            N * (core_flops + draw_flops), max_abs)
@@ -2130,18 +2290,11 @@ def main() -> int:
         max_abs = check(f"log_base_measure_packed_logdets N={width}",
                         zip(("logdet_T1", "logdet_Psi"), lk, lp),
                         1e-3, "f32 rounding of an ill-conditioned SPD factorization")
-        if width == N_GIBBS:  # the Gibbs path's width goes into the kernels line
-            record(ck.log_base_measure_packed_logdets,
-                   lambda: ck.log_base_measure_packed_logdets(S_w, jitter, prior_eff, m=M, n=NN),
+        if width == N:  # row 5 at N, as rows 1, 3, 4; phase 2 times the kernel at both
+            record(ck.log_base_measure_packed_logdets, None,
                    lambda: ck.log_base_measure_packed_logdets_plain(S_w, jitter, prior_eff, m=M, n=NN),
                    packed_bytes(M, NN, width)[2], width * lbm_flops,
                    max_abs)
-        else:
-            ms = time_ms(lambda: ck.log_base_measure_packed_logdets(S_w, jitter, prior_eff, m=M, n=NN),
-                         flush=flush)
-            print(f"  log_base_measure_packed_logdets N={width}: {ms:.4f} ms (bound "
-                  f"{packed_bytes(M, NN, width)[2] / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes)",
-                  flush=True)
 
     # #1, #2 and #4 at the Gibbs path's shapes: lambda = 1 and the prior
     # (the cSMC's look-ahead and draw; the reference future enters only
@@ -2393,14 +2546,13 @@ def main() -> int:
     profile_apf_steps(dev, model, Y, U, N, steps=50)
     phase_done("apf-profile", t0)
 
-    # one entry per kernel: rows 1, 3 and 4 are the warp kernels at m <= 24
-    # (the per-thread <24> kernels they replace timed beside them), 2 the
-    # resampler, 5 the <24> log-determinants, rows 6 and 7 the m <= 48 kernels (the TPU's cs-layout
-    # launchers: _cs_call's three kernels, _cs_du_gather_call; the look-ahead
-    # and the draws the warp kernels, the log-determinants <48>), rows 1e, 8
-    # and 9 the factor pair and the dedup gather, rows 10-13 the unpacked
-    # kernels' m <= 24 instantiation. launches: over the ten main paths'
-    # runs, each counted from zero
+    # one entry per kernel: rows 1, 3, 4 and 5 are the warp kernels at
+    # m <= 24 (the per-thread <24> kernels they replace timed beside them),
+    # 2 the resampler, rows 6 and 7 the warp kernels at m <= 48 (the TPU's
+    # cs-layout launchers: _cs_call's three kernels, _cs_du_gather_call),
+    # rows 1e, 8 and 9 the factor pair and the dedup gather, rows 10-13 the
+    # unpacked kernels' m <= 24 instantiation. launches: over the ten main
+    # paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
              "apf_reuse": reuse_counts, "apf_dedup": dedup_counts,
@@ -2415,11 +2567,9 @@ def main() -> int:
         (2, "systematic_ancestors_blocks", "systematic_ancestors_blocks", sys_src, f"{pk}:2761"),
         (3, "draw_update_packed_blocks", WARP24_KEYS["du"], warp_src, f"{pk}:1848"),
         (4, "draw_update_gather_packed_blocks", WARP24_KEYS["dug"], warp_src, f"{pk}:1041"),
-        (5, "log_base_measure_packed_logdets", "log_base_measure_packed_logdets<24>",
-         mniw_src, f"{pk}:1941"),
+        (5, "log_base_measure_packed_logdets", WARP24_KEYS["lbm"], warp_src, f"{pk}:1941"),
         (6, WARP_KEYS["fp"], WARP_KEYS["fp"], warp_src, f"{pk}:2454"),
-        (6, "log_base_measure_packed_logdets<48>", "log_base_measure_packed_logdets<48>",
-         mniw_src, f"{pk}:2454"),
+        (6, WARP_KEYS["lbm"], WARP_KEYS["lbm"], warp_src, f"{pk}:2454"),
         (6, WARP_KEYS["du"], WARP_KEYS["du"], warp_src, f"{pk}:2454"),
         (7, WARP_KEYS["dug"], WARP_KEYS["dug"], warp_src, f"{pk}:2482"),
         ("1e", "factorize_project_packed[emit]", "factorize_project_packed[emit]<24>",
@@ -2439,6 +2589,7 @@ def main() -> int:
     kernels = []
     for row, name, key, source, replaces in rows:
         r = results[name]
+        require(r["ms"] is not None, f"{name}: no time on the card")
         per_path = {p: c[key] for p, c in paths.items()}
         kernels.append(dict(
             name=name, row=row, route="cuda", source=source, replaces=replaces,
@@ -2447,8 +2598,11 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             # the warp kernels: the per-thread kernels they replace, timed in
-            # turns with them, and both at the Gibbs paths' 200 particles
-            **{k: v for k, v in r.items() if "per_thread" in k or "gibbs" in k},
+            # turns with them, and both at the Gibbs paths' widths (10240
+            # particles at m = 20, 200 at m = 40, 41); the log-determinants:
+            # kernel and library call on the card's time alone
+            **{k: v for k, v in r.items()
+               if "per_thread" in k or "gibbs" in k or "device" in k},
         ))
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} seconds", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,13 @@
 // a rounded sum, as the per-thread core's a * b + c is there, so the two
 // designs agree bit for bit exactly when every output takes the same
 // operations in the same order.
+//
+// The stand-in has two cards with different SM counts. The current card
+// is one setting of the process (bipk_stub_set_device), and every
+// cudaFuncSetAttribute call is recorded with the card it acted on, so a
+// test can see the kernels' launch state kept per card. Those controls
+// are compiled into the one translation unit that defines
+// BIPK_STUB_CONTROLS before it includes this header.
 
 #pragma once
 
@@ -22,7 +29,10 @@
 #include <functional>
 #include <limits>
 #include <memory>
+#include <mutex>
+#include <set>
 #include <thread>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -40,13 +50,15 @@ struct dim3 {
 };
 struct CUstream_st;
 typedef CUstream_st* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
-// the streaming multiprocessors the stand-in card reports: few, so that
-// a few hundred particles already take the warp kernels' widest blocks
-constexpr int kStubSMs = 16;
+// the streaming multiprocessors each stand-in card reports: card 0 few,
+// so that a few hundred particles already take the warp kernels' widest
+// blocks; card 1 as many as an H100 has, so that they take one-warp blocks
+constexpr int kStubDevices = 2;
+constexpr int kStubSMs[kStubDevices] = {16, 132};
 
 namespace bipk_stub {
 
@@ -67,6 +79,11 @@ struct Block {
 };
 
 inline thread_local Block* block = nullptr;
+
+inline int device = 0;  // the current card
+// every cudaFuncSetAttribute call: (card, kernel)
+inline std::mutex attribute_mutex;
+inline std::vector<std::pair<int, const void*>> attribute_calls;
 
 }  // namespace bipk_stub
 
@@ -115,17 +132,41 @@ inline float __fmaf_rn(float a, float b, float c) { return a * b + c; }
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* dev) {
-  *dev = 0;
+  *dev = bipk_stub::device;
   return cudaSuccess;
 }
-inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
-  *value = kStubSMs;
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int dev) {
+  if (dev < 0 || dev >= kStubDevices) return cudaErrorInvalidDevice;
+  *value = kStubSMs[dev];
   return cudaSuccess;
 }
 template <class F>
-inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+inline cudaError_t cudaFuncSetAttribute(F kernel, cudaFuncAttribute, int) {
+  std::lock_guard<std::mutex> hold(bipk_stub::attribute_mutex);
+  bipk_stub::attribute_calls.emplace_back(bipk_stub::device,
+                                          reinterpret_cast<const void*>(kernel));
   return cudaSuccess;
 }
+
+#ifdef BIPK_STUB_CONTROLS
+// make card `dev` the current one
+extern "C" void bipk_stub_set_device(int dev) { bipk_stub::device = dev; }
+
+// the cudaFuncSetAttribute calls made on card `dev`, and how many distinct
+// kernels they named
+extern "C" int bipk_stub_attribute_calls(int dev, int* kernels) {
+  std::lock_guard<std::mutex> hold(bipk_stub::attribute_mutex);
+  int calls = 0;
+  std::set<const void*> named;
+  for (const auto& [d, kernel] : bipk_stub::attribute_calls) {
+    if (d != dev) continue;
+    ++calls;
+    named.insert(kernel);
+  }
+  *kernels = (int)named.size();
+  return calls;
+}
+#endif
 
 // kernel<<<grid, threads, smem, stream>>>(args) becomes
 // bipk_launch(grid, threads, smem, stream, [&] { kernel(args); })

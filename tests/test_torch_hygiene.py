@@ -93,23 +93,23 @@ def test_cs_models_run_on_the_card_unless_asked(monkeypatch):
 
 def test_launches_count_per_instantiation():
     """The packed-MNIW wrappers count each launch once in total and once
-    for the kernel that serves its m: the warp kernels for the look-ahead
-    and both draws, ``<24w>`` for m <= 24 and ``<48w>`` for 24 < m <= 48;
-    the per-thread log-determinants ``<24>`` / ``<48>``; the
-    factor-emitting projection ``[emit]<24>``; the per-thread comparator
-    ``<24>`` / ``<48>``."""
+    for the kernel that serves its m: the warp kernels for the look-ahead,
+    both draws and the log-determinants, ``<24w>`` for m <= 24 and
+    ``<48w>`` for 24 < m <= 48; the factor-emitting projection
+    ``[emit]<24>``; the per-thread comparator ``<24>`` / ``<48>``."""
     warp = (ck.factorize_project_packed, ck.draw_update_packed_blocks,
-            ck.draw_update_gather_packed_blocks)
+            ck.draw_update_gather_packed_blocks, ck.log_base_measure_packed_logdets)
     assert ck.WARP == warp
     ck.reset_launch_counts()
     try:
-        for fn in (*warp, ck.log_base_measure_packed_logdets):
+        for fn in warp:
             for m in (20, 24, 25, 41, 48):
                 ck._count(fn, m)
         ck._count(ck.systematic_ancestors_blocks)
         ck._count(ck.factorize_project_packed, 20, "[emit]")
         ck._count(ck.draw_update_gather_packed_blocks, 41, per_thread=True)
         ck._count(ck.factorize_project_packed, 20, per_thread=True)
+        ck._count(ck.log_base_measure_packed_logdets, 41, per_thread=True)
         counts = ck.launch_counts()
         for fn in warp:
             assert counts[f"{fn.__name__}<24w>"] == 2
@@ -120,16 +120,15 @@ def test_launches_count_per_instantiation():
         assert counts["draw_update_packed_blocks<48>"] == 0
         assert counts["draw_update_gather_packed_blocks<24>"] == 0
         assert counts["draw_update_gather_packed_blocks<48>"] == 1
-        assert counts["log_base_measure_packed_logdets<24>"] == 2
-        assert counts["log_base_measure_packed_logdets<48>"] == 3
-        assert "log_base_measure_packed_logdets<24w>" not in counts
-        assert "log_base_measure_packed_logdets<48w>" not in counts
+        assert counts["log_base_measure_packed_logdets<24>"] == 0
+        assert counts["log_base_measure_packed_logdets<48>"] == 1
         assert counts["factorize_project_packed[emit]<24>"] == 1
         assert "factorize_project_packed[emit]<24w>" not in counts
         assert counts["systematic_ancestors_blocks"] == 1
         assert ck.factorize_project_packed.launches == 7
         assert ck.draw_update_gather_packed_blocks.launches == 6
-        assert sum(counts.values()) == 24
+        assert ck.log_base_measure_packed_logdets.launches == 6
+        assert sum(counts.values()) == 25
     finally:
         ck.reset_launch_counts()
     # the CPU computes the plain version and counts no launch
@@ -280,10 +279,11 @@ def _recording_lib(monkeypatch):
 @pytest.mark.parametrize("m", [20, 25, 41, 48])
 def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
     """On a CUDA tensor every packed wrapper reaches its own C entry, which
-    launches the warp kernels for the look-ahead and the draws at every m
-    (counted ``<24w>`` for m <= 24, ``<48w>`` above); none reaches the
-    per-thread comparator's entries, and none falls back to the plain
-    version (a stand-in tensor has no data to compute on)."""
+    launches the warp kernels for the look-ahead, the draws and the
+    log-determinants at every m (counted ``<24w>`` for m <= 24, ``<48w>``
+    above); none reaches the per-thread comparator's entries, and none
+    falls back to the plain version (a stand-in tensor has no data to
+    compute on)."""
     lib = _recording_lib(monkeypatch)
     ck.reset_launch_counts()
     try:
@@ -300,7 +300,7 @@ def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
         assert counts[f"{fn.__name__}{width}w>"] == 1
         assert counts[f"{fn.__name__}<24>"] == 0
         assert counts[f"{fn.__name__}<48>"] == 0
-    assert counts[f"log_base_measure_packed_logdets{width}>"] == 1
+    assert "bipk_log_base_measure_packed" in lib.called
     if m <= 24:
         assert counts["factorize_project_packed[emit]<24>"] == 1
     assert sum(counts.values()) == len(calls)
@@ -320,16 +320,18 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
         ck.factorize_project_packed_per_thread(S, phi, 0.0, m=m, n=1)
         ck.draw_update_gather_packed_blocks_per_thread(S, None, phi, u, u, 0.0, m=m, n=1)
         ck.draw_update_gather_packed_blocks_per_thread(S, anc, phi, u, u, 0.0, m=m, n=1)
+        ck.log_base_measure_packed_logdets_per_thread(S, 0.0, m=m, n=1)
         counts = ck.launch_counts()
     finally:
         ck.reset_launch_counts()
     assert lib.called == ["bipk_factorize_project_packed_per_thread",
                           "bipk_draw_update_packed_per_thread",
-                          "bipk_draw_update_packed_per_thread"]
+                          "bipk_draw_update_packed_per_thread",
+                          "bipk_log_base_measure_packed_per_thread"]
     width = "<24>" if m <= 24 else "<48>"
     for fn in ck.WARP:
         assert counts[f"{fn.__name__}{width}"] == 1
-    assert sum(counts.values()) == 3
+    assert sum(counts.values()) == 4
 
 
 def test_per_thread_comparator_is_called_by_no_module_of_the_port():
@@ -337,7 +339,9 @@ def test_per_thread_comparator_is_called_by_no_module_of_the_port():
     definitions in ``ops/cuda_kernels.py`` (``chip_smoke.py`` calls them
     from outside the package)."""
     names = ("factorize_project_packed_per_thread", "draw_update_gather_packed_blocks_per_thread",
-             "bipk_factorize_project_packed_per_thread", "bipk_draw_update_packed_per_thread")
+             "log_base_measure_packed_logdets_per_thread",
+             "bipk_factorize_project_packed_per_thread", "bipk_draw_update_packed_per_thread",
+             "bipk_log_base_measure_packed_per_thread")
     for path in sorted((REPO / "bipk_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         own = set()
@@ -359,6 +363,8 @@ def test_per_thread_comparator_needs_a_card():
         ck.factorize_project_packed_per_thread(S, phi, 0.0, m=41, n=1)
     with pytest.raises(ValueError, match="CUDA tensor only"):
         ck.draw_update_gather_packed_blocks_per_thread(S, None, phi, u, u, 0.0, m=41, n=1)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        ck.log_base_measure_packed_logdets_per_thread(S, 0.0, m=41, n=1)
 
 
 def test_kernels_take_decides_by_device_dtype_and_width():

@@ -11,18 +11,23 @@ kernels' ``__fmaf_rn`` both round the product and then the sum, so equal
 bits say that every output takes the same operations in the same order;
 which of them the card fuses is read off its machine code, not here. The
 launches go through the wrappers' own argument paths
-(``cuda_kernels._factorize_project`` / ``_draw_update``) with the two C
-entries: ``bipk_factorize_project_packed`` / ``bipk_draw_update_packed``
-(the warp kernels at every m) and their ``*_per_thread`` comparators.
+(``cuda_kernels._factorize_project`` / ``_draw_update`` / ``_logdets``)
+with the C entries: ``bipk_factorize_project_packed`` /
+``bipk_draw_update_packed`` / ``bipk_log_base_measure_packed`` (the warp
+kernels at every m) and their ``*_per_thread`` comparators.
 
-The run is a child process with its own time limit, so that a barrier
+Each run is a child process with its own time limit, so that a barrier
 that never opens (a lane that skips a shuffle) fails the test instead of
-hanging it. Sets: m = 20 at n = 1 and 2 (the vehicle's width), m = 24,
-m = 9, m = 6 with n = 2, and m = 41 (one and two rows per lane), a few
-hundred particles or fewer, so that the stand-in card's 16 SMs give
-blocks of 8, 4, 2 and 1 warps; ragged N_out != N_in; spread-out and
-degenerate (three distinct) ancestors; lambda = 0.999 with a prior and
-lambda = 1 without one.
+hanging it. The look-ahead and draw sets: m = 20 at n = 1 and 2 (the
+vehicle's width), m = 24, m = 9, m = 6 with n = 2, and m = 41 (one and
+two rows per lane), a few hundred particles or fewer, so that the
+stand-in card's 16 SMs give blocks of 8, 4, 2 and 1 warps; ragged N_out
+!= N_in; spread-out and degenerate (three distinct) ancestors; lambda =
+0.999 with a prior and lambda = 1 without one. The log-determinant sets
+(lambda = 1, as the cSMC calls them): the same widths with the prior, the
+prior plus a reference-future offset, or none, on ragged N for every
+block size. A third run holds the kernels' launch state per card on the
+stub's two cards of 16 and 132 SMs.
 """
 
 import re
@@ -36,7 +41,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 CSRC = REPO / "bipk_tpu_torch" / "csrc"
 STUB = Path(__file__).resolve().parent / "cuda_threads_stub.h"
-TIMEOUT = 120  # seconds, for the build and for the run
+TIMEOUT = 120  # seconds, for the build and for each run
 
 # (m, n, N_in, N_out, lam, with prior)
 SETS = [
@@ -49,7 +54,24 @@ SETS = [
     (41, 2, 40, 36, 0.999, True),
 ]
 
-CHILD = r"""
+# the log-determinants: (m, n, N, prior: "future" = prior + a reference's
+# future statistics, "prior", "none"); N chosen for blocks of 8, 4, 2 and
+# 1 warps on the stand-in card's 16 SMs (two particles per warp at m <= 24)
+LBM_SETS = [
+    (20, 1, 257, "future"),
+    (20, 1, 130, "none"),
+    (20, 2, 100, "future"),
+    (20, 2, 57, "none"),
+    (24, 2, 40, "prior"),
+    (9, 1, 33, "future"),
+    (6, 2, 20, "prior"),
+    (41, 1, 150, "future"),
+    (41, 1, 70, "none"),
+    (41, 2, 40, "future"),
+    (41, 2, 20, "prior"),
+]
+
+COMMON = r"""
 import ctypes, sys
 import numpy as np
 import torch
@@ -65,6 +87,7 @@ ck._stream = lambda device: None
 jitter = mniw._default_jitter(torch.float32)
 FP = ("mean", "col", "row", "logdet_T1", "logdet_Psi")
 DU = ("S_new", "y", "logdet_T1", "logdet_Psi")
+LD = ("logdet_T1", "logdet_Psi")
 
 
 def stats(rng, m, n, N):
@@ -100,6 +123,19 @@ def close(label, names, got, want, tol):
         assert err <= (1e-4 if k == "S_new" else tol), f"{label} {k}: {err:.3e} from the plain version"
 
 
+def future(rng, m, n, scale):
+    # a reference's future statistics: 30 rank-1 terms summed (f32), the
+    # offset the cSMC adds to the prior
+    phi = torch.as_tensor(rng.standard_normal((m, 30)) * scale)
+    y = torch.as_tensor(rng.standard_normal((n, 30))) + 0.3 * phi[:n]
+    return tuple(leaf.sum(-1).float() for leaf in mniw.suff_stat_bl(y, phi)[:3])
+
+
+def logdets(S, prior, m, n, entry):
+    return ck._logdets(entry, S, jitter, prior, m, n, getattr(lib, entry))[1]
+"""
+
+CHILD = COMMON + r"""
 checked = 0
 for spec in sys.argv[2:]:
     m, n, n_in, n_out, lam, with_prior = spec.split(",")
@@ -142,12 +178,89 @@ for spec in sys.argv[2:]:
 print(f"bitwise equal on {checked} sets", flush=True)
 """
 
+LBM_CHILD = COMMON + r"""
+checked = 0
+for spec in sys.argv[2:]:
+    m, n, N, kind = spec.split(",")
+    m, n, N = int(m), int(n), int(N)
+    rng = np.random.default_rng(1000 * m + 10 * n + N)
+    S, prior, _, scale = stats(rng, m, n, N)
+    if kind == "future":
+        prior = tuple(p + f for p, f in zip(prior, future(rng, m, n, scale)))
+    elif kind == "none":
+        prior = None
+    label = f"log-determinants m={m} n={n} N={N} prior={kind}"
+    warp = logdets(S, prior, m, n, "bipk_log_base_measure_packed")
+    per_thread = logdets(S, prior, m, n, "bipk_log_base_measure_packed_per_thread")
+    same(label, LD, warp, per_thread)
+    close(label, LD, per_thread, ck.log_base_measure_packed_logdets_plain(S, jitter, prior, m, n),
+          1e-3)
+    checked += 1
+print(f"bitwise equal on {checked} sets", flush=True)
+"""
+
+DEVICE_CHILD = COMMON + r"""
+lib.bipk_stub_set_device.argtypes = [ctypes.c_int]
+lib.bipk_stub_attribute_calls.argtypes = [ctypes.c_int, ctypes.c_void_p]
+
+
+def plan(mode, m, n, N):
+    out = [ctypes.c_int() for _ in range(3)]
+    assert lib.bipk_warp_mniw_plan(mode, m, n, N, *map(ctypes.byref, out)) == 0
+    return tuple(o.value for o in out)
+
+
+def attribute_calls(dev):
+    kernels = ctypes.c_int()
+    calls = lib.bipk_stub_attribute_calls(dev, ctypes.byref(kernels))
+    return calls, kernels.value
+
+
+rng = np.random.default_rng(7)
+data = {m: stats(rng, m, 1, 100) for m in (20, 41)}
+
+
+def launches():
+    # three instantiations: the look-ahead at m = 41 (a warp per particle)
+    # and the log-determinants at m = 41 and m = 20 (two per warp), each
+    # twice; the log-determinants held against the per-thread core
+    for m, (S, prior, _, scale) in data.items():
+        phi = torch.as_tensor(rng.standard_normal((m, 100)) * scale, dtype=torch.float32)
+        for _ in range(2):
+            if m == 41:
+                ck._factorize_project("fp", S, phi, jitter, 1.0, prior, m, 1,
+                                      launch=lib.bipk_factorize_project_packed)
+            same(f"log-determinants m={m} N=100",
+                 LD, logdets(S, prior, m, 1, "bipk_log_base_measure_packed"),
+                 logdets(S, prior, m, 1, "bipk_log_base_measure_packed_per_thread"))
+
+
+# card 0 (16 SMs): N = 200 at m = 41 would fill its SMs with 8-warp blocks
+lib.bipk_stub_set_device(0)
+launches()
+assert attribute_calls(0) == (3, 3), attribute_calls(0)
+assert attribute_calls(1) == (0, 0), attribute_calls(1)
+assert plan(0, 41, 1, 200)[0] == 8, plan(0, 41, 1, 200)
+# card 1 (132 SMs), after launches on card 0: one-warp blocks, planned
+# by card 1's own SM count, and the limit raised there once per kernel
+lib.bipk_stub_set_device(1)
+assert plan(0, 41, 1, 200)[:2] == (1, 1), plan(0, 41, 1, 200)
+assert plan(2, 20, 1, 200)[:2] == (1, 2), plan(2, 20, 1, 200)
+launches()
+assert attribute_calls(1) == (3, 3), attribute_calls(1)
+assert attribute_calls(0) == (3, 3), attribute_calls(0)
+lib.bipk_stub_set_device(0)
+assert plan(0, 41, 1, 200)[0] == 8, plan(0, 41, 1, 200)
+print("launch state kept per card", flush=True)
+"""
+
 
 def _host_sources(tmp_path):
     """The CUDA sources rewritten for the stub: each launch
     ``k<<<grid, threads, smem, stream>>>(args);`` becomes
     ``bipk_launch(grid, threads, smem, stream, [&] { k(args); });`` and the
-    dynamic shared-memory array the stub's block buffer."""
+    dynamic shared-memory array the stub's block buffer; plus one
+    translation unit with the stub's controls."""
     inc = tmp_path / "include"
     inc.mkdir()
     shutil.copy(STUB, inc / "cuda_runtime.h")
@@ -160,13 +273,18 @@ def _host_sources(tmp_path):
         assert "<<<" not in text and "__shared__" not in text, path.name
         (tmp_path / path.name).write_text(text)
         out.append(tmp_path / path.name)
-    return inc, [p for p in out if p.suffix == ".cu"]
+    controls = tmp_path / "stub_controls.cu"
+    controls.write_text('#define BIPK_STUB_CONTROLS\n#include "cuda_runtime.h"\n')
+    return inc, [p for p in out if p.suffix == ".cu"] + [controls]
 
 
-def test_warp_kernels_equal_the_per_thread_core_bit_for_bit(tmp_path):
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The kernels built for the host against the stub, once per module."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernels for the host")
+    tmp_path = tmp_path_factory.mktemp("warp_host")
     inc, srcs = _host_sources(tmp_path)
     lib = tmp_path / "libbipk_host.so"
     build = subprocess.run(
@@ -174,8 +292,34 @@ def test_warp_kernels_equal_the_per_thread_core_bit_for_bit(tmp_path):
          "-I", str(inc), "-x", "c++", *map(str, srcs), "-o", str(lib)],
         capture_output=True, text=True, timeout=TIMEOUT)
     assert build.returncode == 0, build.stderr[-4000:]
-    specs = [",".join(str(int(x) if isinstance(x, bool) else x) for x in s) for s in SETS]
-    run = subprocess.run([sys.executable, "-c", CHILD, str(lib), *specs], cwd=REPO,
+    return lib
+
+
+def _run(code, lib, specs, expect):
+    run = subprocess.run([sys.executable, "-c", code, str(lib), *specs], cwd=REPO,
                          capture_output=True, text=True, timeout=TIMEOUT)
     assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
-    assert f"bitwise equal on {len(SETS)} sets" in run.stdout
+    assert expect in run.stdout
+
+
+def _specs(sets):
+    return [",".join(str(int(x) if isinstance(x, bool) else x) for x in s) for s in sets]
+
+
+def test_warp_kernels_equal_the_per_thread_core_bit_for_bit(host_lib):
+    _run(CHILD, host_lib, _specs(SETS), f"bitwise equal on {len(SETS)} sets")
+
+
+def test_warp_log_determinants_equal_the_per_thread_core_bit_for_bit(host_lib):
+    """``bipk_log_base_measure_packed`` (the warp kernel's kLogdets mode)
+    against ``bipk_log_base_measure_packed_per_thread`` bit for bit, and the
+    per-thread core against the plain version at 1e-3."""
+    _run(LBM_CHILD, host_lib, _specs(LBM_SETS), f"bitwise equal on {len(LBM_SETS)} sets")
+
+
+def test_warp_launch_state_is_kept_per_card(host_lib):
+    """On the stub's two cards (16 and 132 SMs): the launch plan on card 1
+    after launches on card 0 follows card 1's SM count, and the dynamic
+    shared-memory limit is raised once per kernel instantiation on each
+    card, on that card."""
+    _run(DEVICE_CHILD, host_lib, [], "launch state kept per card")
