@@ -43,7 +43,10 @@ per-thread ``<24, kEmit>``, ``"[emit]<24>"``. The per-thread ``<24>`` and
 ``<48>`` look-ahead, draw and log-determinants stay compiled as the warp
 kernels' comparator (``*_per_thread`` below, counted as ``"<24>"`` /
 ``"<48>"``), which no wrapper calls. The factor pair and the dedup gather
-take m <= 24 only.
+take m <= 24 only. The resampler's wrapper launches the one-block scan
+kernel (``systematic_scan_kernel``); the per-thread kernel it replaced
+stays as its comparator (:func:`systematic_ancestors_blocks_per_thread`,
+counted as ``"_per_thread"``), which no wrapper calls either.
 The four unpacked wrappers
 (``UNPACKED``) take structured or flat ``T0, T1, T2`` leaves, or a given
 factor, and count their launches per instantiation too; they serve
@@ -79,7 +82,8 @@ _SIGNATURES = {
     "bipk_draw_update_dedup_gather_packed": [
         _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
     ],
-    "bipk_systematic_ancestors": [_P, _P, _I, _P, _P, _P],
+    "bipk_systematic_ancestors": [_P, _P, _I, _I, _P, _P],
+    "bipk_systematic_ancestors_per_thread": [_P, _P, _I, _P, _P, _P],
     "bipk_log_base_measure_packed": [_P, _P, _I, _I, _I, _F, _P, _P],
     "bipk_factorize_project_packed_per_thread": [
         _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P,
@@ -148,12 +152,15 @@ def _count(fn, m: int | None = None, mode: str = "", per_thread: bool = False) -
     instantiation that serves it, keyed like ``"<24>"``, ``"<24w>"`` /
     ``"<48w>"`` (the warp kernels of the ``WARP`` wrappers) or, with
     ``mode`` ``"[emit]"``, ``"[emit]<24>"``; ``per_thread``: the
-    per-thread comparator, ``"<24>"`` / ``"<48>"``."""
+    per-thread comparator, ``"<24>"`` / ``"<48>"``, or for the resampler
+    (no ``m``) ``"_per_thread"`` beside its scan kernel's ``""``."""
     fn.launches += 1
     if m is not None:
         width = next(w for w in WIDTHS if m <= w)
         warp = "w" if fn in WARP and not (mode or per_thread) else ""
         fn.launches_by_kernel[f"{mode}<{width}{warp}>"] += 1
+    elif fn in PER_INSTANTIATION:
+        fn.launches_by_kernel["_per_thread" if per_thread else ""] += 1
 
 
 def _check_mn(name: str, S: torch.Tensor, m: int, n: int, max_m: int = MAX_M) -> None:
@@ -253,26 +260,63 @@ def systematic_ancestors_blocks_plain(w, u, n):
     return resampling.systematic(w, u)
 
 
-def systematic_ancestors_blocks(w: torch.Tensor, u: torch.Tensor, n: int):
+def systematic_ancestors_blocks(w: torch.Tensor, u: torch.Tensor, n: int, *,
+                                resident: bool | None = None):
     """Sorted systematic-resampling ancestors ``(n,)`` int32 from the
     unnormalized non-log weights ``w (n,)`` and the uniform ``u`` (a
-    one-element tensor on w's device)."""
+    one-element tensor on w's device). On the card the kernel keeps the
+    weights and its rank array in shared memory where they fit (the
+    resident layout) and streams them otherwise; ``resident`` names the
+    layout instead, to time the two against each other (the same
+    ancestors; ``True`` raises where it does not fit)."""
     name = "systematic_ancestors_blocks"
-    if w.dim() != 1 or w.shape[0] != n or n < 1:
-        raise ValueError(f"{name}: w must be ({n},); got {tuple(w.shape)}")
+    _check_weights(name, w, n)
     if not _on_cuda(name, w):
         return systematic_ancestors_blocks_plain(w, u, n)
-    _require(name, w.device, torch.float32, w=(w, (n,)), u=(u.reshape(1), (1,)))
-    cc = torch.empty((n,), dtype=torch.int32, device=w.device)
-    anc = torch.empty((n,), dtype=torch.int32, device=w.device)
-    u1 = u.reshape(1)
-    rc = _lib().bipk_systematic_ancestors(
-        w.data_ptr(), u1.data_ptr(), n, cc.data_ptr(), anc.data_ptr(),
-        _stream(w.device),
-    )
+    layout = -1 if resident is None else int(resident)
+    rc, anc = _systematic(name, w, u, n, _lib().bipk_systematic_ancestors, layout)
     _count(systematic_ancestors_blocks)
     _check(rc, name)
     return anc
+
+
+def systematic_ancestors_blocks_per_thread(w: torch.Tensor, u: torch.Tensor, n: int):
+    """:func:`systematic_ancestors_blocks` through the per-thread kernel the
+    scan kernel replaced (``systematic_kernel_per_thread``): the same
+    ancestors, which the scan kernel must equal bit for bit. Counted as
+    ``"_per_thread"`` of :func:`systematic_ancestors_blocks`; no wrapper
+    calls it."""
+    name = "systematic_ancestors_blocks_per_thread"
+    _check_weights(name, w, n)
+    if not _on_cuda(name, w):
+        raise ValueError(f"{name}: the per-thread comparator runs on a CUDA tensor only")
+    rc, anc = _systematic(name, w, u, n, _lib().bipk_systematic_ancestors_per_thread)
+    _count(systematic_ancestors_blocks, per_thread=True)
+    _check(rc, name)
+    return anc
+
+
+def _check_weights(name, w, n):
+    if w.dim() != 1 or w.shape[0] != n or n < 1:
+        raise ValueError(f"{name}: w must be ({n},); got {tuple(w.shape)}")
+
+
+def _systematic(name, w, u, n, launch, layout=None):
+    """Check and launch a resampler through the C entry ``launch``: with a
+    ``layout`` (-1 by n, 0 streamed, 1 resident), that of
+    ``bipk_systematic_ancestors``; without, its per-thread comparator's,
+    which takes an n-int scratch for the cumulative counts instead.
+    Returns ``(rc, anc)``."""
+    u1 = u.reshape(1)
+    _require(name, w.device, torch.float32, w=(w, (n,)), u=(u1, (1,)))
+    anc = torch.empty((n,), dtype=torch.int32, device=w.device)
+    if layout is None:
+        cc = torch.empty((n,), dtype=torch.int32, device=w.device)
+        rc = launch(w.data_ptr(), u1.data_ptr(), n, cc.data_ptr(), anc.data_ptr(),
+                    _stream(w.device))
+    else:
+        rc = launch(w.data_ptr(), u1.data_ptr(), n, layout, anc.data_ptr(), _stream(w.device))
+    return rc, anc
 
 
 def _draw_update(name, S, anc, phi, u, v, jitter, lam, prior, p3, m, n, launch=None):
@@ -828,7 +872,9 @@ PACKED_MNIW = {
 # the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths
 UNPACKED = (factorize_blocks, factorize_project_blocks, project_blocks,
             log_base_measure_logdets)
-PER_INSTANTIATION = {**PACKED_MNIW, **{fn: ("<24>", "<48>") for fn in UNPACKED}}
+# the resampler's scan kernel ("") and per-thread comparator ("_per_thread")
+PER_INSTANTIATION = {**PACKED_MNIW, **{fn: ("<24>", "<48>") for fn in UNPACKED},
+                     systematic_ancestors_blocks: ("", "_per_thread")}
 
 
 def reset_launch_counts() -> None:
@@ -843,8 +889,9 @@ def launch_counts() -> dict:
     instantiation for the packed-MNIW and unpacked wrappers, keyed
     ``"<wrapper><24>"``, ``"<wrapper><24w>"`` / ``"<wrapper><48w>"`` (the
     warp kernels), ``"<wrapper><48>"`` and, for the factor-emitting projection,
-    ``"factorize_project_packed[emit]<24>"``; per wrapper for the
-    resampler."""
+    ``"factorize_project_packed[emit]<24>"``; for the resampler
+    ``"systematic_ancestors_blocks"`` (the scan kernel) and
+    ``"systematic_ancestors_blocks_per_thread"`` (its comparator)."""
     out = {}
     for fn in WRAPPERS:
         if fn in PER_INSTANTIATION:

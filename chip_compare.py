@@ -3,13 +3,17 @@
 
     python3 chip_compare.py BEFORE_DIR AFTER_DIR    # runs before, after, after, before
     python3 chip_compare.py BEFORE_DIR AFTER_DIR --oscillator    # its first three parts only
+    python3 chip_compare.py BEFORE_DIR AFTER_DIR --oscillator --rounds 5    # that order 5 times
+    python3 chip_compare.py BEFORE_DIR AFTER_DIR --vehicle-apf --rounds 5    # the vehicle APF only
 
 Each run is a child process in one checkout (it builds that checkout's
 kernels) that calls that checkout's ``chip_smoke.py`` phase functions: the
 oscillator online APF at 32768 particles x 749 steps (phase 10), the toy
 and oscillator Gibbs samplers at 200 particles (phase 12, 11 toy and 4
 oscillator sweeps) and the profile of the oscillator cSMC step (phase
-13); then the vehicle: its online APF at 32768 particles x 1499 steps
+13), and the resampler wrapper's host time per call at 200 particles
+(200 calls queued without waiting for the card, median of 10); then the
+vehicle (the resampler's host time again at 32768): its online APF at 32768 particles x 1499 steps
 (phase 4's body), its Gibbs sampler at 10240 particles x 1499 steps (a
 warm-up and two timed sweeps, phase 6), the profile of 100 cSMC steps
 (phase 7) and of 50 online APF steps (written out below on the APF's
@@ -17,13 +21,20 @@ public ``init`` / ``draws`` / ``step``, so that a checkout without
 ``profile_apf_steps`` runs it too). The APF prints its RMSE and ESS in
 full, so that two checkouts whose kernels agree bit for bit print the
 same digits. With ``--oscillator`` each run ends after the oscillator's
-three parts. Output lines are printed with the run's label, followed by
-the card's name and power limit. Two versions compare only within one
-such call. A failed run, or no card, ends the script with a non-zero
-exit.
+three parts, and with ``--vehicle-apf`` each runs the vehicle's online
+APF, the resampler's host time and the APF steps' profile only; with
+``--rounds R`` the order before, after, after, before runs R times. Output lines are printed with the run's label; at the end,
+for each figure every run prints (the APF's seconds, the medians of the
+sweeps, the cSMC step's device and unprofiled time, the resampler's
+host time), its values in run order and in how many of the adjacent
+before / after pairs the after run read higher; then the card's name and
+power limit. Two versions compare only within one such call. A failed
+run, or no card, ends the script with a non-zero exit.
 """
 
+import argparse
 import os
+import re
 import subprocess
 import sys
 
@@ -43,13 +54,32 @@ tb = time.perf_counter()
 _build.build()
 ck._lib()
 print(f"  build {time.perf_counter() - tb:.2f} s", flush=True)
-smi = sys.argv[1]
-models = cs.cs_models(dev)
-model, X, Y, U, (F,) = models["osc"]
-cs.osc_main_path(dev, model, X, Y, F, U, smi)
-cs.cs_gibbs_paths(dev, models, toy_iterations=11, osc_iterations=4, smi=smi)
-cs.profile_csmc_steps(dev, model, Y, U, X, (F,), cs.N_CS_GIBBS, steps=100)
-if sys.argv[2:] == ["--oscillator"]:
+smi, part = sys.argv[1], sys.argv[2]
+
+
+def resampler_host_time(n):
+    w_r = torch.softmax(torch.randn((n,), device=dev), 0)
+    u_r = torch.rand((1,), device=dev)
+    host = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        th = time.perf_counter()
+        for _ in range(200):
+            ck.systematic_ancestors_blocks(w_r, u_r, n)
+        host.append((time.perf_counter() - th) / 200 * 1e6)
+    torch.cuda.synchronize()
+    print(f"  resampler wrapper host time at {n} particles: {sorted(host[1:])[5]:.2f} us per "
+          "call", flush=True)
+
+
+if part != "--vehicle-apf":
+    models = cs.cs_models(dev)
+    model, X, Y, U, (F,) = models["osc"]
+    cs.osc_main_path(dev, model, X, Y, F, U, smi)
+    cs.cs_gibbs_paths(dev, models, toy_iterations=11, osc_iterations=4, smi=smi)
+    cs.profile_csmc_steps(dev, model, Y, U, X, (F,), cs.N_CS_GIBBS, steps=100)
+    resampler_host_time(cs.N_CS_GIBBS)
+if part == "--oscillator":
     sys.exit(0)
 
 # the vehicle
@@ -74,9 +104,11 @@ print(f"  vehicle APF {cs.N} particles x {steps} steps in {elapsed:.3f} s: "
 print(f"  vehicle APF ESS min {ess.min().item()!r} median {ess.median().item()!r} max "
       f"{ess.max().item()!r}; filtered-state RMSE "
       f"{[repr(x) for x in ((res.state_mean - X) ** 2).mean(0).sqrt().tolist()]}", flush=True)
-cs.gibbs_path(dev, model, X, Y, U, MU_F, cs.N_GIBBS, n_apf=256, n_iterations=4, smi=smi)
-cs.profile_csmc_steps(dev, model, Y, U, X, (MU_F[:, None], MU_R[:, None]), cs.N_GIBBS,
-                      steps=100)
+resampler_host_time(cs.N)
+if part != "--vehicle-apf":
+    cs.gibbs_path(dev, model, X, Y, U, MU_F, cs.N_GIBBS, n_apf=256, n_iterations=4, smi=smi)
+    cs.profile_csmc_steps(dev, model, Y, U, X, (MU_F[:, None], MU_R[:, None]), cs.N_GIBBS,
+                          steps=100)
 
 # 50 vehicle APF steps from one pinned carry: under CUDA's sync debug mode
 # "error", on the host's clock, and under torch.profiler
@@ -122,19 +154,60 @@ for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
 """
 
 
+# the figures summed up at the end: name, and a pattern of one number
+FIGURES = (
+    ("APF s", r"^\s*(?:vehicle APF )?32768 particles x \d+ steps in ([\d.]+) s"),
+    ("toy sweep s (median)", r"200 particles x 39 steps: .* median ([\d.]+)"),
+    ("osc sweep s (median)", r"200 particles x 749 steps: .* median ([\d.]+)"),
+    ("vehicle sweep s (median)", r"10240 particles x 1499 steps: .* median ([\d.]+)"),
+    ("cSMC step busy us", r"cSMC step at \d+ particles .* device busy ([\d.]+) us"),
+    ("cSMC step unprofiled us", r"cSMC step at \d+ particles .* unprofiled ([\d.]+) us"),
+    ("APF step busy us", r"APF step at \d+ particles .* device busy ([\d.]+) us"),
+    ("APF step unprofiled us", r"APF step at \d+ particles .* unprofiled ([\d.]+) us"),
+    ("resampler host us per call", r"resampler wrapper host time .*: ([\d.]+) us"),
+)
+
+
+def summary(runs):
+    """For each figure, its values in run order (a run may print several,
+    the oscillator's before the vehicle's) and, for each of them, the
+    adjacent before / after pairs in which the after run's is the
+    higher."""
+    for name, pattern in FIGURES:
+        rows = [(label, [float(m.group(1)) for line in out
+                         if (m := re.search(pattern, line))]) for label, out in runs]
+        if not all(v for _, v in rows):
+            continue
+        print(f"{name}: " + "; ".join(f"{label[0]} {', '.join(map(str, v))}"
+                                      for label, v in rows), flush=True)
+        pairs = [dict(rows[k:k + 2]) for k in range(0, len(rows) - 1, 2)]
+        for j in range(min(len(v) for _, v in rows)):
+            higher = sum(p["after"][j] > p["before"][j] for p in pairs)
+            print(f"  value {j + 1}: after higher in {higher} of {len(pairs)} before / after "
+                  "pairs", flush=True)
+
+
 def main() -> int:
-    if len(sys.argv) not in (3, 4) or sys.argv[3:] not in ([], ["--oscillator"]):
-        print(__doc__, file=sys.stderr)
-        return 2
-    before, after = (os.path.abspath(d) for d in sys.argv[1:3])
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("before")
+    parser.add_argument("after")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--oscillator", action="store_true")
+    only.add_argument("--vehicle-apf", action="store_true")
+    parser.add_argument("--rounds", type=int, default=1)
+    args = parser.parse_args()
+    before, after = os.path.abspath(args.before), os.path.abspath(args.after)
+    part = "--oscillator" if args.oscillator else "--vehicle-apf" if args.vehicle_apf else "all"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    runs = []
     for label, root in (("before", before), ("after", after), ("after", after),
-                        ("before", before)):
+                        ("before", before)) * args.rounds:
         print(f"== {label}: {root}", flush=True)
-        proc = subprocess.run([sys.executable, "-c", RUN, smi, *sys.argv[3:]], cwd=root,
+        proc = subprocess.run([sys.executable, "-c", RUN, smi, part], cwd=root,
                               text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               timeout=1200)
         for line in proc.stdout.splitlines():
@@ -143,6 +216,8 @@ def main() -> int:
             print(f"chip_compare: the {label} run failed (exit {proc.returncode})",
                   file=sys.stderr)
             return 1
+        runs.append((label, proc.stdout.splitlines()))
+    summary(runs)
     print(smi, flush=True)
     return 0
 

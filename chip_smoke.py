@@ -21,7 +21,15 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
    ancestors, and timed in turns with them (per-thread, warp, warp,
    per-thread) at 32768 and 10240, beside their registers, stack, launch
    plan and (the log-determinants) ``torch.linalg.cholesky_ex`` on the
-   same augmented matrices;
+   same augmented matrices. The resampler (the one-block scan kernel,
+   ``csrc/systematic.cu``) is held bit for bit against the per-thread
+   kernel it replaced on every weight set it resamples (the path weights
+   at 32768, 10240 and 256, n = 1, 7, 1000, 1025, 70001 with random,
+   first, last and zero mass, 2**20 random and one-hot weights, one +inf
+   weight) and timed in turns with it (per-thread, scan, scan,
+   per-thread; cold L2) at 32768 and 10240; its two layouts (resident,
+   streamed) are named, held bit for bit against each other and timed in
+   turns at 32768, 10240 and 200;
 3. path-vs-plain: the vehicle online APF, 32768 particles x 50 steps,
    through the kernels and through their plain versions with the same
    draws, over 10 seeds; the paired weighted means must agree;
@@ -48,7 +56,9 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
    set, with and without ancestors, and timed in turns with them
    (per-thread, warp, warp, per-thread) at N = 32768 and 200, beside their
    registers, stack, shared memory and (the log-determinants)
-   ``torch.linalg.cholesky_ex``;
+   ``torch.linalg.cholesky_ex``; the resampler bit for bit against its
+   per-thread kernel on every set it resamples here, and in turns with it
+   at N = 200;
 9. oscillator path-vs-plain: the single-mass oscillator's online APF
    (m = 41, one GP), 32768 particles x 50 steps, kernels and plain
    versions with the same draws, paired over 10 seeds;
@@ -113,7 +123,9 @@ template instantiation: its row in PERF.md's table, launches on the ten
 main paths, error against the plain version, times and bound; for the
 warp kernels also the per-thread kernels' times from the same turns, and
 both at the Gibbs paths' widths, 10240 particles at m = 20 and 200 at
-m = 40, 41; for the log-determinants ``library_ms``, the time of
+m = 40, 41; for the resampler the per-thread kernel's times from its
+turns at 32768, 10240 (``_gibbs``) and 200 (``_cs_gibbs``); for the
+log-determinants ``library_ms``, the time of
 ``torch.linalg.cholesky_ex`` on the same batch of augmented matrices, and
 ``device_ms`` / ``library_device_ms``, the kernel alone and that call on
 the card's time alone, the host's enqueue hidden);
@@ -153,7 +165,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 # the device functions of csrc/ (the profile's "hand-written kernels")
-OUR_KERNELS = ("packed_mniw_kernel", "systematic_kernel", "factor_gather_kernel",
+OUR_KERNELS = ("packed_mniw_kernel", "systematic_scan_kernel", "systematic_kernel",
+               "factor_gather_kernel",
                "dedup_gather_kernel", "unpacked_mniw_kernel", "project_kernel",
                "warp_mniw_kernel")
 
@@ -220,14 +233,66 @@ def rel_err(got, want):
     return d / max(scale, 1e-30), d
 
 
+def systematic_vs_per_thread(label, w, u, n):
+    """The scan resampler (the wrapper's kernel) against the per-thread
+    kernel it replaced on the same weights: both compute the same f32 cdf
+    operations in the same order (csrc/systematic.cu) and the rank in
+    integers, so the ancestors must be equal bit for bit. Returns them."""
+    got = ck.systematic_ancestors_blocks(w, u, n)
+    want = ck.systematic_ancestors_blocks_per_thread(w, u, n)
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    print(f"  {label} against the per-thread kernel: "
+          f"{'bitwise equal' if differ == 0 else f'{differ} of {n} slots differ'}", flush=True)
+    require(differ == 0, f"{label}: the scan resampler differs from the per-thread kernel "
+                         f"in {differ} of {n} slots")
+    return got
+
+
+def systematic_in_turns(label, w, u, n, flush):
+    """The scan resampler and the per-thread kernel timed in turns
+    (per-thread, scan, scan, per-thread; cold L2): ``(scan ms, per-thread
+    ms, bound ms)``, each time the mean of its two medians, the bound the
+    bytes moved (8n + 4) over the HBM rate."""
+    ms, ms_pt = in_turns(lambda: ck.systematic_ancestors_blocks(w, u, n),
+                         lambda: ck.systematic_ancestors_blocks_per_thread(w, u, n), flush)
+    bound = 4 * (2 * n + 1) / PEAK_BYTES_PER_S * 1e3
+    print(f"  systematic_ancestors_blocks {label} in turns: scan {ms:.4f} ms, per-thread "
+          f"{ms_pt:.4f} ms ({ms_pt / ms:.2f}x; bound {bound:.3g} ms)", flush=True)
+    return ms, ms_pt, bound
+
+
+def systematic_layouts(label, w, u, n, flush):
+    """The scan resampler's two layouts named at n (csrc/systematic.cu:
+    resident, the rows and the rank array in shared memory; streamed, rows
+    of 21 columns and the rank array in the output): the same ancestors bit
+    for bit, and their times in turns (streamed, resident, resident,
+    streamed; cold L2), ``(resident ms, streamed ms)``. The wrapper picks
+    the resident one wherever it fits."""
+    res = ck.systematic_ancestors_blocks(w, u, n, resident=True)
+    streamed = ck.systematic_ancestors_blocks(w, u, n, resident=False)
+    torch.cuda.synchronize()
+    differ = int((res != streamed).sum())
+    require(differ == 0, f"{label}: the resident and streamed layouts differ in {differ} "
+                         f"of {n} slots")
+    ms_r, ms_s = in_turns(lambda: ck.systematic_ancestors_blocks(w, u, n, resident=True),
+                          lambda: ck.systematic_ancestors_blocks(w, u, n, resident=False),
+                          flush)
+    print(f"  systematic_scan_kernel {label} layouts, bitwise equal, in turns: resident "
+          f"{ms_r:.4f} ms, streamed {ms_s:.4f} ms ({ms_s / ms_r:.2f}x)", flush=True)
+    return ms_r, ms_s
+
+
 def check_systematic(label, w, u, n):
-    """The systematic-resampling kernel against its plain version on the
-    same weights; returns both ancestor vectors. Tolerance
+    """The systematic-resampling kernel against the per-thread kernel it
+    replaced (:func:`systematic_vs_per_thread`, bit for bit) and against
+    its plain version on the same weights; returns the kernel's and the
+    plain version's ancestor vectors. Tolerance against the plain version
     (tests/test_resampling.py:110-121): the kernel's cdf sums in another
     order than torch.cumsum, so a grid point that ties a cdf value to
     within rounding moves one slot; offspring counts differ by <= 1 and
     at most 2% of the slots (one where n < 100) differ."""
-    anc_k = ck.systematic_ancestors_blocks(w, u, n)
+    anc_k = systematic_vs_per_thread(label, w, u, n)
     anc_p = ck.systematic_ancestors_blocks_plain(w, u, n)
     torch.cuda.synchronize()
     mism = int((anc_k != anc_p).sum())
@@ -258,8 +323,8 @@ def record_kernel(results, key, kernel_call, plain_call, bytes_moved, flops, max
     """Time a kernel and its plain version (cold L2) and keep them with
     the kernel's bound, the larger of bytes / HBM rate and flops / f32
     rate, under ``results[key]``. ``kernel_call`` None: the kernel's
-    ``ms`` is left to the warp kernels' timing in turns with the
-    per-thread ones, which follows."""
+    ``ms`` is left to its timing in turns with the per-thread kernel it
+    replaced, which follows."""
     ms = None if kernel_call is None else time_ms(kernel_call, flush=flush)
     plain_ms = time_ms(plain_call, flush=flush)
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
@@ -1171,9 +1236,11 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
         if name == "osc":
             results[WARP_KEYS["lbm"]].update(packed_yardstick(
                 f"{label} (prior + future)", S_g, jitter, prior_eff, m, n, flush, "_gibbs"))
-        print(f"  systematic_ancestors_blocks {label}: "
-              f"{time_ms(lambda: ck.systematic_ancestors_blocks(res.weights[-1], u_res, N_CS_GIBBS), flush=flush):.4f}"
-              f" ms (bound {bounds['systematic']:.3g} ms)", flush=True)
+        ms, ms_pt, _ = systematic_in_turns(label, res.weights[-1], u_res, N_CS_GIBBS, flush)
+        if name == "osc":  # the cs Gibbs width of the line's row 2
+            results["systematic_ancestors_blocks"].update(
+                ms_cs_gibbs=ms, per_thread_ms_cs_gibbs=ms_pt,
+                bound_ms_cs_gibbs=bounds["systematic"])
 
     # partly-NaN weights: the clip keeps NaN, the mass is NaN, and the
     # ancestors are uniform (0, 1, ..., n-1) as the plain version gives
@@ -1181,7 +1248,8 @@ def cs_kernel_checks(dev, cs, results, jitter, flush):
     for n_w in (N_CS_GIBBS, N):
         w_nan = torch.softmax(torch.randn((n_w,), generator=gen, device=dev), 0)
         w_nan[::7] = float("nan")
-        anc_k = ck.systematic_ancestors_blocks(w_nan, half, n_w)
+        anc_k = systematic_vs_per_thread(f"systematic_ancestors_blocks n={n_w}, every 7th "
+                                         "weight NaN", w_nan, half, n_w)
         anc_p = ck.systematic_ancestors_blocks_plain(w_nan, half, n_w)
         uniform = torch.arange(n_w, device=dev, dtype=torch.int32)
         ok = bool(torch.equal(anc_k, uniform)) and bool(torch.equal(anc_p, uniform))
@@ -2227,13 +2295,18 @@ def main() -> int:
            lambda: ck.factorize_project_packed_plain(S, phi, jitter, LAM, prior, m=M, n=NN),
            packed_bytes(M, NN, N)[0], N * core_flops, max_abs)
 
-    # K2: systematic resampling
+    # K2: systematic resampling, the scan kernel timed in turns with the
+    # per-thread kernel it replaced, and its two layouts against each other
+    # at the paths' widths
+    for n_l in (N, N_GIBBS, N_CS_GIBBS):
+        systematic_layouts(f"n={n_l}", w[:n_l].contiguous(), u_res, n_l, flush)
     anc_k, anc_p = check_systematic("systematic_ancestors_blocks", w, u_res, N)
-    record(ck.systematic_ancestors_blocks,
-           lambda: ck.systematic_ancestors_blocks(w, u_res, N),
+    record(ck.systematic_ancestors_blocks, None,
            lambda: ck.systematic_ancestors_blocks_plain(w, u_res, N),
            f4 * (2 * N + 1), N * (4 + int(math.log2(N))),
            float((anc_k - anc_p).abs().max()))
+    r = results["systematic_ancestors_blocks"]
+    r["ms"], r["per_thread_ms"], _ = systematic_in_turns(f"N={N}", w, u_res, N, flush)
 
     # K3: draw + update (identity ancestors); the Gibbs slice's entry point
     du_k = ck.draw_update_packed_blocks(S, phi, u, v, jitter, LAM, prior, p3, m=M, n=NN)
@@ -2328,11 +2401,13 @@ def main() -> int:
             "draw_update_gather_packed_blocks": packed_bytes(M, NN, width, distinct)[1],
         }
         bounds = {k: b / PEAK_BYTES_PER_S * 1e3 for k, b in bounds.items()}
+        ms, ms_pt, bound = systematic_in_turns(f"N={width}", w_w, u_res, width, flush)
+        if width == N_GIBBS:
+            results["systematic_ancestors_blocks"].update(
+                ms_gibbs=ms, per_thread_ms_gibbs=ms_pt, bound_ms_gibbs=bound)
         for name, call in (
             ("factorize_project_packed", lambda: ck.factorize_project_packed(
                 S_w, phi_w, jitter, 1.0, prior, m=M, n=NN)),
-            ("systematic_ancestors_blocks", lambda: ck.systematic_ancestors_blocks(
-                w_w, u_res, width)),
             ("draw_update_gather_packed_blocks", lambda: ck.draw_update_gather_packed_blocks(
                 S_w, anc_w, phi_w, u_w, v_w, jitter, 1.0, prior, p3, m=M, n=NN)),
         ):
@@ -2389,6 +2464,34 @@ def main() -> int:
                     w_e[0 if kind == "first" else -1] = 1.0
             check_systematic(f"systematic_ancestors_blocks n={n_w} ({kind} weights)",
                              w_e, u_res, n_w)
+    # the bitwise gate alone where the plain version has no answer within
+    # check_systematic's tolerance: 2**20 weights (benchmarks/bench_1m.py's
+    # size, where any two f32 summation orders move ~10% of the slots),
+    # random and one-hot; one +inf weight (the plain version's counts then
+    # hold NaN, which index_add_ refuses; the kernels' cdf is NaN from it
+    # on, so this also holds the card's NaN-to-int conversion to the
+    # comparator's clamp). A generator of its own, so later phases draw
+    # what the parent's draw
+    g_sys = torch.Generator(device=dev).manual_seed(31)
+    n_big = 1 << 20
+    for kind in ("random", "one-hot"):
+        if kind == "random":
+            w_big = torch.softmax(4.0 * torch.randn((n_big,), generator=g_sys, device=dev), 0)
+        else:
+            w_big = torch.zeros((n_big,), device=dev)
+            w_big[n_big // 2] = 1.0
+        systematic_vs_per_thread(f"systematic_ancestors_blocks n={n_big} ({kind} weights)",
+                                 w_big, u_res, n_big)
+        if kind == "random":  # Queue A 7's size, printed only
+            flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
+            systematic_in_turns(f"n={n_big}", w_big, u_res, n_big, flush)
+            del flush
+    del w_big
+    for n_w in (7, 1025, 70001):
+        w_inf = torch.rand((n_w,), generator=g_sys, device=dev)
+        w_inf[n_w // 3] = float("inf")
+        systematic_vs_per_thread(f"systematic_ancestors_blocks n={n_w} (one +inf weight)",
+                                 w_inf, u_res, n_w)
     print("  edge shapes: all kernels agree with their plain versions", flush=True)
     phase_done("kernels", t0)
 

@@ -1,7 +1,9 @@
 // A stand-in for <cuda_runtime.h> that runs the port's CUDA kernels on
-// the host, for tests/test_torch_warp_rehearsal.py. Every CUDA thread is a
-// host thread: a launch runs its blocks one after another, each block's
-// threads together; __syncthreads is a barrier of the block, __syncwarp
+// the host, for tests/test_torch_warp_rehearsal.py and
+// tests/test_torch_systematic_rehearsal.py. Every CUDA thread is a
+// host thread (from a pool kept between launches): a launch runs its
+// blocks one after another, each block's threads together;
+// __syncthreads is a barrier of the block, __syncwarp
 // one of the warp, and a shuffle writes each lane's value to an exchange
 // array of its warp between two warp barriers. The dynamic shared memory
 // of a block is one host buffer, filled with NaN so that a read of an
@@ -25,6 +27,7 @@
 #include <stdint.h>
 
 #include <barrier>
+#include <condition_variable>
 #include <cstring>
 #include <functional>
 #include <limits>
@@ -48,6 +51,13 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 struct CUstream_st;
 typedef CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
@@ -113,6 +123,20 @@ inline T __shfl_sync(unsigned, T value, int src, int width = 32) {
   return value;
 }
 
+// value of lane (lane - delta) of the caller's warp; a lane below delta
+// keeps its own
+template <class T>
+inline T __shfl_up_sync(unsigned mask, T value, unsigned delta) {
+  const int lane = (int)(threadIdx.x % 32);
+  return __shfl_sync(mask, value, lane >= (int)delta ? lane - (int)delta : lane);
+}
+
+// value of lane (lane ^ lane_mask) of the caller's warp
+template <class T>
+inline T __shfl_xor_sync(unsigned mask, T value, int lane_mask) {
+  return __shfl_sync(mask, value, (int)(threadIdx.x % 32) ^ lane_mask);
+}
+
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
@@ -122,6 +146,10 @@ template <class A, class B>
 inline auto min(A a, B b) {
   return a < b ? a : b;
 }
+template <class A, class B>
+inline auto max(A a, B b) {
+  return a < b ? b : a;
+}
 
 inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
 inline float cospif(float x) { return cosf(3.14159265358979f * x); }
@@ -129,6 +157,15 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return a * b + c; }
+// the card's float-to-int conversion rounding up: NaN gives 0, values
+// past the int range its ends
+inline int __float2int_ru(float x) {
+  if (x != x) return 0;
+  const float c = ceilf(x);
+  if (c >= 2147483648.f) return std::numeric_limits<int>::max();
+  if (c < -2147483648.f) return std::numeric_limits<int>::min();
+  return (int)c;
+}
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* dev) {
@@ -168,6 +205,57 @@ extern "C" int bipk_stub_attribute_calls(int dev, int* kernels) {
 }
 #endif
 
+namespace bipk_stub {
+
+// The host threads that run a block's CUDA threads, kept from one launch
+// to the next (creating 1024 of them took most of a launch's time):
+// worker i runs CUDA thread i of each block, and run() returns when every
+// one of the n has finished.
+class Pool {
+ public:
+  void run(int n, const std::function<void(int)>& job) {
+    std::unique_lock<std::mutex> lock(mutex_);
+    while ((int)workers_ < n) {
+      std::thread([this, id = workers_, seen = generation_] { work(id, seen); }).detach();
+      ++workers_;
+    }
+    job_ = &job;
+    active_ = pending_ = n;
+    ++generation_;
+    start_.notify_all();
+    done_.wait(lock, [this] { return pending_ == 0; });
+  }
+
+ private:
+  void work(int id, unsigned seen) {
+    std::unique_lock<std::mutex> lock(mutex_);
+    for (;;) {
+      start_.wait(lock, [&] { return generation_ != seen; });
+      seen = generation_;
+      if (id >= active_) continue;
+      const std::function<void(int)>* job = job_;
+      lock.unlock();
+      (*job)(id);
+      lock.lock();
+      if (--pending_ == 0) done_.notify_one();
+    }
+  }
+
+  std::mutex mutex_;
+  std::condition_variable start_, done_;
+  const std::function<void(int)>* job_ = nullptr;
+  int workers_ = 0, active_ = 0, pending_ = 0;
+  unsigned generation_ = 0;
+};
+
+// never destroyed: its detached workers wait on it until the process ends
+inline Pool& pool() {
+  static Pool* const p = new Pool;
+  return *p;
+}
+
+}  // namespace bipk_stub
+
 // kernel<<<grid, threads, smem, stream>>>(args) becomes
 // bipk_launch(grid, threads, smem, stream, [&] { kernel(args); })
 inline void bipk_launch(dim3 grid, dim3 threads, size_t smem_bytes, cudaStream_t,
@@ -175,18 +263,13 @@ inline void bipk_launch(dim3 grid, dim3 threads, size_t smem_bytes, cudaStream_t
   const int n = (int)threads.x;
   for (unsigned b = 0; b < grid.x; ++b) {
     bipk_stub::Block blk(n, smem_bytes);
-    std::vector<std::thread> pool;
-    pool.reserve(n);
-    for (int t = 0; t < n; ++t) {
-      pool.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim = threads;
-        gridDim = grid;
-        bipk_stub::block = &blk;
-        body();
-      });
-    }
-    for (auto& th : pool) th.join();
+    bipk_stub::pool().run(n, [&](int t) {
+      threadIdx.x = t;
+      blockIdx.x = b;
+      blockDim = threads;
+      gridDim = grid;
+      bipk_stub::block = &blk;
+      body();
+    });
   }
 }

@@ -190,6 +190,9 @@ class _CardTensor:
     def data_ptr(self):
         return 0
 
+    def reshape(self, *shape):
+        return _CardTensor(*shape, dtype=self.dtype)
+
 
 def _entry_point_call(name, m, n, dtype):
     from bipk_tpu_torch.ops import mniw
@@ -340,8 +343,9 @@ def test_per_thread_comparator_is_called_by_no_module_of_the_port():
     from outside the package)."""
     names = ("factorize_project_packed_per_thread", "draw_update_gather_packed_blocks_per_thread",
              "log_base_measure_packed_logdets_per_thread",
+             "systematic_ancestors_blocks_per_thread",
              "bipk_factorize_project_packed_per_thread", "bipk_draw_update_packed_per_thread",
-             "bipk_log_base_measure_packed_per_thread")
+             "bipk_log_base_measure_packed_per_thread", "bipk_systematic_ancestors_per_thread")
     for path in sorted((REPO / "bipk_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         own = set()
@@ -356,6 +360,51 @@ def test_per_thread_comparator_is_called_by_no_module_of_the_port():
                 assert id(node) in own, (path, text, node.lineno)
 
 
+@pytest.mark.parametrize("n", [1, 200, 32768, 1 << 20])
+def test_resampler_reaches_the_scan_kernel_only(monkeypatch, n):
+    """On a CUDA tensor the resampler's wrapper reaches the scan kernel's
+    C entry (``bipk_systematic_ancestors``) and counts it under its own
+    key; the per-thread comparator reaches its own entry and counts under
+    ``"systematic_ancestors_blocks_per_thread"``, which no path launch
+    touches."""
+    lib = _recording_lib(monkeypatch)
+    w, u = _CardTensor(n), _CardTensor(1)
+    ck.reset_launch_counts()
+    try:
+        ck.systematic_ancestors_blocks(w, u, n)
+        path = ck.launch_counts()
+        ck.systematic_ancestors_blocks_per_thread(w, u, n)
+        both = ck.launch_counts()
+    finally:
+        ck.reset_launch_counts()
+    assert lib.called == ["bipk_systematic_ancestors", "bipk_systematic_ancestors_per_thread"]
+    assert path["systematic_ancestors_blocks"] == 1
+    assert path["systematic_ancestors_blocks_per_thread"] == 0
+    assert sum(path.values()) == 1
+    assert both["systematic_ancestors_blocks"] == 1
+    assert both["systematic_ancestors_blocks_per_thread"] == 1
+    assert sum(both.values()) == 2
+
+
+@pytest.mark.parametrize("resident,layout", [(None, -1), (False, 0), (True, 1)])
+def test_resampler_layout_reaches_the_entry(monkeypatch, resident, layout):
+    """``resident`` of the resampler's wrapper reaches its C entry as the
+    layout (-1: the entry's choice by n, 0: streamed, 1: resident), and
+    every layout counts as the scan kernel."""
+    _recording_lib(monkeypatch)
+    seen = []
+    monkeypatch.setattr(ck, "_lib", lambda: type("Lib", (), {
+        "bipk_systematic_ancestors": staticmethod(lambda *args: seen.append(args) or 0)}))
+    ck.reset_launch_counts()
+    try:
+        ck.systematic_ancestors_blocks(_CardTensor(200), _CardTensor(1), 200, resident=resident)
+        counts = ck.launch_counts()
+    finally:
+        ck.reset_launch_counts()
+    assert [args[2:4] for args in seen] == [(200, layout)]
+    assert counts["systematic_ancestors_blocks"] == 1 and sum(counts.values()) == 1
+
+
 def test_per_thread_comparator_needs_a_card():
     S = torch.zeros((ck.mniw.packed_rows(41, 1), 4))
     phi, u = torch.zeros((41, 4)), torch.zeros((1, 4))
@@ -365,6 +414,8 @@ def test_per_thread_comparator_needs_a_card():
         ck.draw_update_gather_packed_blocks_per_thread(S, None, phi, u, u, 0.0, m=41, n=1)
     with pytest.raises(ValueError, match="CUDA tensor only"):
         ck.log_base_measure_packed_logdets_per_thread(S, 0.0, m=41, n=1)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        ck.systematic_ancestors_blocks_per_thread(torch.ones(7), torch.zeros(1), 7)
 
 
 def test_kernels_take_decides_by_device_dtype_and_width():
