@@ -22,9 +22,9 @@
 //     _du_factor_gather_kernel (:560): the gathered draw/update reading
 //     L and white from LW[:, anc[j]] instead of factoring again
 //     (factor_gather_kernel below, m <= 24).
-// The first four are compiled twice (as the comparator of the warp
-// kernels, see below): packed_mniw_kernel<24, MODE> serves m <= 24,
-// the widths of the TPU's tiled kernels above;
+// All are compiled here as the comparator of the warp kernels (see
+// below): packed_mniw_kernel<24, MODE> and factor_gather_kernel serve
+// m <= 24, the widths of the TPU's tiled kernels above;
 // packed_mniw_kernel<48, MODE> covers 24 < m <= 48 (the toy, m = 40, and
 // the single-mass oscillator, m = 41), the widths of the TPU's cs-layout
 // kernels: _cs_call (:2454) with _cs_fp_kernel (:2322), _cs_lbm_kernel
@@ -34,20 +34,21 @@
 //
 // At both widths the wrappers' look-ahead, draw and log-determinants (the
 // first four above; _cs_fp_kernel, _cs_lbm_kernel, _cs_du_kernel and
-// _cs_du_gather_kernel) run the warp-per-particle kernels of warp_mniw.cu
+// _cs_du_gather_kernel), and at m <= 24 the factor pair (the last two),
+// run the warp-per-particle kernels of warp_mniw.cu
 // (launch_warp_mniw below): two particles per warp at m <= 24, one above,
 // the augmented factor in shared memory, the forward substitutions riding
 // along with a left-looking Cholesky. The instructions a particle's lanes
 // issue bound them, not HBM; at m = 20 they take ~1/2 of the per-thread
 // kernels' time at N = 32768 and ~1/3 at N = 10240, at m = 41 ~1/3 at
 // N = 32768 and ~1/15 at N = 200 (PERF.md). They are bit for bit equal to
-// packed_mniw_kernel<24 | 48, kProject / kDraw / kLogdets>: each entry is
-// the same f32 operations in the same order, with the roundings nvcc gives
-// this core written out (warp_mniw.cu). Those per-thread kernels stay
-// compiled as their comparator, behind the bipk_*_per_thread entries
-// below; no wrapper reaches them, and chip_smoke.py holds the warp kernels
-// against them (phases 2 and 8). The factor-emitting look-ahead keeps
-// packed_mniw_kernel<24, kEmit>.
+// packed_mniw_kernel<24 | 48, kProject / kDraw / kLogdets>, <24, kEmit>
+// and factor_gather_kernel: each entry is the same f32 operations in the
+// same order, with the roundings nvcc gives these kernels written out
+// (warp_mniw.cu). Those per-thread kernels stay compiled as their
+// comparator, behind the bipk_*_per_thread entries below; no wrapper
+// reaches them, and chip_smoke.py holds the warp kernels against them
+// (phases 2, 8 and 14).
 //
 // Layout. S is (rows, N) row-major with rows
 // [T0 (m*n) | column-major tril(T1) | tril(T2) | T3] and the particle index
@@ -90,15 +91,14 @@
 //
 // The factor pair (m = 20, n = 1, rows_lw = m(m+1)/2 + m = 230). kEmit is
 // kProject plus one write of LW, 30 MB at N = 32768: ~64 MB in all, 19 us
-// at 3.35 TB/s, and the same Cholesky in local memory as kProject, so it
-// should cost what kProject costs. factor_gather_kernel reads S and LW of
-// each distinct ancestor (up to 60 MB) and writes S_new (30 MB): ~28 us
-// with every column distinct. It does no Cholesky: a forward substitution
-// of phi reads L row by row from LW (LW's row-major order makes the walk
-// one row after the next), white is read once for Psi and the mean, and
-// each thread keeps only phi[m] and v[m]. The m(m+1)/2 array, whose
-// dependent local loads bound #4, is gone; what remains is m^2/2
-// dependent global loads, coalesced across the warp. Times: PERF.md.
+// at 3.35 TB/s. factor_gather_kernel reads S and LW of each distinct
+// ancestor (up to 60 MB) and writes S_new (30 MB): ~28 us with every
+// column distinct. It does no Cholesky: a forward substitution of phi
+// reads L row by row from LW, white is read once for Psi and the mean,
+// and each thread keeps only phi[m] and v[m]; what remains is m^2/2
+// dependent global loads. Both per-thread versions ran 17-20x their byte
+// bound on the card, and the warp kernel's kEmit and kReuse now take
+// their place on the wrappers' path (PERF.md).
 //
 // C interface (loaded with ctypes): every function launches on the given
 // stream, never synchronises, allocates nothing, and returns
@@ -109,7 +109,9 @@
 using namespace bipk_mniw;
 
 namespace bipk_mniw {
-// the warp-per-particle look-ahead and draw, 1 <= m <= 48 (warp_mniw.cu)
+// the warp-per-particle kernel in `mode`: the look-ahead, the draw and the
+// log-determinants at 1 <= m <= 48, the factor pair (kEmit, kReuse) at
+// m <= 24 (warp_mniw.cu)
 int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream);
 }  // namespace bipk_mniw
 
@@ -220,9 +222,7 @@ bool bad_shape(const Args& a, int max_m) {
 }
 
 // launch_per_thread: packed_mniw_kernel<24, MODE> for m <= 24, else
-// <48, MODE> (the factor-emitting projection on the wrappers' path; the
-// look-ahead, the draw and the log-determinants as the comparator of the
-// warp kernels)
+// <48, MODE>: the comparator of the warp kernels
 template <int MODE>
 int launch_per_thread(const Args& a, cudaStream_t stream) {
   // the factor pair serves m <= 24 only, as the TPU's (supported_factor)
@@ -235,18 +235,6 @@ int launch_per_thread(const Args& a, cudaStream_t stream) {
     packed_mniw_kernel<48, MODE><<<grid, kThreads, 0, stream>>>(a);
   }
   return (int)cudaGetLastError();
-}
-
-// what the wrappers launch: the look-ahead, the draw and the
-// log-determinants take the warp kernels (warp_mniw.cu) at every width, the
-// factor-emitting look-ahead the per-thread one
-template <int MODE>
-int launch(const Args& a, cudaStream_t stream) {
-  if constexpr (MODE == kProject || MODE == kDraw || MODE == kLogdets) {
-    return launch_warp_mniw(a, MODE, stream);
-  } else {
-    return launch_per_thread<MODE>(a, stream);
-  }
 }
 
 Args project_args(const float* S, const float* phi, const float* prior, int n_particles,
@@ -271,6 +259,15 @@ Args draw_args(const float* S, int n_in, const int* anc, int n_out, const float*
   return a;
 }
 
+// the factor-gather draw: jitter is not read (it is in LW)
+Args factor_gather_args(const float* S, const float* LW, int n_in, const int* anc, int n_out,
+                        const float* phi, const float* u, const float* v, const float* prior,
+                        float p3, int m, int n, float lam, float* S_new, float* y, float* ld) {
+  Args a = draw_args(S, n_in, anc, n_out, phi, u, v, prior, p3, m, n, 0.f, lam, S_new, y, ld);
+  a.lw = LW;
+  return a;
+}
+
 // lam = 1 at run time, as the per-thread core reads it: scaled_prior and
 // the core still round the product raw * lam, exactly
 Args logdets_args(const float* S, const float* prior, int n_particles, int m, int n,
@@ -290,8 +287,7 @@ extern "C" int bipk_factorize_project_packed(
     float* row, float* ld, float* lw, void* stream) {
   Args a = project_args(S, phi, prior, n_particles, m, n, jitter, lam, mean, col, row, ld);
   a.lw_out = lw;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return lw ? launch<kEmit>(a, s) : launch<kProject>(a, s);
+  return launch_warp_mniw(a, lw ? kEmit : kProject, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bipk_draw_update_packed(
@@ -299,24 +295,24 @@ extern "C" int bipk_draw_update_packed(
     const float* u, const float* v, const float* prior, float p3, int m,
     int n, float jitter, float lam, float* S_new, float* y, float* ld,
     void* stream) {
-  return launch<kDraw>(draw_args(S, n_in, anc, n_out, phi, u, v, prior, p3, m, n, jitter,
-                                 lam, S_new, y, ld),
-                       static_cast<cudaStream_t>(stream));
+  return launch_warp_mniw(draw_args(S, n_in, anc, n_out, phi, u, v, prior, p3, m, n, jitter,
+                                    lam, S_new, y, ld),
+                          kDraw, static_cast<cudaStream_t>(stream));
 }
 
 // The comparator: the per-thread packed_mniw_kernel<24, kProject / kDraw>
-// for m <= 24 and <48, kProject / kDraw> above, which the warp kernels
-// replace on the wrappers' path and must equal bit for bit. chip_smoke.py
-// calls these entries (and bipk_log_base_measure_packed_per_thread below);
-// no wrapper does.
+// for m <= 24 and <48, kProject / kDraw> above, and with lw <24, kEmit>,
+// which the warp kernels replace on the wrappers' path and must equal bit
+// for bit. chip_smoke.py calls these entries (and the other
+// *_per_thread ones below); no wrapper does.
 extern "C" int bipk_factorize_project_packed_per_thread(
     const float* S, const float* phi, const float* prior, int n_particles,
     int m, int n, float jitter, float lam, float* mean, float* col,
     float* row, float* ld, float* lw, void* stream) {
-  if (lw) return (int)cudaErrorInvalidValue;  // no factor to emit
-  return launch_per_thread<kProject>(
-      project_args(S, phi, prior, n_particles, m, n, jitter, lam, mean, col, row, ld),
-      static_cast<cudaStream_t>(stream));
+  Args a = project_args(S, phi, prior, n_particles, m, n, jitter, lam, mean, col, row, ld);
+  a.lw_out = lw;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return lw ? launch_per_thread<kEmit>(a, s) : launch_per_thread<kProject>(a, s);
 }
 
 extern "C" int bipk_draw_update_packed_per_thread(
@@ -334,11 +330,22 @@ extern "C" int bipk_draw_update_factor_gather_packed(
     const float* phi, const float* u, const float* v, const float* prior,
     float p3, int m, int n, float lam, float* S_new, float* y, float* ld,
     void* stream) {
-  Args a = {};
-  a.S = S; a.lw = LW; a.anc = anc; a.phi = phi; a.u = u; a.v = v;
-  a.prior = prior; a.n_in = n_in; a.n_out = n_out; a.m = m; a.n = n;
-  a.lam = lam; a.p3 = p3;
-  a.S_new = S_new; a.y = y; a.ld = ld;
+  const Args a = factor_gather_args(S, LW, n_in, anc, n_out, phi, u, v, prior, p3, m, n, lam,
+                                    S_new, y, ld);
+  if (bad_shape(a, 24) || !anc || !LW) return (int)cudaErrorInvalidValue;
+  return launch_warp_mniw(a, kReuse, static_cast<cudaStream_t>(stream));
+}
+
+// The comparator of the warp kernel's factor-gather draw (kReuse): the
+// per-thread factor_gather_kernel, which chip_smoke.py calls and no
+// wrapper does.
+extern "C" int bipk_draw_update_factor_gather_packed_per_thread(
+    const float* S, const float* LW, int n_in, const int* anc, int n_out,
+    const float* phi, const float* u, const float* v, const float* prior,
+    float p3, int m, int n, float lam, float* S_new, float* y, float* ld,
+    void* stream) {
+  const Args a = factor_gather_args(S, LW, n_in, anc, n_out, phi, u, v, prior, p3, m, n, lam,
+                                    S_new, y, ld);
   if (bad_shape(a, 24) || !anc || !LW) return (int)cudaErrorInvalidValue;
   if (n_out == 0) return (int)cudaGetLastError();
   const dim3 grid((n_out + kThreads - 1) / kThreads);
@@ -349,7 +356,7 @@ extern "C" int bipk_draw_update_factor_gather_packed(
 extern "C" int bipk_log_base_measure_packed(
     const float* S, const float* prior, int n_particles, int m, int n,
     float jitter, float* ld, void* stream) {
-  return launch<kLogdets>(logdets_args(S, prior, n_particles, m, n, jitter, ld),
+  return launch_warp_mniw(logdets_args(S, prior, n_particles, m, n, jitter, ld), kLogdets,
                           static_cast<cudaStream_t>(stream));
 }
 

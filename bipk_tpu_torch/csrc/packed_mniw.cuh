@@ -21,8 +21,10 @@ constexpr int kThreads = 128;
 // What a launch computes: the projection at phi (factorize_project), the
 // draw and the rank-1 update (draw_update), the log-determinants alone, or
 // the projection plus the factor LW (factorize_project with emit_factor),
-// or the factor itself, chol / white / row (factorize_blocks).
-enum Mode { kProject = 0, kDraw = 1, kLogdets = 2, kEmit = 3, kFactor = 4 };
+// or the factor itself, chol / white / row (factorize_blocks), or the
+// draw and the update with the factor read from LW (the factor-gather
+// draw; a mode of the warp kernel only, warp_mniw.cu).
+enum Mode { kProject = 0, kDraw = 1, kLogdets = 2, kEmit = 3, kFactor = 4, kReuse = 5 };
 
 __device__ __forceinline__ int tri_off(int j, int m) {
   // offset of column j's diagonal in a column-major packed lower triangle
@@ -36,7 +38,7 @@ struct Args {
   const float* u;       // (n, n_out) raw uniforms (draw only)
   const float* v;       // (n, n_out)
   const float* prior;   // [P0 | P1 | P2] or nullptr
-  const float* lw;      // factor-gather input LW (m(m+1)/2 + m*n, n_in)
+  const float* lw;      // kReuse input LW (m(m+1)/2 + m*n, n_in)
   const float* T0;      // unpacked statistics (m*n, n_in), (m*m, n_in),
   const float* T1;      //   (n*n, n_in): structured (m, n, N) etc. or
   const float* T2;      //   flat (m*n, N) etc., the same memory

@@ -16,7 +16,8 @@ wrapper                                     CUDA source
                                             ``csrc/warp_mniw.cu``
 ``log_base_measure_packed_logdets``         ``csrc/packed_mniw.cu``,
                                             ``csrc/warp_mniw.cu``
-``draw_update_factor_gather_packed_blocks`` ``csrc/packed_mniw.cu``
+``draw_update_factor_gather_packed_blocks`` ``csrc/packed_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
 ``draw_update_dedup_gather_packed_blocks``  ``csrc/dedup_gather.cu``
 ``factorize_blocks``                        ``csrc/unpacked_mniw.cu``
 ``factorize_project_blocks``                ``csrc/unpacked_mniw.cu``
@@ -38,12 +39,13 @@ TPU's tiled kernels, ``<48>`` for 24 < m <= 48, the counterpart of its
 cs-layout ``_cs_call`` / ``_cs_du_gather_call``). The look-ahead, the
 draw and the log-determinants run the warp-per-particle
 ``warp_mniw_kernel`` (``csrc/warp_mniw.cu``) at both widths, counted as
-``"<24w>"`` and ``"<48w>"``; the factor-emitting projection runs the
-per-thread ``<24, kEmit>``, ``"[emit]<24>"``. The per-thread ``<24>`` and
-``<48>`` look-ahead, draw and log-determinants stay compiled as the warp
-kernels' comparator (``*_per_thread`` below, counted as ``"<24>"`` /
-``"<48>"``), which no wrapper calls. The factor pair and the dedup gather
-take m <= 24 only. The resampler's wrapper launches the one-block scan
+``"<24w>"`` and ``"<48w>"``; so does the factor pair at m <= 24, the
+factor-emitting projection counted as ``"[emit]<24w>"``. The per-thread
+``<24>`` and ``<48>`` look-ahead, draw and log-determinants, ``<24,
+kEmit>`` and ``factor_gather_kernel`` stay compiled as the warp kernels'
+comparator (``*_per_thread`` below, counted as ``"<24>"`` / ``"<48>"`` /
+``"[emit]<24>"``), which no wrapper calls. The factor pair and the dedup
+gather take m <= 24 only. The resampler's wrapper launches the one-block scan
 kernel (``systematic_scan_kernel``); the per-thread kernel it replaced
 stays as its comparator (:func:`systematic_ancestors_blocks_per_thread`,
 counted as ``"_per_thread"``), which no wrapper calls either.
@@ -77,6 +79,9 @@ _SIGNATURES = {
         _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
     ],
     "bipk_draw_update_factor_gather_packed": [
+        _P, _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _P, _P, _P, _P,
+    ],
+    "bipk_draw_update_factor_gather_packed_per_thread": [
         _P, _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _P, _P, _P, _P,
     ],
     "bipk_draw_update_dedup_gather_packed": [
@@ -151,13 +156,14 @@ def _count(fn, m: int | None = None, mode: str = "", per_thread: bool = False) -
     """One launch of ``fn``'s kernel; with ``m``, also of the kernel
     instantiation that serves it, keyed like ``"<24>"``, ``"<24w>"`` /
     ``"<48w>"`` (the warp kernels of the ``WARP`` wrappers) or, with
-    ``mode`` ``"[emit]"``, ``"[emit]<24>"``; ``per_thread``: the
-    per-thread comparator, ``"<24>"`` / ``"<48>"``, or for the resampler
-    (no ``m``) ``"_per_thread"`` beside its scan kernel's ``""``."""
+    ``mode`` ``"[emit]"``, ``"[emit]<24w>"``; ``per_thread``: the
+    per-thread comparator, ``"<24>"`` / ``"<48>"`` / ``"[emit]<24>"``, or
+    for the resampler (no ``m``) ``"_per_thread"`` beside its scan
+    kernel's ``""``."""
     fn.launches += 1
     if m is not None:
         width = next(w for w in WIDTHS if m <= w)
-        warp = "w" if fn in WARP and not (mode or per_thread) else ""
+        warp = "w" if fn in WARP and not per_thread else ""
         fn.launches_by_kernel[f"{mode}<{width}{warp}>"] += 1
     elif fn in PER_INSTANTIATION:
         fn.launches_by_kernel["_per_thread" if per_thread else ""] += 1
@@ -220,7 +226,8 @@ def factorize_project_packed(
     row_scale (n, n, N), logdet_T1 (N,), logdet_Psi (N,))``. With
     ``emit_factor`` (m <= 24) a sixth output ``LW (m(m+1)/2 + m*n, N)``
     carries the factor for :func:`draw_update_factor_gather_packed_blocks`:
-    rows ``[tril(L) row-major | white = L^{-1}(P0 + lam T0), row i*n + c]``.
+    rows ``[tril(L) row-major | white = L^{-1}(P0 + lam T0), row i*n + c]``
+    (the warp kernel's kEmit mode).
     """
     name = "factorize_project_packed"
     _check_mn(name, S, m, n, mniw.FACTOR_MAX_M if emit_factor else MAX_M)
@@ -430,38 +437,53 @@ def draw_update_factor_gather_packed_blocks(
 ):
     """:func:`draw_update_gather_packed_blocks` reusing the factor
     ``LW (m(m+1)/2 + m*n, N_in)`` that :func:`factorize_project_packed`
-    emitted for the same ``S``, ``prior`` and ``lam`` (m <= 24): thread j
-    reads ``S[:, anc[j]]`` and ``LW[:, anc[j]]`` and forward-substitutes
-    ``phi``, with no Cholesky. ``jitter`` is already in ``LW``; it is
-    taken for the signature of the refactoring wrapper and not read."""
+    emitted for the same ``S``, ``prior`` and ``lam`` (m <= 24): particle
+    j reads ``S[:, anc[j]]`` and ``LW[:, anc[j]]`` and forward-substitutes
+    ``phi``, with no Cholesky (the warp kernel's kReuse mode). ``jitter``
+    is already in ``LW``; it is taken for the signature of the refactoring
+    wrapper and not read."""
     name = "draw_update_factor_gather_packed_blocks"
-    _check_mn(name, S, m, n, mniw.FACTOR_MAX_M)
-    if LW.dim() != 2 or tuple(LW.shape) != (mniw.lw_rows(m, n), S.shape[1]):
-        raise ValueError(f"{name}: LW must be ({mniw.lw_rows(m, n)}, {S.shape[1]}) "
-                         f"(lw_rows(m, n), N_in); got {tuple(LW.shape)}")
+    _check_factor_gather(name, S, LW, m, n)
     if not _on_cuda(name, S):
         return draw_update_factor_gather_packed_blocks_plain(
             S, LW, ancestors, phi, u, v, jitter, lam, prior, p3, m, n
         )
-    n_in, n_out = S.shape[1], ancestors.shape[0]
+    rc, out = _factor_gather(name, S, LW, ancestors, phi, u, v, lam, prior, p3, m, n)
+    _count(draw_update_factor_gather_packed_blocks, m)
+    _check(rc, name)
+    return out
+
+
+def _check_factor_gather(name, S, LW, m, n):
+    _check_mn(name, S, m, n, mniw.FACTOR_MAX_M)
+    if LW.dim() != 2 or tuple(LW.shape) != (mniw.lw_rows(m, n), S.shape[1]):
+        raise ValueError(f"{name}: LW must be ({mniw.lw_rows(m, n)}, {S.shape[1]}) "
+                         f"(lw_rows(m, n), N_in); got {tuple(LW.shape)}")
+
+
+def _factor_gather(name, S, LW, anc, phi, u, v, lam, prior, p3, m, n, launch=None):
+    """Check, allocate and launch a factor-gather draw with the C
+    signature of ``bipk_draw_update_factor_gather_packed`` (the default
+    ``launch``): ``(rc, (S_new, y, logdet_T1, logdet_Psi))``."""
+    if launch is None:
+        launch = _lib().bipk_draw_update_factor_gather_packed
+    n_in, n_out = S.shape[1], anc.shape[0]
     _require(
         name, S.device, torch.float32, S=(S, S.shape), LW=(LW, LW.shape),
         phi=(phi, (m, n_out)), u=(u, (n, n_out)), v=(v, (n, n_out)),
     )
-    _require(name, S.device, torch.int32, ancestors=(ancestors, (n_out,)))
+    _require(name, S.device, torch.int32, ancestors=(anc, (n_out,)))
     pbuf = _prior_buffer(name, prior, m, n, S)
     S_new = torch.empty((S.shape[0], n_out), dtype=S.dtype, device=S.device)
     y = torch.empty((n, n_out), dtype=S.dtype, device=S.device)
     ld = torch.empty((2, n_out), dtype=S.dtype, device=S.device)
-    rc = _lib().bipk_draw_update_factor_gather_packed(
-        S.data_ptr(), LW.data_ptr(), n_in, ancestors.data_ptr(), n_out,
+    rc = launch(
+        S.data_ptr(), LW.data_ptr(), n_in, anc.data_ptr(), n_out,
         phi.data_ptr(), u.data_ptr(), v.data_ptr(), _ptr(pbuf), float(p3), m,
         n, float(lam), S_new.data_ptr(), y.data_ptr(), ld.data_ptr(),
         _stream(S.device),
     )
-    _count(draw_update_factor_gather_packed_blocks, m)
-    _check(rc, name)
-    return S_new, y, ld[0], ld[1]
+    return rc, (S_new, y, ld[0], ld[1])
 
 
 def draw_update_dedup_gather_packed_blocks_plain(
@@ -560,10 +582,10 @@ def _logdets(name, S, jitter, prior, m, n, launch):
 
 # ---------------------------------------------------------------------------
 # The per-thread comparator of the warp kernels: the packed_mniw_kernel<24,
-# kProject / kDraw / kLogdets> (m <= 24) and <48, ...> (24 < m <= 48) that
-# the wrappers launched before the warp kernels replaced them, kept to hold
-# the warp kernels against bit for bit and to time beside them. No wrapper
-# calls these.
+# kProject / kDraw / kLogdets> (m <= 24) and <48, ...> (24 < m <= 48), <24,
+# kEmit> and factor_gather_kernel that the wrappers launched before the
+# warp kernels replaced them, kept to hold the warp kernels against bit for
+# bit and to time beside them. No wrapper calls these.
 # ---------------------------------------------------------------------------
 
 
@@ -575,18 +597,20 @@ def _per_thread_device(name: str, S: torch.Tensor) -> None:
 def factorize_project_packed_per_thread(
     S: torch.Tensor, phi: torch.Tensor, jitter: float, lam: float = 1.0,
     prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
+    emit_factor: bool = False,
 ):
     """:func:`factorize_project_packed` through the per-thread
-    ``packed_mniw_kernel<24, kProject>`` (m <= 24) or ``<48, kProject>``:
-    the same outputs, which the warp kernel must equal bit for bit."""
+    ``packed_mniw_kernel<24, kProject>`` (m <= 24) or ``<48, kProject>``,
+    with ``emit_factor`` ``<24, kEmit>``: the same outputs, which the warp
+    kernel must equal bit for bit."""
     name = "factorize_project_packed_per_thread"
-    _check_mn(name, S, m, n)
+    _check_mn(name, S, m, n, mniw.FACTOR_MAX_M if emit_factor else MAX_M)
     _per_thread_device(name, S)
-    rc, out = _factorize_project(name, S, phi, jitter, lam, prior, m, n,
+    rc, out = _factorize_project(name, S, phi, jitter, lam, prior, m, n, emit_factor,
                                  launch=_lib().bipk_factorize_project_packed_per_thread)
-    _count(factorize_project_packed, m, per_thread=True)
+    _count(factorize_project_packed, m, "[emit]" if emit_factor else "", per_thread=True)
     _check(rc, name)
-    return out[:5]
+    return out if emit_factor else out[:5]
 
 
 def draw_update_gather_packed_blocks_per_thread(
@@ -609,6 +633,25 @@ def draw_update_gather_packed_blocks_per_thread(
     return out
 
 
+def draw_update_factor_gather_packed_blocks_per_thread(
+    S: torch.Tensor, LW: torch.Tensor, ancestors: torch.Tensor,
+    phi: torch.Tensor, u: torch.Tensor, v: torch.Tensor, jitter: float,
+    lam: float = 1.0, prior: Sequence[torch.Tensor] | None = None,
+    p3: float = 0.0, m: int = 0, n: int = 0,
+):
+    """:func:`draw_update_factor_gather_packed_blocks` through the
+    per-thread ``factor_gather_kernel``: the same outputs, which the warp
+    kernel must equal bit for bit."""
+    name = "draw_update_factor_gather_packed_blocks_per_thread"
+    _check_factor_gather(name, S, LW, m, n)
+    _per_thread_device(name, S)
+    rc, out = _factor_gather(name, S, LW, ancestors, phi, u, v, lam, prior, p3, m, n,
+                             _lib().bipk_draw_update_factor_gather_packed_per_thread)
+    _count(draw_update_factor_gather_packed_blocks, m, per_thread=True)
+    _check(rc, name)
+    return out
+
+
 def log_base_measure_packed_logdets_per_thread(
     S: torch.Tensor, jitter: float,
     prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
@@ -626,19 +669,20 @@ def log_base_measure_packed_logdets_per_thread(
     return out
 
 
-# the kernels' modes the warp plan is asked for (csrc/packed_mniw.cuh ``Mode``)
-MODE_PROJECT, MODE_LOGDETS = 0, 2
+# the warp kernel's modes (csrc/packed_mniw.cuh ``Mode``) by name: the
+# look-ahead (the draw's plan is the same), the log-determinants, the
+# factor-emitting look-ahead and the factor-gather draw
+WARP_MODES = {"project": 0, "logdets": 2, "emit": 3, "reuse": 5}
 
 
-def warp_plan(m: int, n: int, N: int, logdets: bool = False) -> tuple[int, int, int]:
+def warp_plan(m: int, n: int, N: int, mode: str = "project") -> tuple[int, int, int]:
     """``(warps per block, particles per block, dynamic shared memory in
-    bytes)`` of the warp kernel's launch at ``(m, n)`` and N particles on
-    the current card, as ``csrc/warp_mniw.cu`` chooses them (two particles
-    per warp at m <= 24, one above): the look-ahead's and the draw's, or
-    with ``logdets`` the log-determinants' (no phi). For reports."""
+    bytes)`` of the warp kernel's launch in ``mode`` (a key of
+    ``WARP_MODES``) at ``(m, n)`` and N particles on the current card, as
+    ``csrc/warp_mniw.cu`` chooses them (two particles per warp at m <= 24,
+    one above). For reports."""
     warps, particles, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    mode = MODE_LOGDETS if logdets else MODE_PROJECT
-    _check(_lib().bipk_warp_mniw_plan(mode, m, n, N, ctypes.byref(warps),
+    _check(_lib().bipk_warp_mniw_plan(WARP_MODES[mode], m, n, N, ctypes.byref(warps),
                                       ctypes.byref(particles), ctypes.byref(smem)),
            "warp_plan")
     return warps.value, particles.value, smem.value
@@ -855,18 +899,18 @@ PLAIN = {
 }
 
 
-# the wrappers whose launches run the warp kernels (all but the
-# factor-emitting projection)
+# the wrappers whose launches run the warp kernels (all the packed-MNIW
+# ones but the dedup gather; the factor pair at m <= 24 only)
 WARP = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks,
-        log_base_measure_packed_logdets)
-# the packed-MNIW wrappers and the instantiations each launches ("<24>" and
-# "<48>" of the WARP wrappers: the per-thread comparator only)
+        log_base_measure_packed_logdets, draw_update_factor_gather_packed_blocks)
+# the packed-MNIW wrappers and the instantiations each launches (those of
+# the WARP wrappers without "w": the per-thread comparator only)
 PACKED_MNIW = {
-    factorize_project_packed: ("<24w>", "<48w>", "<24>", "<48>", "[emit]<24>"),
+    factorize_project_packed: ("<24w>", "<48w>", "<24>", "<48>", "[emit]<24w>", "[emit]<24>"),
     draw_update_packed_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
     draw_update_gather_packed_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
     log_base_measure_packed_logdets: ("<24w>", "<48w>", "<24>", "<48>"),
-    draw_update_factor_gather_packed_blocks: ("<24>",),
+    draw_update_factor_gather_packed_blocks: ("<24w>", "<24>"),
     draw_update_dedup_gather_packed_blocks: ("<24>",),
 }
 # the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths
@@ -889,7 +933,8 @@ def launch_counts() -> dict:
     instantiation for the packed-MNIW and unpacked wrappers, keyed
     ``"<wrapper><24>"``, ``"<wrapper><24w>"`` / ``"<wrapper><48w>"`` (the
     warp kernels), ``"<wrapper><48>"`` and, for the factor-emitting projection,
-    ``"factorize_project_packed[emit]<24>"``; for the resampler
+    ``"factorize_project_packed[emit]<24w>"`` (its per-thread comparator
+    ``"...[emit]<24>"``); for the resampler
     ``"systematic_ancestors_blocks"`` (the scan kernel) and
     ``"systematic_ancestors_blocks_per_thread"`` (its comparator)."""
     out = {}

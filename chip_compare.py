@@ -5,6 +5,7 @@
     python3 chip_compare.py BEFORE_DIR AFTER_DIR --oscillator    # its first three parts only
     python3 chip_compare.py BEFORE_DIR AFTER_DIR --oscillator --rounds 5    # that order 5 times
     python3 chip_compare.py BEFORE_DIR AFTER_DIR --vehicle-apf --rounds 5    # the vehicle APF only
+    python3 chip_compare.py BEFORE_DIR AFTER_DIR --reuse    # the factor-reuse paths
 
 Each run is a child process in one checkout (it builds that checkout's
 kernels) that calls that checkout's ``chip_smoke.py`` phase functions: the
@@ -22,13 +23,20 @@ public ``init`` / ``draws`` / ``step``, so that a checkout without
 full, so that two checkouts whose kernels agree bit for bit print the
 same digits. With ``--oscillator`` each run ends after the oscillator's
 three parts, and with ``--vehicle-apf`` each runs the vehicle's online
-APF, the resampler's host time and the APF steps' profile only; with
-``--rounds R`` the order before, after, after, before runs R times. Output lines are printed with the run's label; at the end,
-for each figure every run prints (the APF's seconds, the medians of the
-sweeps, the cSMC step's device and unprofiled time, the resampler's
-host time), its values in run order and in how many of the adjacent
-before / after pairs the after run read higher; then the card's name and
-power limit. Two versions compare only within one such call. A failed
+APF, the resampler's host time and the APF steps' profile only. With
+``--reuse`` each runs the opt-in factor-reuse configuration
+(``reuse_factor=True``): the vehicle's online APF at 32768 x 1499 with
+it, then 50 profiled APF steps and 100 profiled cSMC steps at 10240
+particles, each first in the default configuration and then with reuse
+(the figures' values 1 and 2), all through the public ``build_*``
+keywords, so that the parent runs them too. With ``--rounds R`` the
+order before, after, after, before runs R times. Output lines are
+printed with the run's label; at the end, for each figure every run
+prints (the APF's seconds, the medians of the sweeps, the cSMC and APF
+steps' device and unprofiled time and idle share, the resampler's host
+time), its values in run order and in how many of the adjacent before /
+after pairs the after run read higher; then the card's name and power
+limit. Two versions compare only within one such call. A failed
 run, or no card, ends the script with a non-zero exit.
 """
 
@@ -55,6 +63,7 @@ _build.build()
 ck._lib()
 print(f"  build {time.perf_counter() - tb:.2f} s", flush=True)
 smi, part = sys.argv[1], sys.argv[2]
+reuse = dict(reuse_factor=True) if part == "--reuse" else {}
 
 
 def resampler_host_time(n):
@@ -72,7 +81,7 @@ def resampler_host_time(n):
           "call", flush=True)
 
 
-if part != "--vehicle-apf":
+if part == "all" or part == "--oscillator":
     models = cs.cs_models(dev)
     model, X, Y, U, (F,) = models["osc"]
     cs.osc_main_path(dev, model, X, Y, F, U, smi)
@@ -88,7 +97,7 @@ model = veh.make_model(cfg)
 X, Y, MU_F, MU_R, U = veh.simulate(torch.Generator().manual_seed(cfg.seed), cfg,
                                    dtype=torch.float32, device=dev)
 apf = build_sharded_apf(model.ssm, model.gps, cs.N, forgetting_factor=cs.LAM,
-                        dtype=torch.float32, device=dev)
+                        dtype=torch.float32, device=dev, **reuse)
 apf(torch.Generator(device=dev).manual_seed(2), Y[:11], U[:11], model.x0, model.p0)
 torch.cuda.synchronize()
 steps = Y.shape[0] - 1
@@ -99,58 +108,75 @@ torch.cuda.synchronize()
 elapsed = time.perf_counter() - ts
 print(f"  vehicle APF launches { {k: c for k, c in ck.launch_counts().items() if c} }", flush=True)
 ess = res.ess[1:]
-print(f"  vehicle APF {cs.N} particles x {steps} steps in {elapsed:.3f} s: "
+print(f"  vehicle APF {cs.N} particles x {steps} steps in {elapsed:.3f} s"
+      f"{' with reuse' * bool(reuse)}: "
       f"{cs.N * steps / elapsed:.1f} particle-steps/s on {smi}", flush=True)
 print(f"  vehicle APF ESS min {ess.min().item()!r} median {ess.median().item()!r} max "
       f"{ess.max().item()!r}; filtered-state RMSE "
       f"{[repr(x) for x in ((res.state_mean - X) ** 2).mean(0).sqrt().tolist()]}", flush=True)
 resampler_host_time(cs.N)
-if part != "--vehicle-apf":
+refs = (MU_F[:, None], MU_R[:, None])
+if part == "all":
     cs.gibbs_path(dev, model, X, Y, U, MU_F, cs.N_GIBBS, n_apf=256, n_iterations=4, smi=smi)
-    cs.profile_csmc_steps(dev, model, Y, U, X, (MU_F[:, None], MU_R[:, None]), cs.N_GIBBS,
-                          steps=100)
+    cs.profile_csmc_steps(dev, model, Y, U, X, refs, cs.N_GIBBS, steps=100)
 
 # 50 vehicle APF steps from one pinned carry: under CUDA's sync debug mode
 # "error", on the host's clock, and under torch.profiler
 from torch.profiler import ProfilerActivity, profile
 P = 50
-g = torch.Generator(device=dev).manual_seed(8)
-apf(g, Y[:P + 1], U[:P + 1], model.x0, model.p0)
-obs = Y.reshape(Y.shape[0], -1)
-carry0 = apf.init(g, U[0], model.x0, model.p0)
 
 
-def run_steps():
-    carry = carry0
-    for t in range(P):
-        carry, _ = apf.step(carry, obs[t + 1], U[t], U[t + 1], apf.draws(g))
+def profile_apf(apf, label):
+    g = torch.Generator(device=dev).manual_seed(8)
+    apf(g, Y[:P + 1], U[:P + 1], model.x0, model.p0)
+    obs = Y.reshape(Y.shape[0], -1)
+    carry0 = apf.init(g, U[0], model.x0, model.p0)
+
+    def run_steps():
+        carry = carry0
+        for t in range(P):
+            carry, _ = apf.step(carry, obs[t + 1], U[t], U[t + 1], apf.draws(g))
+        torch.cuda.synchronize()
+
     torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run_steps()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tw = time.perf_counter()
+    run_steps()
+    step_us = (time.perf_counter() - tw) / P * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_steps()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in on_device) / P
+    ours = sum(e.self_device_time_total for e in on_device
+               if any(k in e.key for k in cs.OUR_KERNELS)) / P
+    print(f"  APF step at {cs.N} particles ({P} steps profiled, no host synchronisation"
+          f"{label}): device busy {busy_us:.1f} us per step over "
+          f"{sum(e.count for e in on_device) / P:.1f} device launches, of which the "
+          f"hand-written kernels {ours:.1f} us; the same steps unprofiled {step_us:.1f} us per "
+          f"step, device idle share {1.0 - busy_us / step_us:.3f}", flush=True)
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / P:8.1f} us/step  {e.count / P:5.1f}/step  "
+              f"{e.key[:90]}", flush=True)
 
 
-torch.cuda.synchronize()
-torch.cuda.set_sync_debug_mode("error")
-try:
-    run_steps()
-finally:
-    torch.cuda.set_sync_debug_mode("default")
-tw = time.perf_counter()
-run_steps()
-step_us = (time.perf_counter() - tw) / P * 1e6
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    run_steps()
-on_device = [e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-busy_us = sum(e.self_device_time_total for e in on_device) / P
-ours = sum(e.self_device_time_total for e in on_device
-           if any(k in e.key for k in cs.OUR_KERNELS)) / P
-print(f"  APF step at {cs.N} particles ({P} steps profiled, no host synchronisation): "
-      f"device busy {busy_us:.1f} us per step over "
-      f"{sum(e.count for e in on_device) / P:.1f} device launches, of which the hand-written "
-      f"kernels {ours:.1f} us; the same steps unprofiled {step_us:.1f} us per step, device "
-      f"idle share {1.0 - busy_us / step_us:.3f}", flush=True)
-for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
-    print(f"    {e.self_device_time_total / P:8.1f} us/step  {e.count / P:5.1f}/step  "
-          f"{e.key[:90]}", flush=True)
+if part == "--reuse":
+    # the default configuration first, then reuse: values 1 and 2 of each
+    # figure below
+    default_apf = build_sharded_apf(model.ssm, model.gps, cs.N, forgetting_factor=cs.LAM,
+                                    dtype=torch.float32, device=dev)
+    profile_apf(default_apf, ", default")
+    profile_apf(apf, ", reuse_factor=True")
+    for label, options in (("default", {}), ("reuse_factor=True", reuse)):
+        print(f"  cSMC steps, {label}:", flush=True)
+        cs.profile_csmc_steps(dev, model, Y, U, X, refs, cs.N_GIBBS, steps=100, **options)
+else:
+    profile_apf(apf, "")
 """
 
 
@@ -164,6 +190,8 @@ FIGURES = (
     ("cSMC step unprofiled us", r"cSMC step at \d+ particles .* unprofiled ([\d.]+) us"),
     ("APF step busy us", r"APF step at \d+ particles .* device busy ([\d.]+) us"),
     ("APF step unprofiled us", r"APF step at \d+ particles .* unprofiled ([\d.]+) us"),
+    ("cSMC step idle share", r"cSMC step at \d+ particles .* idle share ([\d.]+)"),
+    ("APF step idle share", r"APF step at \d+ particles .* idle share ([\d.]+)"),
     ("resampler host us per call", r"resampler wrapper host time .*: ([\d.]+) us"),
 )
 
@@ -195,10 +223,13 @@ def main() -> int:
     only = parser.add_mutually_exclusive_group()
     only.add_argument("--oscillator", action="store_true")
     only.add_argument("--vehicle-apf", action="store_true")
+    only.add_argument("--reuse", action="store_true")
     parser.add_argument("--rounds", type=int, default=1)
     args = parser.parse_args()
     before, after = os.path.abspath(args.before), os.path.abspath(args.after)
-    part = "--oscillator" if args.oscillator else "--vehicle-apf" if args.vehicle_apf else "all"
+    part = next((flag for flag, on in (("--oscillator", args.oscillator),
+                                        ("--vehicle-apf", args.vehicle_apf),
+                                        ("--reuse", args.reuse)) if on), "all")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -79,10 +79,15 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     and against the refactoring kernels on identical inputs (bitwise
     equality reported), timed beside their bounds, at the APF's
     statistics after 100 filtering steps (and how many blocks the dedup
-    kernel staged there), at the Gibbs shapes and at edge shapes; an
-    out-of-range ancestor in a child process per gathering kernel (the
-    warp gather/draw at m = 41 too) must fail with CUDA's device-side
-    assertion;
+    kernel staged there), at the Gibbs shapes and at edge shapes; the
+    factor pair (the warp kernel's kEmit and kReuse, ``csrc/
+    warp_mniw.cu``) also held bit for bit against the per-thread ``<24,
+    kEmit>`` and ``factor_gather_kernel`` it replaced on every one of
+    those sets, and timed in turns with them (per-thread, warp, warp,
+    per-thread) at 32768 and 10240, beside its registers, stack and
+    launch plan; an out-of-range ancestor in a child process per
+    gathering kernel (the warp gather/draw at m = 41 too) must fail with
+    CUDA's device-side assertion;
 15. reuse/dedup path-vs-plain: phase 3 with ``reuse_factor=True`` and
     with ``dedup_gather=True``;
 16. reuse/dedup main path: the vehicle APF at 32768 x 1499 in the
@@ -121,9 +126,10 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the ten
 main paths, error against the plain version, times and bound; for the
-warp kernels also the per-thread kernels' times from the same turns, and
-both at the Gibbs paths' widths, 10240 particles at m = 20 and 200 at
-m = 40, 41; for the resampler the per-thread kernel's times from its
+warp kernels (rows 1, 3-7, and the factor pair, rows 1e and 8) also the
+per-thread kernels' times from the same turns, and both at the Gibbs
+paths' widths, 10240 particles at m = 20 and 200 at m = 40, 41; for the
+resampler the per-thread kernel's times from its
 turns at 32768, 10240 (``_gibbs``) and 200 (``_cs_gibbs``); for the
 log-determinants ``library_ms``, the time of
 ``torch.linalg.cholesky_ex`` on the same batch of augmented matrices, and
@@ -557,11 +563,10 @@ def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, 
     steps = Y.shape[0] - 1
     reuse = options.get("reuse_factor", False)
     expected = {
-        "factorize_project_packed[emit]<24>" if reuse else WARP24_KEYS["fp"]: 2 * steps,
+        REUSE_KEYS["emit"] if reuse else WARP24_KEYS["fp"]: 2 * steps,
         "systematic_ancestors_blocks": steps,
         WARP24_KEYS["lbm"]: 2 * steps,
-        "draw_update_factor_gather_packed_blocks<24>" if reuse else WARP24_KEYS["dug"]:
-            2 * steps,
+        REUSE_KEYS["factor"] if reuse else WARP24_KEYS["dug"]: 2 * steps,
     }
     if rank1:  # two projections per GP and step (look-ahead mean, draw)
         expected = {"project_blocks<24>": 4 * steps, "systematic_ancestors_blocks": steps}
@@ -733,6 +738,10 @@ WARP_KEYS = {"fp": "factorize_project_packed<48w>", "du": "draw_update_packed_bl
              "dug": "draw_update_gather_packed_blocks<48w>",
              "lbm": "log_base_measure_packed_logdets<48w>"}
 WARP24_KEYS = {k: v.replace("<48w>", "<24w>") for k, v in WARP_KEYS.items()}
+# the warp kernel's factor pair (m <= 24): the factor-emitting look-ahead
+# (kEmit) and the factor-gather draw (kReuse)
+REUSE_KEYS = {"emit": "factorize_project_packed[emit]<24w>",
+              "factor": "draw_update_factor_gather_packed_blocks<24w>"}
 
 
 def warp_calls(S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
@@ -891,7 +900,8 @@ def warp_ptxas():
     for i, line in enumerate(lines):
         if "Compiling entry" in line and "warp_mniw_kernel" in line:
             mode = next(name for name, arg in (("kProject", "ILi0E"), ("kDraw", "ILi1E"),
-                                               ("kLogdets", "ILi2E")) if arg in line)
+                                               ("kLogdets", "ILi2E"), ("kEmit", "ILi3E"),
+                                               ("kReuse", "ILi5E")) if arg in line)
             lanes = 16 if "Li16E" in line else 32
             info = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 5]
                     if "registers" in ln or "stack frame" in ln]
@@ -901,10 +911,20 @@ def warp_ptxas():
 
 def print_warp_plan(m, n, N):
     W, P, smem = ck.warp_plan(m, n, N)
-    smem_lbm = ck.warp_plan(m, n, N, logdets=True)[2]
+    smem_lbm = ck.warp_plan(m, n, N, mode="logdets")[2]
     print(f"  warp kernels at m={m} n={n} N={N}: {W} warps, {P} particles per block, "
           f"{smem} B of dynamic shared memory per block ({smem_lbm} B for the "
           f"log-determinants)", flush=True)
+
+
+def print_factor_plan(m, n, N):
+    """The factor pair's launch plan: kEmit plans as the look-ahead, kReuse
+    stages LW too and keeps no triangle."""
+    W, P, smem = ck.warp_plan(m, n, N, mode="emit")
+    smem_reuse = ck.warp_plan(m, n, N, mode="reuse")[2]
+    print(f"  warp factor pair at m={m} n={n} N={N}: {W} warps, {P} particles per block, "
+          f"{smem} B of dynamic shared memory per block for kEmit, {smem_reuse} B for kReuse",
+          flush=True)
 
 
 VEHICLE_FILTER_STEPS = 100  # vehicle filtering steps before phase 2's warp sets
@@ -1465,20 +1485,28 @@ def same_as(name, got, want, names):
 
 
 def check_reuse_set(label, S, phi_in, anc, phi, u, v, lam, prior, p3, m, n, jitter):
-    """The three new kernels on one input set, each against its plain
+    """The three opt-in kernels on one input set, each against its plain
     version on the same inputs (the factor-reusing draw with the emitting
     kernel's own LW), and against the refactoring kernels on identical
     inputs: the emitting projection's small outputs against #1's, the
-    factor-reusing and the dedup draws against #4's. ``phi_in`` (N_in
-    columns) is the look-ahead's basis, ``phi`` (N_out) the draw's.
-    Returns the largest absolute error against the plain version per
-    kernel, and per kernel the calls that run it and its plain version."""
+    factor-reusing and the dedup draws against #4's; the factor pair (the
+    warp kernel's kEmit and kReuse) also bit for bit against the
+    per-thread kernels it replaced (``<24, kEmit>``, every output and LW;
+    ``factor_gather_kernel`` on the same LW). ``phi_in`` (N_in columns)
+    is the look-ahead's basis, ``phi`` (N_out) the draw's. Returns the
+    largest absolute error against the plain version per kernel, per
+    kernel the calls that run it and its plain version, and per kernel of
+    the factor pair the call of its per-thread comparator."""
     fp_args = (S, phi_in, jitter, lam, prior)
     calls = {
         "emit": (lambda: ck.factorize_project_packed(*fp_args, m=m, n=n, emit_factor=True),
                  lambda: ck.factorize_project_packed_plain(*fp_args, m=m, n=n,
                                                            emit_factor=True)),
     }
+    per_thread = {"emit": lambda: ck.factorize_project_packed_per_thread(*fp_args, m=m, n=n,
+                                                                        emit_factor=True)}
+    warp_vs_per_thread(label, {"emit": (calls["emit"][0], per_thread["emit"],
+                                        (*FP_NAMES, "LW"))}, REUSE_KEYS)
     emit, emit_p = (c() for c in calls["emit"])
     errs = {"emit": check(f"factorize_project_packed[emit] {label}",
                           zip((*FP_NAMES, "LW"), emit, emit_p), 1e-3, ILL)}
@@ -1489,6 +1517,10 @@ def check_reuse_set(label, S, phi_in, anc, phi, u, v, lam, prior, p3, m, n, jitt
     calls["factor"] = (
         lambda: ck.draw_update_factor_gather_packed_blocks(S, LW, *du_args, m=m, n=n),
         lambda: ck.draw_update_factor_gather_packed_blocks_plain(S, LW, *du_args, m=m, n=n))
+    per_thread["factor"] = lambda: ck.draw_update_factor_gather_packed_blocks_per_thread(
+        S, LW, *du_args, m=m, n=n)
+    warp_vs_per_thread(label, {"factor": (calls["factor"][0], per_thread["factor"], DU_NAMES)},
+                       REUSE_KEYS)
     calls["dedup"] = (
         lambda: ck.draw_update_dedup_gather_packed_blocks(S, *du_args, m=m, n=n),
         lambda: ck.draw_update_dedup_gather_packed_blocks_plain(S, *du_args, m=m, n=n))
@@ -1505,13 +1537,19 @@ def check_reuse_set(label, S, phi_in, anc, phi, u, v, lam, prior, p3, m, n, jitt
                   "f32 rounding of lam*S + suff"),
             check(f"{name} {label}", zip(DU_NAMES[1:], got[1:], want[1:]), 1e-3, ILL))
         same_as(f"{name} {label}", got, ref, DU_NAMES)
-    return errs, calls
+    return errs, calls, per_thread
 
 
 def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
     """Phase 14: the emitting projection, the factor-reusing draw and the
-    dedup draw against their plain versions and against #1 / #4, timed
-    (cold L2) beside their bounds, at
+    dedup draw against their plain versions and against #1 / #4, and the
+    first two (the warp kernel's kEmit and kReuse) bit for bit against
+    the per-thread kernels they replaced (:func:`check_reuse_set`), on
+    every set below; timed (cold L2) beside their bounds, the factor pair
+    in turns with its per-thread kernels (per-thread, warp, warp,
+    per-thread) at 32768 (rows 1e and 8: ``ms``, ``per_thread_ms``) and
+    10240 (``ms_gibbs``, ``per_thread_ms_gibbs``, ``bound_ms_gibbs``),
+    beside its registers, stack and launch plan. The sets:
 
     - the APF's shapes: S (232, 32768) after ``REUSE_FILTER_STEPS``
       filtering steps of the port's own APF (``build_apf`` with the dedup
@@ -1530,6 +1568,11 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
     launch returns, and the next synchronisation fails with CUDA's
     device-side assertion."""
     m, n = M, NN
+    for mode, info in warp_ptxas().items():
+        if mode.startswith(("kEmit", "kReuse")):
+            print(f"  warp_mniw_kernel<{mode}> (ptxas): {info}", flush=True)
+    for N_p in (N, N_GIBBS, 256):
+        print_factor_plan(m, n, N_p)
     prior_m = model.gps[0].prior_as(torch.float32, dev)
     prior, p3 = tuple(prior_m[:3]), float(np.asarray(model.gps[0].prior.T3))
     k = REUSE_FILTER_STEPS
@@ -1561,16 +1604,38 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
     print(f"  S {tuple(S.shape)}, ESS {1.0 / float((w * w).sum()):.2f}, {dist} distinct "
           f"ancestors of {N}; dedup blocks staged {staged}, read directly {direct}", flush=True)
     label = f"m={m} N={N} lam={LAM}"
-    errs, calls = check_reuse_set(label, S, phi, anc, phi, u, v, LAM, prior, p3, m, n, jitter)
+    errs, calls, per_thread = check_reuse_set(label, S, phi, anc, phi, u, v, LAM, prior, p3, m,
+                                              n, jitter)
     core_f, draw_f, _ = particle_flops(m, n)
     emit_b, fg_b = factor_bytes(m, n, N, dist)
     du_b = packed_bytes(m, n, N, dist)[1]
+    pair = {"emit": ("factorize_project_packed[emit]", core_f),
+            "factor": ("draw_update_factor_gather_packed_blocks", factor_gather_flops(m, n))}
     for name, key, bytes_, flops in (
-        ("factorize_project_packed[emit]", "emit", emit_b, core_f),
-        ("draw_update_factor_gather_packed_blocks", "factor", fg_b, factor_gather_flops(m, n)),
+        (pair["emit"][0], "emit", emit_b, core_f),
+        (pair["factor"][0], "factor", fg_b, pair["factor"][1]),
         ("draw_update_dedup_gather_packed_blocks", "dedup", du_b, core_f + draw_f),
     ):
-        record_kernel(results, name, *calls[key], bytes_, N * flops, errs[key], flush)
+        # the factor pair's ms: in turns with its per-thread kernels, below
+        record_kernel(results, name, None if key in pair else calls[key][0], calls[key][1],
+                      bytes_, N * flops, errs[key], flush)
+
+    def pair_in_turns(calls, per_thread, width, label, bytes_of):
+        """The factor pair in turns with its per-thread kernels at
+        ``width``; returns per key the warp and per-thread ms and the
+        bound."""
+        out = {}
+        for key, (name, flops) in pair.items():
+            ms_w, ms_pt = in_turns(calls[key][0], per_thread[key], flush)
+            bound = max(bytes_of[key] / PEAK_BYTES_PER_S, width * flops / PEAK_F32_FLOPS) * 1e3
+            print(f"  {REUSE_KEYS[key]} {label} in turns: warp {ms_w:.4f} ms, per-thread "
+                  f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bound:.5f} ms)", flush=True)
+            out[key] = ms_w, ms_pt, bound
+        return out
+
+    for key, (ms_w, ms_pt, _) in pair_in_turns(calls, per_thread, N, label,
+                                               {"emit": emit_b, "factor": fg_b}).items():
+        results[pair[key][0]].update(ms=ms_w, per_thread_ms=ms_pt)
     fp_ms = time_ms(lambda: ck.factorize_project_packed(S, phi, jitter, LAM, prior, m=m, n=n),
                     flush=flush)
     print(f"  the refactoring kernels on the same inputs: #1 {fp_ms:.4f} ms, #4 "
@@ -1586,12 +1651,17 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
                                     w[:width].contiguous(), u_res, width)
         dist_w = int(torch.unique_consecutive(anc_w).numel())
         label = f"N={width} lam=1"
-        _, calls_w = check_reuse_set(label, S_w, phi_w, anc_w, phi_w, u_w, v_w, 1.0, prior,
-                                     p3, m, n, jitter)
+        _, calls_w, per_thread_w = check_reuse_set(label, S_w, phi_w, anc_w, phi_w, u_w, v_w,
+                                                   1.0, prior, p3, m, n, jitter)
         emit_b, fg_b = factor_bytes(m, n, width, dist_w)
+        if width == N_GIBBS:
+            for key, (ms_w, ms_pt, bound) in pair_in_turns(
+                    calls_w, per_thread_w, width, label, {"emit": emit_b, "factor": fg_b}).items():
+                results[pair[key][0]].update(ms_gibbs=ms_w, per_thread_ms_gibbs=ms_pt,
+                                             bound_ms_gibbs=bound)
         for name, key, bytes_ in (
-            ("factorize_project_packed[emit]", "emit", emit_b),
-            ("draw_update_factor_gather_packed_blocks", "factor", fg_b),
+            (pair["emit"][0], "emit", emit_b),
+            (pair["factor"][0], "factor", fg_b),
             ("draw_update_dedup_gather_packed_blocks", "dedup", packed_bytes(m, n, width, dist_w)[1]),
             ("draw_update_gather_packed_blocks", "gather", packed_bytes(m, n, width, dist_w)[1]),
         ):
@@ -1643,8 +1713,7 @@ def apf_configs_main_path(dev, model, X, Y, U, smi):
     configs = {
         "default": ({}, {WARP24_KEYS["fp"]: 2 * steps, WARP24_KEYS["dug"]: 2 * steps}),
         "reuse": (dict(reuse_factor=True),
-                  {"factorize_project_packed[emit]<24>": 2 * steps,
-                   "draw_update_factor_gather_packed_blocks<24>": 2 * steps}),
+                  {REUSE_KEYS["emit"]: 2 * steps, REUSE_KEYS["factor"]: 2 * steps}),
         "dedup": (dict(dedup_gather=True),
                   {WARP24_KEYS["fp"]: 2 * steps,
                    "draw_update_dedup_gather_packed_blocks<24>": 2 * steps}),
@@ -2653,8 +2722,10 @@ def main() -> int:
     # m <= 24 (the per-thread <24> kernels they replace timed beside them),
     # 2 the resampler, rows 6 and 7 the warp kernels at m <= 48 (the TPU's
     # cs-layout launchers: _cs_call's three kernels, _cs_du_gather_call),
-    # rows 1e, 8 and 9 the factor pair and the dedup gather, rows 10-13 the
-    # unpacked kernels' m <= 24 instantiation. launches: over the ten main
+    # rows 1e and 8 the factor pair (the warp kernel's kEmit and kReuse,
+    # the per-thread <24, kEmit> and factor_gather_kernel beside them), 9
+    # the dedup gather, rows 10-13 the unpacked kernels' m <= 24
+    # instantiation. launches: over the ten main
     # paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
@@ -2675,10 +2746,9 @@ def main() -> int:
         (6, WARP_KEYS["lbm"], WARP_KEYS["lbm"], warp_src, f"{pk}:2454"),
         (6, WARP_KEYS["du"], WARP_KEYS["du"], warp_src, f"{pk}:2454"),
         (7, WARP_KEYS["dug"], WARP_KEYS["dug"], warp_src, f"{pk}:2482"),
-        ("1e", "factorize_project_packed[emit]", "factorize_project_packed[emit]<24>",
-         mniw_src, f"{pk}:526"),
-        (8, "draw_update_factor_gather_packed_blocks",
-         "draw_update_factor_gather_packed_blocks<24>", mniw_src, f"{pk}:1422"),
+        ("1e", "factorize_project_packed[emit]", REUSE_KEYS["emit"], warp_src, f"{pk}:526"),
+        (8, "draw_update_factor_gather_packed_blocks", REUSE_KEYS["factor"], warp_src,
+         f"{pk}:1422"),
         (9, "draw_update_dedup_gather_packed_blocks",
          "draw_update_dedup_gather_packed_blocks<24>", "bipk_tpu_torch/csrc/dedup_gather.cu",
          f"{pk}:1312"),

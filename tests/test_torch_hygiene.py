@@ -95,11 +95,13 @@ def test_launches_count_per_instantiation():
     """The packed-MNIW wrappers count each launch once in total and once
     for the kernel that serves its m: the warp kernels for the look-ahead,
     both draws and the log-determinants, ``<24w>`` for m <= 24 and
-    ``<48w>`` for 24 < m <= 48; the factor-emitting projection
-    ``[emit]<24>``; the per-thread comparator ``<24>`` / ``<48>``."""
+    ``<48w>`` for 24 < m <= 48, and for the factor pair (m <= 24): the
+    factor-emitting projection ``[emit]<24w>``, the factor-gather draw
+    ``<24w>``; the per-thread comparator ``<24>`` / ``<48>`` /
+    ``[emit]<24>``."""
     warp = (ck.factorize_project_packed, ck.draw_update_packed_blocks,
             ck.draw_update_gather_packed_blocks, ck.log_base_measure_packed_logdets)
-    assert ck.WARP == warp
+    assert ck.WARP == (*warp, ck.draw_update_factor_gather_packed_blocks)
     ck.reset_launch_counts()
     try:
         for fn in warp:
@@ -107,6 +109,9 @@ def test_launches_count_per_instantiation():
                 ck._count(fn, m)
         ck._count(ck.systematic_ancestors_blocks)
         ck._count(ck.factorize_project_packed, 20, "[emit]")
+        ck._count(ck.factorize_project_packed, 24, "[emit]", per_thread=True)
+        ck._count(ck.draw_update_factor_gather_packed_blocks, 20)
+        ck._count(ck.draw_update_factor_gather_packed_blocks, 24, per_thread=True)
         ck._count(ck.draw_update_gather_packed_blocks, 41, per_thread=True)
         ck._count(ck.factorize_project_packed, 20, per_thread=True)
         ck._count(ck.log_base_measure_packed_logdets, 41, per_thread=True)
@@ -122,13 +127,16 @@ def test_launches_count_per_instantiation():
         assert counts["draw_update_gather_packed_blocks<48>"] == 1
         assert counts["log_base_measure_packed_logdets<24>"] == 0
         assert counts["log_base_measure_packed_logdets<48>"] == 1
+        assert counts["factorize_project_packed[emit]<24w>"] == 1
         assert counts["factorize_project_packed[emit]<24>"] == 1
-        assert "factorize_project_packed[emit]<24w>" not in counts
+        assert counts["draw_update_factor_gather_packed_blocks<24w>"] == 1
+        assert counts["draw_update_factor_gather_packed_blocks<24>"] == 1
         assert counts["systematic_ancestors_blocks"] == 1
-        assert ck.factorize_project_packed.launches == 7
+        assert ck.factorize_project_packed.launches == 8
+        assert ck.draw_update_factor_gather_packed_blocks.launches == 2
         assert ck.draw_update_gather_packed_blocks.launches == 6
         assert ck.log_base_measure_packed_logdets.launches == 6
-        assert sum(counts.values()) == 25
+        assert sum(counts.values()) == 28
     finally:
         ck.reset_launch_counts()
     # the CPU computes the plain version and counts no launch
@@ -284,7 +292,8 @@ def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
     """On a CUDA tensor every packed wrapper reaches its own C entry, which
     launches the warp kernels for the look-ahead, the draws and the
     log-determinants at every m (counted ``<24w>`` for m <= 24, ``<48w>``
-    above); none reaches the per-thread comparator's entries, and none
+    above) and for the factor pair at m <= 24 (``[emit]<24w>``,
+    ``<24w>``); none reaches the per-thread comparator's entries, and none
     falls back to the plain version (a stand-in tensor has no data to
     compute on)."""
     lib = _recording_lib(monkeypatch)
@@ -299,13 +308,17 @@ def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
     assert len(lib.called) == len(calls)
     assert not [c for c in lib.called if "per_thread" in c]
     width = "<24" if m <= 24 else "<48"
-    for fn in ck.WARP:
+    for fn in ck.WARP[:4]:
         assert counts[f"{fn.__name__}{width}w>"] == 1
         assert counts[f"{fn.__name__}<24>"] == 0
         assert counts[f"{fn.__name__}<48>"] == 0
     assert "bipk_log_base_measure_packed" in lib.called
     if m <= 24:
-        assert counts["factorize_project_packed[emit]<24>"] == 1
+        assert counts["factorize_project_packed[emit]<24w>"] == 1
+        assert counts["factorize_project_packed[emit]<24>"] == 0
+        assert counts["draw_update_factor_gather_packed_blocks<24w>"] == 1
+        assert counts["draw_update_factor_gather_packed_blocks<24>"] == 0
+        assert "bipk_draw_update_factor_gather_packed" in lib.called
     assert sum(counts.values()) == len(calls)
 
 
@@ -332,9 +345,41 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
                           "bipk_draw_update_packed_per_thread",
                           "bipk_log_base_measure_packed_per_thread"]
     width = "<24>" if m <= 24 else "<48>"
-    for fn in ck.WARP:
+    for fn in ck.WARP[:4]:
         assert counts[f"{fn.__name__}{width}"] == 1
     assert sum(counts.values()) == 4
+
+
+def test_factor_pair_comparator_reaches_its_entries(monkeypatch):
+    """The factor pair's per-thread comparator, given (stand-ins for) CUDA
+    tensors, reaches ``bipk_factorize_project_packed_per_thread`` with an
+    ``LW`` to fill (``<24, kEmit>``) and
+    ``bipk_draw_update_factor_gather_packed_per_thread``
+    (``factor_gather_kernel``), counted ``[emit]<24>`` and ``<24>``; with
+    no warp key, and m > 24 refused before any launch."""
+    lib = _recording_lib(monkeypatch)
+    m, n, N = 20, 1, 8
+    S, phi, u = _CardTensor(ck.mniw.packed_rows(m, n), N), _CardTensor(m, N), _CardTensor(n, N)
+    LW, anc = _CardTensor(ck.mniw.lw_rows(m, n), N), _CardTensor(N, dtype=torch.int32)
+    ck.reset_launch_counts()
+    try:
+        out = ck.factorize_project_packed_per_thread(S, phi, 0.0, m=m, n=n, emit_factor=True)
+        ck.draw_update_factor_gather_packed_blocks_per_thread(S, LW, anc, phi, u, u, 0.0,
+                                                              m=m, n=n)
+        counts = ck.launch_counts()
+    finally:
+        ck.reset_launch_counts()
+    assert len(out) == 6 and tuple(out[5].shape) == (ck.mniw.lw_rows(m, n), N)
+    assert lib.called == ["bipk_factorize_project_packed_per_thread",
+                          "bipk_draw_update_factor_gather_packed_per_thread"]
+    assert counts["factorize_project_packed[emit]<24>"] == 1
+    assert counts["draw_update_factor_gather_packed_blocks<24>"] == 1
+    assert sum(counts.values()) == 2
+    S25 = _CardTensor(ck.mniw.packed_rows(25, n), N)
+    with pytest.raises(ValueError, match="m <= 24"):
+        ck.factorize_project_packed_per_thread(S25, _CardTensor(25, N), 0.0, m=25, n=n,
+                                               emit_factor=True)
+    assert len(lib.called) == 2
 
 
 def test_per_thread_comparator_is_called_by_no_module_of_the_port():
@@ -344,8 +389,10 @@ def test_per_thread_comparator_is_called_by_no_module_of_the_port():
     names = ("factorize_project_packed_per_thread", "draw_update_gather_packed_blocks_per_thread",
              "log_base_measure_packed_logdets_per_thread",
              "systematic_ancestors_blocks_per_thread",
+             "draw_update_factor_gather_packed_blocks_per_thread",
              "bipk_factorize_project_packed_per_thread", "bipk_draw_update_packed_per_thread",
-             "bipk_log_base_measure_packed_per_thread", "bipk_systematic_ancestors_per_thread")
+             "bipk_log_base_measure_packed_per_thread", "bipk_systematic_ancestors_per_thread",
+             "bipk_draw_update_factor_gather_packed_per_thread")
     for path in sorted((REPO / "bipk_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         own = set()
