@@ -511,15 +511,18 @@ def build_apf(
     forgetting_factor: float = 1.0,
     dtype=torch.float32,
     device: str | torch.device = "cuda",
+    reference: bool = False,
     reuse_factor: bool = False,
     dedup_gather: bool = False,
 ) -> APF:
     """Build the online APF sweep with full traces on one device (the
     JAX package's GSPMD ``mesh=`` is not ported). ``device`` defaults to
-    CUDA and raises if no card is present. ``reuse_factor`` and
+    CUDA and raises if no card is present. ``reference=True`` runs the
+    kernels' plain PyTorch versions in their place (on any device), to
+    hold a sweep against the kernels. ``reuse_factor`` and
     ``dedup_gather`` select the opt-in gather/draw kernels
     (:class:`APFKernel`)."""
     device = resolve_device(device)
-    kern = APFKernel(ssm, gps, dtype, device, reuse_factor=reuse_factor,
-                     dedup_gather=dedup_gather)
+    kern = APFKernel(ssm, gps, dtype, device, reference=reference,
+                     reuse_factor=reuse_factor, dedup_gather=dedup_gather)
     return APF(kern, n_particles, forgetting_factor)

@@ -22,6 +22,13 @@ init_cov            ``model.gps[0].init_cov``
 init_mean           ``model.gp.init_mean`` (the toy only)
 x0, p0              ``model.x0``, ``model.p0``
 ==================  ==========================================================
+
+EMPS (:func:`emps_arrays`) adds its data (``data_time``, ``data_states``,
+``data_observations``, ``data_inputs``, ``data_dt``, ``data_synthetic``:
+the fields of ``model.data``) and its classic-PGAS baseline
+(``baseline_sqrt_eigenvalues``, ``baseline_centers``,
+``baseline_half_widths``, ``baseline_spectral_density`` of
+``model.baseline_basis``, and ``baseline_prior``, ``(T0, T1, T2, T3)``).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bipk_tpu_torch.models import oscillator, toy, vehicle
+from bipk_tpu_torch.models import emps, oscillator, toy, vehicle
 from bipk_tpu_torch.ops import basis as basis_ops
 from bipk_tpu_torch.ops import mniw
 
@@ -51,18 +58,19 @@ def _model_arrays(model, gps) -> dict:
     )
 
 
+def _basis(f64: dict, prefix: str = "") -> basis_ops.HilbertBasis:
+    return basis_ops.HilbertBasis(*(f64[prefix + k] for k in (
+        "sqrt_eigenvalues", "centers", "half_widths", "spectral_density")))
+
+
+def _mniw(prior) -> mniw.MNIW:
+    return mniw.MNIW(*(np.array(p, np.float64) for p in prior))
+
+
 def _parts(arrays: dict):
     """``(float64 arrays, HilbertBasis, priors)`` from the arrays."""
     f64 = {k: np.array(v, np.float64) for k, v in arrays.items() if k != "priors"}
-    hb = basis_ops.HilbertBasis(
-        f64["sqrt_eigenvalues"], f64["centers"], f64["half_widths"],
-        f64["spectral_density"],
-    )
-    priors = tuple(
-        mniw.MNIW(*(np.array(p, np.float64) for p in prior))
-        for prior in arrays["priors"]
-    )
-    return f64, hb, priors
+    return f64, _basis(f64), tuple(_mniw(prior) for prior in arrays["priors"])
 
 
 def vehicle_arrays(model) -> dict:
@@ -116,6 +124,46 @@ def toy_model_from_arrays(config: dict, arrays: dict) -> toy.ToyModel:
     for key in ("x0", "p0"):
         if not np.array_equal(getattr(model, key), f64[key]):
             raise ValueError(f"toy {key} differs from what the configuration gives")
+    return model
+
+
+def emps_arrays(model) -> dict:
+    """The arrays of a JAX ``EMPSModel`` (its data and its classic-PGAS
+    baseline too) that :func:`emps_model_from_arrays` takes."""
+    base = model.baseline_basis
+    data = model.data
+    return dict(
+        _model_arrays(model, (model.gp,)),
+        baseline_sqrt_eigenvalues=np.asarray(base.sqrt_eigenvalues),
+        baseline_centers=np.asarray(base.centers),
+        baseline_half_widths=np.asarray(base.half_widths),
+        baseline_spectral_density=np.asarray(base.spectral_density),
+        baseline_prior=tuple(np.asarray(p) for p in model.baseline_prior),
+        data_time=np.asarray(data.time), data_states=np.asarray(data.states),
+        data_observations=np.asarray(data.observations),
+        data_inputs=np.asarray(data.inputs), data_dt=float(data.dt),
+        data_synthetic=bool(data.synthetic),
+    )
+
+
+def emps_model_from_arrays(config: dict, arrays: dict) -> emps.EMPSModel:
+    """The port's EMPS model from the JAX model's configuration fields
+    (``dataclasses.asdict``) and arrays."""
+    f64, hb, (prior,) = _parts({k: v for k, v in arrays.items()
+                                if k not in ("baseline_prior", "data_synthetic")})
+    data = emps.EMPSData(
+        time=f64["data_time"], states=f64["data_states"],
+        observations=f64["data_observations"], inputs=f64["data_inputs"],
+        dt=float(f64["data_dt"]), synthetic=bool(arrays["data_synthetic"]),
+    )
+    model = emps.model_from_parts(
+        emps.EMPSConfig(**config), data, hb, prior, _basis(f64, "baseline_"),
+        _mniw(arrays["baseline_prior"]), process_noise=f64["process_noise"],
+        output_noise=f64["output_noise"], init_cov=f64["init_cov"],
+    )
+    for key in ("x0", "p0"):
+        if not np.array_equal(getattr(model, key), f64[key]):
+            raise ValueError(f"EMPS {key} differs from what the data and the model give")
     return model
 
 

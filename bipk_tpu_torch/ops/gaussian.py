@@ -1,7 +1,8 @@
-"""Gaussian helpers (port of ``bipk_tpu/ops/gaussian.py``: ``student_t``
-and ``mvn_logpdf_chol``). Student-t draws take their uniforms as inputs,
-so a draw is a deterministic function of its inputs — the CUDA kernels and
-the JAX package can then be fed the same numbers."""
+"""Gaussian helpers (port of ``bipk_tpu/ops/gaussian.py``: ``student_t``,
+``mvn_logpdf_chol``, ``mvn_logpdf`` and ``mvn_sample_chol``). Draws take
+their uniforms or normals as inputs, so a draw is a deterministic
+function of its inputs — the CUDA kernels and the JAX package can then be
+fed the same numbers."""
 
 from __future__ import annotations
 
@@ -41,3 +42,17 @@ def student_t(df: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     w = 1.0 - u
     r = torch.sqrt(df * torch.expm1(-(2.0 / df) * torch.log(w)))
     return r * torch.cos((2.0 * math.pi) * v)
+
+
+def mvn_logpdf(x, mean, cov: torch.Tensor) -> torch.Tensor:
+    """Multivariate-normal log density; factorizes ``cov (d, d)`` (no
+    jitter) and calls :func:`mvn_logpdf_chol`."""
+    return mvn_logpdf_chol(x, mean, torch.linalg.cholesky(torch.atleast_2d(cov)))
+
+
+def mvn_sample_chol(mean, chol_cov: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``N(mean, chol chol^T)`` draws from standard normals ``z``, batch-last:
+    ``mean (d,)``, ``z (d, N)`` -> ``(d, N)``. The normals are an input
+    (draw them with a caller's ``torch.Generator``), so the JAX package's
+    can be fed in (its ``z`` is ``(N, d)``: pass ``z.T``)."""
+    return torch.atleast_1d(mean)[:, None] + torch.atleast_2d(chol_cov) @ z

@@ -129,6 +129,89 @@ def posterior_mean(nat: MNIW) -> torch.Tensor:
     return solve_spd(0.5 * (nat.T1 + nat.T1.T), nat.T0).T
 
 
+class ParameterDraws(NamedTuple):
+    """The random numbers one :func:`sample_parameters` draw consumes."""
+
+    chi2: torch.Tensor  # (n,) chi-square draws, degrees of freedom df - i
+    lower: torch.Tensor  # (n, n) standard normals; the strict lower triangle is used
+    coeff: torch.Tensor  # (n, m) standard normals of the matrix-normal draw
+
+
+def sample_parameters(nat: MNIW, draws: ParameterDraws):
+    """Draw ``(A (n, m), S (n, n))`` from the MNIW of unbatched natural
+    parameters: ``S ~ IW(Psi, nu)``, ``A ~ MN(M, S, V)``.
+
+    The inverse Wishart by the Bartlett decomposition on the precision
+    side, as the JAX package: with ``R = chol(Psi)`` and the Bartlett
+    factor ``T`` (``sqrt(chi2)`` on the diagonal, ``draws.lower``'s strict
+    lower triangle below it), ``C = R^{-T} T`` is a Cholesky factor of
+    ``W ~ Wishart(nu, Psi^{-1})`` and ``S = W^{-1}`` has the factor
+    ``C^{-T}``. The draws are inputs (:func:`parameter_draws`)."""
+    mean, col_cov, row_scale, _ = standard_from_natural(nat)
+    n = row_scale.shape[0]
+    eye = torch.eye(n, dtype=row_scale.dtype, device=row_scale.device)
+    # L L^T = Psi^{-1}
+    L = torch.linalg.solve_triangular(chol_spd(row_scale), eye, upper=False)
+    bartlett = torch.tril(draws.lower, -1) + torch.diag(torch.sqrt(draws.chi2))
+    C = L @ bartlett
+    S_chol = torch.linalg.solve_triangular(C.T, eye, upper=True)
+    A = mean + S_chol @ draws.coeff @ chol_spd(col_cov).T
+    return A, S_chol @ S_chol.T
+
+
+GAMMA_ATTEMPTS = 16  # Marsaglia-Tsang candidates per draw; each is accepted w.p. > 0.95
+
+
+def chisquare(dof: torch.Tensor, z: torch.Tensor, u: torch.Tensor,
+              u_boost: torch.Tensor) -> torch.Tensor:
+    """Chi-square draws ``(n,)`` with ``dof (n,)`` degrees of freedom from
+    ``GAMMA_ATTEMPTS`` rows of candidates: twice a Gamma(dof/2) draw by
+    Marsaglia and Tsang's squeeze-free method (normals ``z (K, n)``,
+    uniforms ``u (K, n)``; the first accepted row wins), boosted by
+    ``u_boost (n,) ** (2/dof)`` where dof/2 < 1. Computed in float64.
+
+    No host synchronisation: if every candidate of an entry is rejected
+    (probability below 0.05**K), ``torch._assert_async`` raises, on the
+    card as a device-side assertion."""
+    out_dtype = dof.dtype
+    dof, z, u, u_boost = (t.double() for t in (dof, z, u, u_boost))
+    a = dof / 2.0
+    shape = torch.where(a < 1.0, a + 1.0, a)
+    d = shape - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    v = (1.0 + c * z) ** 3
+    ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * v + d * torch.log(v.clamp(min=1e-300)))
+    torch._assert_async(ok.any(0).all(), "chisquare: every candidate was rejected")
+    first = torch.argmax(ok.to(torch.int8), 0, keepdim=True)
+    gamma = (d * v).gather(0, first)[0]
+    gamma = torch.where(a < 1.0, gamma * u_boost ** (1.0 / a), gamma)
+    return (2.0 * gamma).to(out_dtype)
+
+
+def draw_chisquare(generator: torch.Generator, dof: torch.Tensor) -> torch.Tensor:
+    """Chi-square draws with ``dof (n,)`` degrees of freedom (a device
+    tensor, never read on the host) from ``generator``: :func:`chisquare`
+    of ``GAMMA_ATTEMPTS`` rows of candidates, on ``dof``'s device and
+    dtype."""
+    opts = dict(generator=generator, dtype=dof.dtype, device=dof.device)
+    n = dof.shape[0]
+    return chisquare(dof, torch.randn((GAMMA_ATTEMPTS, n), **opts),
+                     1.0 - torch.rand((GAMMA_ATTEMPTS, n), **opts),
+                     1.0 - torch.rand((n,), **opts))
+
+
+def parameter_draws(generator: torch.Generator, df: torch.Tensor, n: int, m: int
+                    ) -> ParameterDraws:
+    """One :func:`sample_parameters` draw's random numbers from
+    ``generator``, on ``df``'s device and dtype, for an MNIW with ``n``
+    outputs, ``m`` basis functions and ``df`` (a 0-d tensor, the
+    posterior's ``T3``) degrees of freedom: the chi-square draws have
+    ``df - i``."""
+    opts = dict(generator=generator, dtype=df.dtype, device=df.device)
+    chi2 = draw_chisquare(generator, df - torch.arange(n, dtype=df.dtype, device=df.device))
+    return ParameterDraws(chi2, torch.randn((n, n), **opts), torch.randn((n, m), **opts))
+
+
 # ---------------------------------------------------------------------------
 # Flat and packed layouts.
 # ---------------------------------------------------------------------------

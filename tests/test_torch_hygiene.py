@@ -7,6 +7,7 @@ import sys
 import tomllib
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from setuptools import find_packages
@@ -177,6 +178,31 @@ def test_rank1_csmc_raises_without_a_card(monkeypatch):
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_csmc(model.ssm, model.gps, 64, rank1=True)  # default device: cuda
+
+
+def test_pgas_and_emps_entry_points_raise_without_a_card(monkeypatch):
+    """Classic PGAS and the EMPS entry point resolve to CUDA and raise
+    without a card (no fallback to the CPU); the EMPS modules import with
+    JAX absent."""
+    from bipk_tpu_torch.algorithms import build_pgas, build_pgas_csmc
+    from bipk_tpu_torch.scripts import emps as emps_script
+
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['bipk_tpu'] = None\n"
+            "import bipk_tpu_torch.algorithms.pgas, bipk_tpu_torch.models.emps\n"
+            "import bipk_tpu_torch.scripts.emps, bipk_tpu_torch.utils.matio\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fns = (lambda x, u: x, lambda obs, x, u: -x[0] ** 2)
+    prior = ck.mniw.natural_from_standard(np.zeros((1, 1)), np.eye(1), np.eye(1), 3.0)
+    for build in (lambda: build_pgas_csmc(*fns, 64),
+                  lambda: build_pgas(*fns, prior, 64, 3)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()  # default device: cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        emps_script.main(["--quick"])
 
 
 class _CardTensor:
