@@ -108,13 +108,6 @@
 
 using namespace bipk_mniw;
 
-namespace bipk_mniw {
-// the warp-per-particle kernel in `mode`: the look-ahead, the draw and the
-// log-determinants at 1 <= m <= 48, the factor pair (kEmit, kReuse) at
-// m <= 24 (warp_mniw.cu)
-int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream);
-}  // namespace bipk_mniw
-
 namespace {
 
 template <int MAXM, int MODE>
@@ -245,17 +238,6 @@ Args project_args(const float* S, const float* phi, const float* prior, int n_pa
   a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
   a.jitter = jitter; a.lam = lam;
   a.mean = mean; a.col = col; a.row = row; a.ld = ld;
-  return a;
-}
-
-Args draw_args(const float* S, int n_in, const int* anc, int n_out, const float* phi,
-               const float* u, const float* v, const float* prior, float p3, int m, int n,
-               float jitter, float lam, float* S_new, float* y, float* ld) {
-  Args a = {};
-  a.S = S; a.anc = anc; a.phi = phi; a.u = u; a.v = v; a.prior = prior;
-  a.n_in = n_in; a.n_out = n_out; a.m = m; a.n = n;
-  a.jitter = jitter; a.lam = lam; a.p3 = p3;
-  a.S_new = S_new; a.y = y; a.ld = ld;
   return a;
 }
 

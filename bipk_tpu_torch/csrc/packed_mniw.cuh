@@ -23,8 +23,14 @@ constexpr int kThreads = 128;
 // the projection plus the factor LW (factorize_project with emit_factor),
 // or the factor itself, chol / white / row (factorize_blocks), or the
 // draw and the update with the factor read from LW (the factor-gather
-// draw; a mode of the warp kernel only, warp_mniw.cu).
-enum Mode { kProject = 0, kDraw = 1, kLogdets = 2, kEmit = 3, kFactor = 4, kReuse = 5 };
+// draw), or the gathered draw with each block's distinct ancestor columns
+// read once (the dedup gather), or the projection from a given factor
+// (project_blocks); the last three are modes of the warp kernel only
+// (warp_mniw.cu).
+enum Mode {
+  kProject = 0, kDraw = 1, kLogdets = 2, kEmit = 3, kFactor = 4, kReuse = 5, kDedup = 6,
+  kFromFactor = 7
+};
 
 __device__ __forceinline__ int tri_off(int j, int m) {
   // offset of column j's diagonal in a column-major packed lower triangle
@@ -51,6 +57,12 @@ struct Args {
   float* lw_out;        // kEmit: LW (m(m+1)/2 + m*n, n_out)
   float* chol;          // kFactor: (m, m, n_out), zeros above the diagonal
   float* white;         // kFactor: (m, n, n_out)
+  // kFromFactor inputs: element (i, k) of particle j's factor at
+  // chol_in[i*cs_i + k*cs_k + j], element (k, c) of its white at
+  // white_in[k*ws_k + c*ws_c + j] (strided views, particle stride 1)
+  const float* chol_in;
+  const float* white_in;
+  int64_t cs_i, cs_k, ws_k, ws_c;
   // draw/update outputs
   float* S_new;         // (rows, n_out)
   float* y;             // (n, n_out)
@@ -311,6 +323,25 @@ __device__ __forceinline__ void mniw_core(const Args& a, int j, const Reader& rd
     a.S_new[(o2 + n * (n + 1) / 2) * n_out + j] = forget_add(t3raw, lam, 1.f, 1.f);
   }
 }
+
+// The arguments of a draw/update launch, gathered (anc) or not (nullptr).
+inline Args draw_args(const float* S, int n_in, const int* anc, int n_out, const float* phi,
+                      const float* u, const float* v, const float* prior, float p3, int m,
+                      int n, float jitter, float lam, float* S_new, float* y, float* ld) {
+  Args a = {};
+  a.S = S; a.anc = anc; a.phi = phi; a.u = u; a.v = v; a.prior = prior;
+  a.n_in = n_in; a.n_out = n_out; a.m = m; a.n = n;
+  a.jitter = jitter; a.lam = lam; a.p3 = p3;
+  a.S_new = S_new; a.y = y; a.ld = ld;
+  return a;
+}
+
+// The warp-per-particle kernel in `mode` (warp_mniw.cu): the look-ahead,
+// the draw, the log-determinants and the projection from a given factor
+// at 1 <= m <= 48, the factor pair (kEmit, kReuse) and the dedup gather
+// at m <= 24. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// shape or mode it does not take.
+int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream);
 
 // The core on a column of the packed layout at Sc, row stride `stride`.
 template <int MAXM, int MODE>

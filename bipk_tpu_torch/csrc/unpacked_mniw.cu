@@ -32,11 +32,20 @@
 // (the JAX package's tiled #10 and #12 stop at m = 24; these serve m <= 48
 // and compute the same function).
 //
-// project_kernel reads the factor through element strides with the
-// particle stride 1: in the rank-1 cSMC, chol = F[:m, :m] and white =
-// F[m:, :m]^T are views of the augmented factor F (p, p, N), read in place
-// (a copy of chol alone would move 16.4 MB per call at m = 20, N = 10240).
-// It reads only the lower triangle of chol.
+// The projection from a given factor reads it through element strides
+// with the particle stride 1: in the rank-1 cSMC, chol = F[:m, :m] and
+// white = F[m:, :m]^T are views of the augmented factor F (p, p, N), read
+// in place (a copy of chol alone would move 16.4 MB per call at m = 20,
+// N = 10240). It reads only the lower triangle of chol. The wrapper's entry
+// (bipk_project_blocks) launches the warp kernel's kFromFactor mode
+// (warp_mniw.cu): a block stages tril(chol), white and phi of its P
+// particles through the strides (each row P neighbouring floats) and
+// substitutes across a particle's lanes, m dependent steps instead of
+// m(m+1)/2; two particles per warp at m <= 24, one above. project_kernel
+// (one thread per particle, v in a per-thread array) is what it launched
+// before; it stays compiled as the comparator behind
+// bipk_project_blocks_per_thread, which no wrapper reaches, and the warp
+// mode equals it bit for bit (chip_smoke.py phase 18).
 //
 // What bounds them on the H100 at m = 20, n = 1: bytes in principle
 // (factorize ~842 floats per particle in and out, 33 us at N = 32768;
@@ -44,7 +53,8 @@
 // ~252, 10 us), against a few kflop per particle. In practice, as for the
 // packed kernels, the per-thread factor sits in local memory and the
 // Cholesky's dependent loads bound them; project_kernel's m^2/2 dependent
-// loads of chol are global ones. Times: PERF.md.
+// loads of chol are global ones, each feeding one serial FMA chain.
+// Times: PERF.md.
 //
 // C interface (loaded with ctypes): every function launches on the given
 // stream, never synchronises, allocates nothing, and returns
@@ -154,6 +164,20 @@ extern "C" int bipk_log_base_measure_logdets(
 }
 
 extern "C" int bipk_project_blocks(
+    const float* chol, long long cs_i, long long cs_k, const float* white,
+    long long ws_k, long long ws_c, const float* phi, int n_particles, int m,
+    int n, float* mean, float* col, void* stream) {
+  Args a = {};
+  a.chol_in = chol; a.white_in = white; a.phi = phi;
+  a.cs_i = cs_i; a.cs_k = cs_k; a.ws_k = ws_k; a.ws_c = ws_c;
+  a.n_in = n_particles; a.n_out = n_particles; a.m = m; a.n = n;
+  a.mean = mean; a.col = col;
+  return launch_warp_mniw(a, kFromFactor, static_cast<cudaStream_t>(stream));
+}
+
+// The comparator of the warp kernel's kFromFactor mode: the per-thread
+// project_kernel<24 | 48>, which chip_smoke.py calls and no wrapper does.
+extern "C" int bipk_project_blocks_per_thread(
     const float* chol, long long cs_i, long long cs_k, const float* white,
     long long ws_k, long long ws_c, const float* phi, int n_particles, int m,
     int n, float* mean, float* col, void* stream) {

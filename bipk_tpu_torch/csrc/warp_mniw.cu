@@ -25,9 +25,16 @@
 //     look-ahead that also writes the factor LW = [tril(L) | white]; and
 //     _du_factor_gather_kernel (:560) behind
 //     draw_update_factor_gather_packed_blocks (:1422), the gathered draw
-//     that reads L and white from LW[:, anc] instead of factoring again.
+//     that reads L and white from LW[:, anc] instead of factoring again;
+//   - for m <= 24, the dedup gather: _draw_update_dedup_gather_kernel
+//     (:903) behind draw_update_dedup_gather_packed_blocks (:1312), the
+//     gathered draw with each block's distinct ancestor columns read once;
+//   - at every m <= 48, the projection from a given factor: _project_kernel
+//     (:352) behind project_blocks (:1712), mean = white^T L^{-1} phi and
+//     col = |L^{-1} phi|^2 + 1 from a factor read through its strides.
 // packed_mniw.cu launches these for its look-ahead, draw, log-determinants
-// and factor pair at every m they serve. The log-determinants are a third
+// and factor pair at every m they serve, dedup_gather.cu and
+// unpacked_mniw.cu for the dedup gather and the projection. The log-determinants are a third
 // mode of the same kernel (kLogdets): no phi (no phi rows in the tile, no
 // phi^T row in the triangle), no gather, and lane 0 writes the two
 // log-determinants only. The factor-emitting look-ahead (kEmit) is kProject
@@ -40,7 +47,19 @@
 // running sums of rows l and l + 16; for c = 0 .. m-1 every lane takes row
 // c's sum from its owner by a shuffle and divides, and every later row
 // takes its term), m dependent steps; Psi, mean and col read white from the
-// tile, and the draw and the update are kDraw's.
+// tile, and the draw and the update are kDraw's. The dedup gather (kDedup)
+// is kDraw on a tile filled another way: the block finds the runs of equal
+// ancestors among its P sorted ones (a ballot of the run starts and a
+// prefix count on warp 0), reads each run's column of S once into the
+// particles' triangles (idle until the core starts, and always large
+// enough: no extra shared memory and no fallback to global reads), and
+// copies it on into the tile column of every particle of the run; out-of-
+// order ancestors only start more runs. The projection from a given factor
+// (kFromFactor) stages tril(L), white and phi of its P particles through
+// the factor's element strides (each row P neighbouring floats, read in
+// place from views of an augmented factor), runs kReuse's substitution
+// across the particle's lanes, and gives mean and col one lane each: no
+// S, no Cholesky, no draw.
 //
 // Design. One particle on 32 / PW lanes of a warp, PW = 2 particles per
 // warp for m <= 24 (a half warp each) and 1 above, the factor in shared
@@ -98,14 +117,22 @@
 // of its substitution, Psi, mean and col into one FFMA (acc - L v as
 // fma(-L, v, acc)), divides with the IEEE division, rounds "lam * T2 + P2"
 // as a product and a predicated sum, and df_pred as kDraw's; kReuse writes
-// those out the same way.
+// those out the same way. kDedup's arithmetic is kDraw's on the same
+// values; its comparator dedup_gather_kernel runs the per-thread core in
+// mode kDraw as packed_mniw_kernel<24, kDraw> does. project_kernel,
+// kFromFactor's comparator, contracts its substitution's acc - L v and
+// its mean's and col's multiply-adds into FFMAs as factor_gather_kernel
+// does (SASS, PERF.md), which kFromFactor writes out with __fmaf_rn.
 // chip_smoke.py holds these kernels against the per-thread ones bit for bit (phase 2 at m <= 24,
-// phase 8 above, phase 14 for the factor pair; the comparator is
+// phase 8 above, phase 14 for the factor pair and the dedup gather (also
+// against #4), phase 18 for the projection; the comparator is
 // packed_mniw_kernel<24 | 48, kProject / kDraw / kLogdets / kEmit> and
-// factor_gather_kernel behind bipk_*_per_thread in packed_mniw.cu, which
-// no wrapper reaches), and phase 18 against the unpacked kernels;
-// tests/test_torch_warp_rehearsal.py and test_torch_factor_rehearsal.py
-// run both on the host (below).
+// factor_gather_kernel behind bipk_*_per_thread in packed_mniw.cu,
+// dedup_gather_kernel and project_kernel<24 | 48> behind the
+// *_per_thread entries of dedup_gather.cu and unpacked_mniw.cu, which no
+// wrapper reaches), and phase 18 against the unpacked kernels;
+// tests/test_torch_warp_rehearsal.py, test_torch_factor_rehearsal.py and
+// test_torch_dedup_project_rehearsal.py run them on the host (below).
 //
 // What bounds it on the H100. The bytes are those of the per-thread
 // kernels: at m = 20, N = 32768, S is read once (30 MB: 0.010 ms for the
@@ -116,7 +143,11 @@
 // N = 200 (0.0002 ms). The factor pair at m = 20, N = 32768: kEmit adds
 // LW's 30 MB write (0.019 ms in all), kReuse reads S and LW of the
 // distinct ancestors and writes S_new (up to 0.012 ms with every column
-// distinct). In practice the instructions
+// distinct). The dedup gather moves #4's bytes with S read at each
+// block's runs (a degenerate block of 16 reads 1-2 columns, not 16); the
+// projection from a given factor at m = 20, n = 1 reads tril(L), white
+// and phi and writes mean and col, 252 floats per particle (0.0099 ms at
+// N = 32768, 0.0031 at 10240). In practice the instructions
 // a particle's lanes issue: most of them are the Cholesky's columns, each
 // a dot product whose terms wait on their shared-memory loads followed by
 // a serial shuffle, rsqrtf, division and stores, with fewer and fewer of
@@ -172,24 +203,37 @@ constexpr unsigned kFull = 0xffffffffu;
 // 16 further on. The log-determinants (kLogdets) read no phi: no phi rows
 // in the tile, no phi^T row in the triangle. The factor-gather draw
 // (kReuse) stages LW's rows after phi's and keeps no triangle: one row
-// holds v, then the m log-diagonal slots.
+// holds v, then the m log-diagonal slots. The dedup gather (kDedup) plans
+// as the draw; before the core starts it stages the block's distinct
+// ancestor columns in the particles' triangles, whose P * per_particle
+// floats always hold P * rows (per_particle >= rows at every m, n: no
+// extra space and no fallback), and keeps 2P + 1 ints: the runs' source
+// columns, each particle's run and the count of runs. The projection from
+// a given factor (kFromFactor) stages LW's rows (tril(chol) and white)
+// and phi, and keeps one row for v.
 struct WarpPlan {
-  int rows, lw_rows, tile_rows, ts, ld, R, per_particle, tile_floats;
+  int rows, lw_rows, tile_rows, ts, ld, R, per_particle, tile_floats, ints;
   __host__ __device__ WarpPlan(int m, int n, int P, int GW, int mode)
       : rows(m * n + m * (m + 1) / 2 + n * (n + 1) / 2 + 1),
         lw_rows(m * (m + 1) / 2 + m * n),
-        tile_rows(rows + (mode != kLogdets ? m : 0) + (mode == kReuse ? lw_rows : 0)),
+        tile_rows(mode == kFromFactor
+                      ? lw_rows + m
+                      : rows + (mode != kLogdets ? m : 0) + (mode == kReuse ? lw_rows : 0)),
         ts(P | 1),  // odd row stride: 32 rows of one column hit 32 banks
         ld(m | 1),  // odd: 32 lanes on 32 rows of one column hit 32 banks
-        R(mode == kReuse ? 1 : m + n + (mode != kLogdets)),
-        per_particle(padded(R * ld + m, GW)),
-        tile_floats(tile_rows * ts) {}
+        R(mode == kReuse || mode == kFromFactor ? 1 : m + n + (mode != kLogdets)),
+        per_particle(padded(mode == kFromFactor ? ld
+                            : mode == kDedup  ? max(R * ld + m, rows)
+                                              : R * ld + m,
+                            GW)),
+        tile_floats(tile_rows * ts),
+        ints(mode == kDedup ? 2 * P + 1 : P) {}
   __host__ __device__ static int padded(int floats, int GW) {
     return GW == 32 ? floats : floats + (48 - floats % 32) % 32;
   }
   __host__ __device__ size_t bytes(int P) const {
     return sizeof(float) * ((size_t)tile_floats + (size_t)P * per_particle) +
-           sizeof(int) * P;
+           sizeof(int) * ints;
   }
 };
 
@@ -206,6 +250,32 @@ __device__ __forceinline__ float scaled_prior(float raw, float lam, const float*
 __device__ __forceinline__ void emit_lw(float* x, int ts, int m, int n, int r, int c, float f) {
   if (r < m) x[(r * (r + 1) / 2 + c) * ts] = f;
   else if (r < m + n) x[(m * (m + 1) / 2 + c * n + r - m) * ts] = f;
+}
+
+// v = L^{-1} phi across a particle's GW lanes, L read from LW's rows of
+// its tile column (L[i][k] at lw[(i(i+1)/2 + k) * ts]), phi from phi[i *
+// ts]; v[c] to V[c] (lane 0 writes). Lane l keeps the running sums of
+// rows l and l + GW; for c = 0 .. m-1 every lane takes row c's sum from
+// its owner and divides it by L[c][c] (the same v[c] on every lane, with
+// no branch), and every row i > c takes fma(-L[i][c], v[c], .), so each
+// row sums its terms in increasing k, as the per-thread substitutions do
+// (one FFMA per term, the IEEE division): m dependent steps. The loads do
+// not wait for v: L0[c] past row r0's end stays inside LW's triangle.
+template <int GW>
+__device__ __forceinline__ void solve_lanes(const float* lw, const float* phi, int ts, int m,
+                                            float* V, int lane) {
+  const int r0 = lane, r1 = lane + GW;
+  const float* L0 = lw + (r0 < m ? r0 * (r0 + 1) / 2 : 0) * ts;
+  const float* L1 = lw + (r1 < m ? r1 * (r1 + 1) / 2 : 0) * ts;
+  float s0 = r0 < m ? phi[r0 * ts] : 0.f, s1 = r1 < m ? phi[r1 * ts] : 0.f;
+#pragma unroll 4
+  for (int c = 0; c < m; ++c) {
+    const float l0 = L0[c * ts], l1 = L1[c * ts], d = lw[(c * (c + 1) / 2 + c) * ts];
+    const float vc = __fdiv_rn(__shfl_sync(kFull, c < GW ? s0 : s1, c & (GW - 1), GW), d);
+    if (lane == 0) V[c] = vc;
+    if (r0 > c && r0 < m) s0 = __fmaf_rn(-l0, vc, s0);
+    if (r1 > c && r1 < m) s1 = __fmaf_rn(-l1, vc, s1);
+  }
 }
 
 // One particle on GW lanes of a warp (a whole warp, or one half of it with
@@ -245,25 +315,8 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
 #pragma unroll 4
       for (int i = c; i < m; ++i) t[i * ts] = forget_add(t[i * ts], lam, phi[i * ts], phi_c);
     }
-    // v = L^{-1} phi across the lanes: lane l keeps the running sums of
-    // rows l and l + GW (L[i][k] at LW row i(i+1)/2 + k); for c = 0 .. m-1
-    // every lane takes row c's sum from its owner and divides it by L[c][c]
-    // (the same v[c] on every lane, with no branch), and every row i > c
-    // takes fma(-L[i][c], v[c], .), so each row sums its terms in
-    // increasing k, as the per-thread substitution does. The loads do not
-    // wait for v: L0[c] past row r0's end stays inside LW's triangle
-    const int r0 = lane, r1 = lane + GW;
-    const float* L0 = lw + (r0 < m ? r0 * (r0 + 1) / 2 : 0) * ts;
-    const float* L1 = lw + (r1 < m ? r1 * (r1 + 1) / 2 : 0) * ts;
-    float s0 = r0 < m ? phi[r0 * ts] : 0.f, s1 = r1 < m ? phi[r1 * ts] : 0.f;
-#pragma unroll 4
-    for (int c = 0; c < m; ++c) {
-      const float l0 = L0[c * ts], l1 = L1[c * ts], d = lw[(c * (c + 1) / 2 + c) * ts];
-      const float vc = __fdiv_rn(__shfl_sync(kFull, c < GW ? s0 : s1, c & (GW - 1), GW), d);
-      if (lane == 0) L[c] = vc;
-      if (r0 > c && r0 < m) s0 = __fmaf_rn(-l0, vc, s0);
-      if (r1 > c && r1 < m) s1 = __fmaf_rn(-l1, vc, s1);
-    }
+    // v = L^{-1} phi across the lanes, into L
+    solve_lanes<GW>(lw, phi, ts, m, L, lane);
     for (int c = lane; c < m; c += GW) logs[c] = logf(lw[(c * (c + 1) / 2 + c) * ts]);
     __syncwarp();
   } else {
@@ -417,6 +470,54 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
   }
 }
 
+// kFromFactor: one particle's projection from its given factor on GW lanes
+// of a warp. x: its tile column, rows [0, m(m+1)/2) tril(L) row-major,
+// then white (row m(m+1)/2 + k n + c), then phi; V: m floats for v.
+// mean[c] = white[:, c] . v and col = v . v + 1, one lane each (lanes
+// 0 .. n-1 and n), summed over k in increasing order with one fused
+// multiply-add per term, as the per-thread project_kernel compiles them.
+template <int GW>
+__device__ __forceinline__ void warp_from_factor(const Args& a, int j, bool valid,
+                                                 const float* x, int ts, float* V, int lane) {
+  const int m = a.m, n = a.n;
+  const float* white = x + m * (m + 1) / 2 * ts;
+  solve_lanes<GW>(x, white + m * n * ts, ts, m, V, lane);
+  __syncwarp();
+  if (!valid || lane > n) return;
+  float acc = 0.f;
+  if (lane < n) {
+    for (int k = 0; k < m; ++k) acc = __fmaf_rn(white[(k * n + lane) * ts], V[k], acc);
+    a.mean[(int64_t)lane * a.n_out + j] = acc;
+  } else {
+    for (int k = 0; k < m; ++k) acc = __fmaf_rn(V[k], V[k], acc);
+    a.col[j] = __fadd_rn(acc, 1.f);
+  }
+}
+
+// Row i of a packed lower triangle that holds entry r (i(i+1)/2 <= r <
+// (i+1)(i+2)/2).
+__device__ __forceinline__ int tri_row(int r) {
+  int i = (int)((sqrtf(8.f * (float)r + 1.f) - 1.f) * 0.5f);
+  if ((i + 1) * (i + 2) / 2 <= r) ++i;
+  return i;
+}
+
+// kFromFactor: where tile row r of particle j is read: rows [0, m(m+1)/2)
+// L[i][k] through chol's strides, then white[k][c] through white's, then
+// phi[i]; neighbouring particles are neighbouring floats in all three.
+__device__ __forceinline__ const float* factor_source(const Args& a, int r, int64_t j) {
+  const int tri = a.m * (a.m + 1) / 2, mn = a.m * a.n;
+  if (r < tri) {
+    const int i = tri_row(r);
+    return a.chol_in + i * a.cs_i + (r - i * (i + 1) / 2) * a.cs_k + j;
+  }
+  if (r < tri + mn) {
+    const int k = (r - tri) / a.n;
+    return a.white_in + k * a.ws_k + (r - tri - k * a.n) * a.ws_c + j;
+  }
+  return a.phi + (int64_t)(r - tri - mn) * a.n_out + j;
+}
+
 // A block of 1 << log_w warps, 32 / GW particles on each.
 template <int MODE, int GW>
 __global__ void __launch_bounds__(32 * kMaxWarps)
@@ -433,41 +534,112 @@ warp_mniw_kernel(const Args a, int log_w) {
   const int64_t j0 = (int64_t)blockIdx.x * P;
   const int64_t n_in = a.n_in, n_out = a.n_out;
 
-  // the block's P source columns; only the draws gather. A column past
-  // n_out reads column 0 (read, never used)
-  constexpr bool GATHER = MODE == kDraw || MODE == kReuse;
-  if (threadIdx.x < P) {
-    const int64_t j = j0 + threadIdx.x;
-    src[threadIdx.x] = j < n_out ? (GATHER ? source_column(a, (int)j) : (int)j) : 0;
-  }
-  __syncthreads();
-  // stage S[:, src], (but for kLogdets) phi[:, j0 .. j0 + P) and (kReuse)
-  // LW[:, src] as the tile, kLoads loads in flight per thread
-  const int total = p.tile_rows << log_p;
-  for (int e0 = threadIdx.x; e0 < total; e0 += kLoads * blockDim.x) {
-    float v[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = min(e0 + u * (int)blockDim.x, total - 1);
-      const int r = e >> log_p, w = e & (P - 1);
-      const float* from;
-      if (MODE == kLogdets || r < p.rows) from = a.S + r * n_in + src[w];
-      else if (MODE != kReuse || r < p.rows + a.m)
-        from = a.phi + (r - p.rows) * n_out + min(j0 + w, n_out - 1);
-      else from = a.lw + (r - p.rows - a.m) * n_in + src[w];
-      v[u] = __ldg(from);
+  constexpr bool GATHER = MODE == kDraw || MODE == kReuse || MODE == kDedup;
+  if constexpr (MODE == kDedup) {
+    // the block's runs of equal ancestors, on warp 0 (P <= 16): particle t
+    // starts a run where its ancestor differs from its left neighbour's; a
+    // ballot of the starts and a prefix count give each particle its run.
+    // Run d's source column goes to src[d], particle t's run to slot[t],
+    // their count D to *runs_of. A particle past n_out takes the last run
+    // (computed on, never written). Out-of-order ancestors stay correct:
+    // a value seen again starts another run
+    int* slot = src + P;
+    int* runs_of = slot + P;
+    if (threadIdx.x < 32) {
+      const int t = threadIdx.x;
+      const bool live = t < P && j0 + t < n_out;
+      const int col = live ? source_column(a, (int)(j0 + t)) : -1;
+      const int left = __shfl_up_sync(kFull, col, 1);
+      const bool starts = live && (t == 0 || left != col);
+      const unsigned runs = __ballot_sync(kFull, starts);
+      const int d = __popc(runs & ((2u << t) - 1u)) - 1;
+      if (starts) src[d] = col;
+      if (t < P) slot[t] = d;
+      if (t == 0) *runs_of = __popc(runs);
     }
+    __syncthreads();
+    // stage each run's column of S once (element r of run d at stage[r * D
+    // + d], neighbouring threads on neighbouring runs) in the particles'
+    // triangles, idle until the core starts, and phi[:, j0 .. j0 + P) in
+    // the tile, kLoads loads in flight per thread
+    const int D = *runs_of;
+    float* stage = smem + p.tile_floats;
+    const int staged = D * p.rows, total = staged + (a.m << log_p);
+    for (int e0 = threadIdx.x; e0 < total; e0 += kLoads * blockDim.x) {
+      float v[kLoads];
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * (int)blockDim.x;
-      if (e < total) tile[(e >> log_p) * p.ts + (e & (P - 1))] = v[u];
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = min(e0 + u * (int)blockDim.x, total - 1);
+        const float* from;
+        if (e < staged) {
+          const int r = e / D;
+          from = a.S + r * n_in + src[e - r * D];
+        } else {
+          const int f = e - staged, w = f & (P - 1);
+          from = a.phi + (f >> log_p) * n_out + min(j0 + w, n_out - 1);
+        }
+        v[u] = __ldg(from);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = e0 + u * (int)blockDim.x;
+        if (e < staged) stage[e] = v[u];
+        else if (e < total)
+          tile[(p.rows + ((e - staged) >> log_p)) * p.ts + ((e - staged) & (P - 1))] = v[u];
+      }
+    }
+    __syncthreads();
+    // every particle's tile column from its run's staged copy
+    for (int e = threadIdx.x; e < p.rows << log_p; e += blockDim.x) {
+      const int r = e >> log_p, w = e & (P - 1);
+      tile[r * p.ts + w] = stage[r * D + slot[w]];
+    }
+  } else {
+    // the block's P source columns; only the draws gather. A column past
+    // n_out reads column 0 (read, never used)
+    if (threadIdx.x < P) {
+      const int64_t j = j0 + threadIdx.x;
+      src[threadIdx.x] = j < n_out ? (GATHER ? source_column(a, (int)j) : (int)j) : 0;
+    }
+    __syncthreads();
+    // stage S[:, src], (but for kLogdets) phi[:, j0 .. j0 + P) and (kReuse)
+    // LW[:, src] as the tile, or (kFromFactor) the particles' factors and
+    // phi, kLoads loads in flight per thread
+    const int total = p.tile_rows << log_p;
+    for (int e0 = threadIdx.x; e0 < total; e0 += kLoads * blockDim.x) {
+      float v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = min(e0 + u * (int)blockDim.x, total - 1);
+        const int r = e >> log_p, w = e & (P - 1);
+        const float* from;
+        if constexpr (MODE == kFromFactor) {
+          from = factor_source(a, r, min(j0 + w, n_out - 1));
+        } else {
+          if (MODE == kLogdets || r < p.rows) from = a.S + r * n_in + src[w];
+          else if (MODE != kReuse || r < p.rows + a.m)
+            from = a.phi + (r - p.rows) * n_out + min(j0 + w, n_out - 1);
+          else from = a.lw + (r - p.rows - a.m) * n_in + src[w];
+        }
+        v[u] = __ldg(from);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = e0 + u * (int)blockDim.x;
+        if (e < total) tile[(e >> log_p) * p.ts + (e & (P - 1))] = v[u];
+      }
     }
   }
   __syncthreads();
   if (j0 + warp * kPerWarp < n_out) {  // warp-uniform
     const int64_t j = j0 + q;
     float* L = smem + p.tile_floats + q * p.per_particle;
-    warp_particle<MODE, GW>(a, (int)j, j < n_out, tile + q, p.ts, L, L + p.R * p.ld, lane);
+    if constexpr (MODE == kFromFactor) {
+      warp_from_factor<GW>(a, (int)j, j < n_out, tile + q, p.ts, L, lane);
+    } else {  // the dedup gather draws as kDraw on its tile
+      warp_particle<MODE == kDedup ? kDraw : MODE, GW>(a, (int)j, j < n_out, tile + q, p.ts, L,
+                                                       L + p.R * p.ld, lane);
+    }
   }
   if constexpr (GATHER || MODE == kEmit) {  // S_new (kEmit: LW) by rows of P particles
     __syncthreads();
@@ -543,7 +715,7 @@ int launch_mode(const Args& a, cudaStream_t stream) {
 
 template <int MODE>
 int launch_width(const Args& a, cudaStream_t stream) {
-  if constexpr (MODE == kEmit || MODE == kReuse) {
+  if constexpr (MODE == kEmit || MODE == kReuse || MODE == kDedup) {
     return launch_mode<MODE, 16>(a, stream);  // m <= 24 (takes)
   } else {
     return lanes_per_particle(a.m) == 16 ? launch_mode<MODE, 16>(a, stream)
@@ -553,10 +725,11 @@ int launch_width(const Args& a, cudaStream_t stream) {
 
 // (mode, m) the warp kernel takes: every m <= 48 but the factor pair's
 // (kEmit, kReuse), which serves m <= 24 only, as the TPU's
-// (supported_factor)
+// (supported_factor), and the dedup gather's, m <= 24 as the TPU's
+// (DEDUP_MAX_M)
 bool takes(int mode, int m) {
-  if (mode == kEmit || mode == kReuse) return m <= 24;
-  return mode == kProject || mode == kDraw || mode == kLogdets;
+  if (mode == kEmit || mode == kReuse || mode == kDedup) return m <= 24;
+  return mode == kProject || mode == kDraw || mode == kLogdets || mode == kFromFactor;
 }
 
 }  // namespace
@@ -570,15 +743,18 @@ int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream) {
     case kDraw: return launch_width<kDraw>(a, stream);
     case kLogdets: return launch_width<kLogdets>(a, stream);
     case kEmit: return launch_width<kEmit>(a, stream);
-    default: return launch_width<kReuse>(a, stream);
+    case kReuse: return launch_width<kReuse>(a, stream);
+    case kDedup: return launch_width<kDedup>(a, stream);
+    default: return launch_width<kFromFactor>(a, stream);
   }
 }
 
 }  // namespace bipk_mniw
 
-// The warp kernel's launch in `mode` (kProject, kDraw, kLogdets, kEmit or
-// kReuse) at (m, n) and n_out particles on the current card: warps and
-// particles per block and dynamic shared memory in bytes, for reports.
+// The warp kernel's launch in `mode` (kProject, kDraw, kLogdets, kEmit,
+// kReuse, kDedup or kFromFactor) at (m, n) and n_out particles on the
+// current card: warps and particles per block and dynamic shared memory in
+// bytes, for reports.
 extern "C" int bipk_warp_mniw_plan(int mode, int m, int n, int n_out, int* warps,
                                    int* particles, int* smem_bytes) {
   if (m < 1 || m > 48 || n < 1 || n > 2 || !bipk_mniw::takes(mode, m))

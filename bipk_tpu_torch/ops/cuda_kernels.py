@@ -18,10 +18,12 @@ wrapper                                     CUDA source
                                             ``csrc/warp_mniw.cu``
 ``draw_update_factor_gather_packed_blocks`` ``csrc/packed_mniw.cu``,
                                             ``csrc/warp_mniw.cu``
-``draw_update_dedup_gather_packed_blocks``  ``csrc/dedup_gather.cu``
+``draw_update_dedup_gather_packed_blocks``  ``csrc/dedup_gather.cu``,
+                                            ``csrc/warp_mniw.cu``
 ``factorize_blocks``                        ``csrc/unpacked_mniw.cu``
 ``factorize_project_blocks``                ``csrc/unpacked_mniw.cu``
-``project_blocks``                          ``csrc/unpacked_mniw.cu``
+``project_blocks``                          ``csrc/unpacked_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
 ``log_base_measure_logdets``                ``csrc/unpacked_mniw.cu``
 =========================================== =========================
 
@@ -39,13 +41,16 @@ TPU's tiled kernels, ``<48>`` for 24 < m <= 48, the counterpart of its
 cs-layout ``_cs_call`` / ``_cs_du_gather_call``). The look-ahead, the
 draw and the log-determinants run the warp-per-particle
 ``warp_mniw_kernel`` (``csrc/warp_mniw.cu``) at both widths, counted as
-``"<24w>"`` and ``"<48w>"``; so does the factor pair at m <= 24, the
-factor-emitting projection counted as ``"[emit]<24w>"``. The per-thread
-``<24>`` and ``<48>`` look-ahead, draw and log-determinants, ``<24,
-kEmit>`` and ``factor_gather_kernel`` stay compiled as the warp kernels'
-comparator (``*_per_thread`` below, counted as ``"<24>"`` / ``"<48>"`` /
-``"[emit]<24>"``), which no wrapper calls. The factor pair and the dedup
-gather take m <= 24 only. The resampler's wrapper launches the one-block scan
+``"<24w>"`` and ``"<48w>"``; so do the factor pair and the dedup gather
+at m <= 24, the factor-emitting projection counted as ``"[emit]<24w>"``,
+and the projection from a given factor (``project_blocks``) at every m.
+The per-thread ``<24>`` and ``<48>`` look-ahead, draw and
+log-determinants, ``<24, kEmit>``, ``factor_gather_kernel``,
+``dedup_gather_kernel`` and ``project_kernel<24 | 48>`` stay compiled as
+the warp kernels' comparator (``*_per_thread`` below, counted as
+``"<24>"`` / ``"<48>"`` / ``"[emit]<24>"``), which no wrapper calls. The
+factor pair and the dedup gather take m <= 24 only. The resampler's
+wrapper launches the one-block scan
 kernel (``systematic_scan_kernel``); the per-thread kernel it replaced
 stays as its comparator (:func:`systematic_ancestors_blocks_per_thread`,
 counted as ``"_per_thread"``), which no wrapper calls either.
@@ -87,6 +92,9 @@ _SIGNATURES = {
     "bipk_draw_update_dedup_gather_packed": [
         _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
     ],
+    "bipk_draw_update_dedup_gather_packed_per_thread": [
+        _P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _I, _F, _F, _P, _P, _P, _P,
+    ],
     "bipk_systematic_ancestors": [_P, _P, _I, _I, _P, _P],
     "bipk_systematic_ancestors_per_thread": [_P, _P, _I, _P, _P, _P],
     "bipk_log_base_measure_packed": [_P, _P, _I, _I, _I, _F, _P, _P],
@@ -104,16 +112,14 @@ _SIGNATURES = {
     ],
     "bipk_log_base_measure_logdets": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
     "bipk_project_blocks": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
+    "bipk_project_blocks_per_thread": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
 }
 MAX_M = 48
 MAX_N = 2
 # the m bounds of packed_mniw_kernel's instantiations (packed_mniw.cu launch)
 WIDTHS = (24, 48)
-# the widest m of the dedup gather (dedup_gather.cu), and its shared-memory
-# stage in floats per block (kStageFloats there): a block stages its D
-# distinct ancestor columns when D * packed_rows(m, n) fits
+# the widest m of the dedup gather (the warp kernel's kDedup mode)
 DEDUP_MAX_M = 24
-DEDUP_STAGE_FLOATS = 6144
 
 
 @functools.lru_cache(maxsize=None)
@@ -503,10 +509,10 @@ def draw_update_dedup_gather_packed_blocks(
     m: int = 0, n: int = 0,
 ):
     """:func:`draw_update_gather_packed_blocks` for degenerate weights
-    (m <= 24): each block of 128 outputs stages its distinct ancestor
-    columns in shared memory once when they fit ``DEDUP_STAGE_FLOATS``,
-    and reads them from global memory as the gather/draw kernel does
-    when not. Same contract and result."""
+    (m <= 24), the warp kernel's kDedup mode: each block reads each of its
+    distinct ancestor columns once (:func:`dedup_runs`) and fills every
+    particle's column from that copy in shared memory. Same contract and
+    result, bit for bit."""
     name = "draw_update_dedup_gather_packed_blocks"
     _check_mn(name, S, m, n, DEDUP_MAX_M)
     if not _on_cuda(name, S):
@@ -520,21 +526,20 @@ def draw_update_dedup_gather_packed_blocks(
     return out
 
 
-def dedup_staged_blocks(ancestors: torch.Tensor, m: int, n: int):
-    """``(staged, direct)``: how many blocks of 128 outputs of
-    :func:`draw_update_dedup_gather_packed_blocks` stage their distinct
-    ancestor columns (D * packed_rows(m, n) <= DEDUP_STAGE_FLOATS, D the
-    block's count of runs of equal ancestors) and how many read directly,
-    by the rule of ``dedup_gather.cu``. For reports; the kernel decides
-    on the device."""
+def dedup_runs(ancestors: torch.Tensor, particles: int) -> torch.Tensor:
+    """The distinct ancestor columns that each block of ``particles``
+    outputs of :func:`draw_update_dedup_gather_packed_blocks` reads once:
+    its runs of equal neighbouring ancestors, a block's first output
+    starting one (the rule of ``warp_mniw.cu``'s kDedup; ``particles`` as
+    :func:`warp_plan` gives it for mode ``"dedup"``). For reports; the
+    kernel counts on the device."""
     a = ancestors.long()
     starts = torch.ones_like(a, dtype=torch.bool)
     starts[1:] = a[1:] != a[:-1]
-    starts[::128] = True
-    runs = torch.zeros(-(-a.shape[0] // 128), dtype=torch.long, device=a.device)
-    runs.index_add_(0, torch.arange(a.shape[0], device=a.device) // 128, starts.long())
-    staged = int((runs * mniw.packed_rows(m, n) <= DEDUP_STAGE_FLOATS).sum())
-    return staged, runs.shape[0] - staged
+    starts[::particles] = True
+    runs = torch.zeros(-(-a.shape[0] // particles), dtype=torch.long, device=a.device)
+    runs.index_add_(0, torch.arange(a.shape[0], device=a.device) // particles, starts.long())
+    return runs
 
 
 def log_base_measure_packed_logdets_plain(S, jitter, prior=None, m=0, n=0):
@@ -583,7 +588,8 @@ def _logdets(name, S, jitter, prior, m, n, launch):
 # ---------------------------------------------------------------------------
 # The per-thread comparator of the warp kernels: the packed_mniw_kernel<24,
 # kProject / kDraw / kLogdets> (m <= 24) and <48, ...> (24 < m <= 48), <24,
-# kEmit> and factor_gather_kernel that the wrappers launched before the
+# kEmit>, factor_gather_kernel, dedup_gather_kernel and project_kernel<24 |
+# 48> (below, beside project_blocks) that the wrappers launched before the
 # warp kernels replaced them, kept to hold the warp kernels against bit for
 # bit and to time beside them. No wrapper calls these.
 # ---------------------------------------------------------------------------
@@ -652,6 +658,25 @@ def draw_update_factor_gather_packed_blocks_per_thread(
     return out
 
 
+def draw_update_dedup_gather_packed_blocks_per_thread(
+    S: torch.Tensor, ancestors: torch.Tensor, phi: torch.Tensor,
+    u: torch.Tensor, v: torch.Tensor, jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None, p3: float = 0.0,
+    m: int = 0, n: int = 0,
+):
+    """:func:`draw_update_dedup_gather_packed_blocks` through the
+    per-thread ``dedup_gather_kernel``: the same outputs, which the warp
+    kernel must equal bit for bit."""
+    name = "draw_update_dedup_gather_packed_blocks_per_thread"
+    _check_mn(name, S, m, n, DEDUP_MAX_M)
+    _per_thread_device(name, S)
+    rc, out = _draw_update(name, S, ancestors, phi, u, v, jitter, lam, prior, p3, m, n,
+                           _lib().bipk_draw_update_dedup_gather_packed_per_thread)
+    _count(draw_update_dedup_gather_packed_blocks, m, per_thread=True)
+    _check(rc, name)
+    return out
+
+
 def log_base_measure_packed_logdets_per_thread(
     S: torch.Tensor, jitter: float,
     prior: Sequence[torch.Tensor] | None = None, m: int = 0, n: int = 0,
@@ -671,8 +696,9 @@ def log_base_measure_packed_logdets_per_thread(
 
 # the warp kernel's modes (csrc/packed_mniw.cuh ``Mode``) by name: the
 # look-ahead (the draw's plan is the same), the log-determinants, the
-# factor-emitting look-ahead and the factor-gather draw
-WARP_MODES = {"project": 0, "logdets": 2, "emit": 3, "reuse": 5}
+# factor-emitting look-ahead, the factor-gather draw, the dedup gather and
+# the projection from a given factor
+WARP_MODES = {"project": 0, "logdets": 2, "emit": 3, "reuse": 5, "dedup": 6, "from_factor": 7}
 
 
 def warp_plan(m: int, n: int, N: int, mode: str = "project") -> tuple[int, int, int]:
@@ -812,16 +838,47 @@ def project_blocks(chol: torch.Tensor, white: torch.Tensor, phi: torch.Tensor):
     ``chol (m, m, N)`` (only its lower triangle is read) and ``white (m,
     n, N)`` may be strided views, e.g. of an augmented factor ``F (p, p,
     N)`` (``F[:m, :m]`` and ``F[m:, :m]`` transposed), as long as the
-    particle axis has stride 1: the kernel reads them in place."""
+    particle axis has stride 1: the kernel (the warp kernel's kFromFactor
+    mode) reads them in place."""
     name = "project_blocks"
+    m, n, N = _check_project(name, chol, white)
+    if not _on_cuda(name, chol):
+        return project_blocks_plain(chol, white, phi)
+    rc, out = _project(name, chol, white, phi, m, n, N, _lib().bipk_project_blocks)
+    _count(project_blocks, m)
+    _check(rc, name)
+    return out
+
+
+def project_blocks_per_thread(chol: torch.Tensor, white: torch.Tensor, phi: torch.Tensor):
+    """:func:`project_blocks` through the per-thread ``project_kernel<24 |
+    48>``: the same outputs, which the warp kernel must equal bit for bit.
+    Counted as ``"<24>"`` / ``"<48>"`` of :func:`project_blocks`; no
+    wrapper calls it."""
+    name = "project_blocks_per_thread"
+    m, n, N = _check_project(name, chol, white)
+    _per_thread_device(name, chol)
+    rc, out = _project(name, chol, white, phi, m, n, N, _lib().bipk_project_blocks_per_thread)
+    _count(project_blocks, m, per_thread=True)
+    _check(rc, name)
+    return out
+
+
+def _check_project(name, chol, white):
+    """``(m, n, N)`` of a given factor; raise outside the kernels' widths."""
     m, n, N = white.shape[0], white.shape[1], white.shape[-1]
     if chol.dim() != 3 or tuple(chol.shape) != (m, m, N) or white.dim() != 3:
         raise ValueError(f"{name}: chol must be (m, m, N) and white (m, n, N); got "
                          f"{tuple(chol.shape)}, {tuple(white.shape)}")
     if not (1 <= m <= MAX_M and 1 <= n <= MAX_N):
         raise ValueError(f"{name}: needs 1 <= m <= {MAX_M}, 1 <= n <= {MAX_N}; got m={m}, n={n}")
-    if not _on_cuda(name, chol):
-        return project_blocks_plain(chol, white, phi)
+    return m, n, N
+
+
+def _project(name, chol, white, phi, m, n, N, launch):
+    """Check, allocate and launch a projection from a given factor through
+    the C entry ``launch`` (``bipk_project_blocks`` or its comparator):
+    ``(rc, (mean, col))``."""
     _require(name, chol.device, torch.float32, phi=(phi, (m, N)))
     for arg, t in (("chol", chol), ("white", white)):
         if t.device != chol.device or t.dtype != torch.float32:
@@ -830,14 +887,12 @@ def project_blocks(chol: torch.Tensor, white: torch.Tensor, phi: torch.Tensor):
             raise ValueError(f"{name}: {arg} needs particle stride 1; got {t.stride()}")
     mean = torch.empty((n, N), dtype=phi.dtype, device=phi.device)
     col = torch.empty((N,), dtype=phi.dtype, device=phi.device)
-    rc = _lib().bipk_project_blocks(
+    rc = launch(
         chol.data_ptr(), chol.stride(0), chol.stride(1), white.data_ptr(),
         white.stride(0), white.stride(1), phi.data_ptr(), N, m, n,
         mean.data_ptr(), col.data_ptr(), _stream(phi.device),
     )
-    _count(project_blocks, m)
-    _check(rc, name)
-    return mean, col
+    return rc, (mean, col)
 
 
 def log_base_measure_logdets_plain(T0, T1, T2, jitter, m=None, n=None):
@@ -900,9 +955,11 @@ PLAIN = {
 
 
 # the wrappers whose launches run the warp kernels (all the packed-MNIW
-# ones but the dedup gather; the factor pair at m <= 24 only)
+# ones, the factor pair and the dedup gather at m <= 24 only, and the
+# projection from a given factor)
 WARP = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks,
-        log_base_measure_packed_logdets, draw_update_factor_gather_packed_blocks)
+        log_base_measure_packed_logdets, draw_update_factor_gather_packed_blocks,
+        draw_update_dedup_gather_packed_blocks, project_blocks)
 # the packed-MNIW wrappers and the instantiations each launches (those of
 # the WARP wrappers without "w": the per-thread comparator only)
 PACKED_MNIW = {
@@ -911,13 +968,15 @@ PACKED_MNIW = {
     draw_update_gather_packed_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
     log_base_measure_packed_logdets: ("<24w>", "<48w>", "<24>", "<48>"),
     draw_update_factor_gather_packed_blocks: ("<24w>", "<24>"),
-    draw_update_dedup_gather_packed_blocks: ("<24>",),
+    draw_update_dedup_gather_packed_blocks: ("<24w>", "<24>"),
 }
-# the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths
+# the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths; the
+# projection from a given factor also by its warp kernel's
 UNPACKED = (factorize_blocks, factorize_project_blocks, project_blocks,
             log_base_measure_logdets)
 # the resampler's scan kernel ("") and per-thread comparator ("_per_thread")
 PER_INSTANTIATION = {**PACKED_MNIW, **{fn: ("<24>", "<48>") for fn in UNPACKED},
+                     project_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
                      systematic_ancestors_blocks: ("", "_per_thread")}
 
 

@@ -6,6 +6,8 @@
     python3 chip_compare.py BEFORE_DIR AFTER_DIR --oscillator --rounds 5    # that order 5 times
     python3 chip_compare.py BEFORE_DIR AFTER_DIR --vehicle-apf --rounds 5    # the vehicle APF only
     python3 chip_compare.py BEFORE_DIR AFTER_DIR --reuse    # the factor-reuse paths
+    python3 chip_compare.py BEFORE_DIR AFTER_DIR --dedup    # the dedup-gather APF
+    python3 chip_compare.py BEFORE_DIR AFTER_DIR --rank1    # the rank-1 cSMC
 
 Each run is a child process in one checkout (it builds that checkout's
 kernels) that calls that checkout's ``chip_smoke.py`` phase functions: the
@@ -29,7 +31,16 @@ APF, the resampler's host time and the APF steps' profile only. With
 it, then 50 profiled APF steps and 100 profiled cSMC steps at 10240
 particles, each first in the default configuration and then with reuse
 (the figures' values 1 and 2), all through the public ``build_*``
-keywords, so that the parent runs them too. With ``--rounds R`` the
+keywords, so that the parent runs them too. With ``--dedup`` each runs
+the opt-in dedup gather (``dedup_gather=True``) the same way: the
+vehicle's online APF at 32768 x 1499 with it (phase 16's dedup run),
+then 50 profiled APF steps in the default configuration and with the
+dedup gather (phase 21's profile). With ``--rank1`` each runs the rank-1
+factor-carry cSMC (``build_csmc(rank1=True)``) of phase 20: one sweep at
+10240 particles x 1499 steps on the simulated trajectory as the
+reference, its drawn trajectory's sum and mean ESS printed in full
+digits (equal digits: the same path results), then 50 profiled rank-1
+steps. With ``--rounds R`` the
 order before, after, after, before runs R times. Output lines are
 printed with the run's label; at the end, for each figure every run
 prints (the APF's seconds, the medians of the sweeps, the cSMC and APF
@@ -63,7 +74,7 @@ _build.build()
 ck._lib()
 print(f"  build {time.perf_counter() - tb:.2f} s", flush=True)
 smi, part = sys.argv[1], sys.argv[2]
-reuse = dict(reuse_factor=True) if part == "--reuse" else {}
+reuse = {"--reuse": dict(reuse_factor=True), "--dedup": dict(dedup_gather=True)}.get(part, {})
 
 
 def resampler_host_time(n):
@@ -96,6 +107,33 @@ cfg = veh.VehicleConfig(t_end=1500 * 0.02, forgetting_factor=cs.LAM)
 model = veh.make_model(cfg)
 X, Y, MU_F, MU_R, U = veh.simulate(torch.Generator().manual_seed(cfg.seed), cfg,
                                    dtype=torch.float32, device=dev)
+refs = (MU_F[:, None], MU_R[:, None])
+if part == "--rank1":
+    from bipk_tpu_torch.algorithms.csmc import build_csmc
+    from bipk_tpu_torch.algorithms.gibbs import summed_reference_stats
+
+    csmc = build_csmc(model.ssm, model.gps, cs.N_GIBBS, dtype=torch.float32, device=dev,
+                      rank1=True)
+    summed = summed_reference_stats(model.gps, X, refs, U, torch.float32)
+    csmc(torch.Generator(device=dev).manual_seed(9), Y[:11], U[:11], model.x0, model.p0,
+         X[:11], tuple(r[:11] for r in refs),
+         summed_reference_stats(model.gps, X[:11], tuple(r[:11] for r in refs), U[:11],
+                                torch.float32))
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    ts = time.perf_counter()
+    res = csmc(torch.Generator(device=dev).manual_seed(9), Y, U, model.x0, model.p0, X, refs,
+               summed)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - ts
+    print(f"  rank-1 cSMC launches { {k: c for k, c in ck.launch_counts().items() if c} }",
+          flush=True)
+    print(f"  rank-1 cSMC sweep {cs.N_GIBBS} particles x {Y.shape[0] - 1} steps in "
+          f"{elapsed:.3f} s on {smi}: drawn trajectory sum "
+          f"{res.state_traj.double().sum().item()!r}, mean ESS {res.ess.mean().item()!r}",
+          flush=True)
+    cs.profile_csmc_steps(dev, model, Y, U, X, refs, cs.N_GIBBS, steps=50, rank1=True)
+    sys.exit(0)
 apf = build_sharded_apf(model.ssm, model.gps, cs.N, forgetting_factor=cs.LAM,
                         dtype=torch.float32, device=dev, **reuse)
 apf(torch.Generator(device=dev).manual_seed(2), Y[:11], U[:11], model.x0, model.p0)
@@ -109,13 +147,12 @@ elapsed = time.perf_counter() - ts
 print(f"  vehicle APF launches { {k: c for k, c in ck.launch_counts().items() if c} }", flush=True)
 ess = res.ess[1:]
 print(f"  vehicle APF {cs.N} particles x {steps} steps in {elapsed:.3f} s"
-      f"{' with reuse' * bool(reuse)}: "
+      f"{(' with ' + next(iter(reuse))) * bool(reuse)}: "
       f"{cs.N * steps / elapsed:.1f} particle-steps/s on {smi}", flush=True)
 print(f"  vehicle APF ESS min {ess.min().item()!r} median {ess.median().item()!r} max "
       f"{ess.max().item()!r}; filtered-state RMSE "
       f"{[repr(x) for x in ((res.state_mean - X) ** 2).mean(0).sqrt().tolist()]}", flush=True)
 resampler_host_time(cs.N)
-refs = (MU_F[:, None], MU_R[:, None])
 if part == "all":
     cs.gibbs_path(dev, model, X, Y, U, MU_F, cs.N_GIBBS, n_apf=256, n_iterations=4, smi=smi)
     cs.profile_csmc_steps(dev, model, Y, U, X, refs, cs.N_GIBBS, steps=100)
@@ -165,17 +202,18 @@ def profile_apf(apf, label):
               f"{e.key[:90]}", flush=True)
 
 
-if part == "--reuse":
-    # the default configuration first, then reuse: values 1 and 2 of each
-    # figure below
+if part in ("--reuse", "--dedup"):
+    # the default configuration first, then the opt-in one: values 1 and 2
+    # of each figure below
     default_apf = build_sharded_apf(model.ssm, model.gps, cs.N, forgetting_factor=cs.LAM,
                                     dtype=torch.float32, device=dev)
     profile_apf(default_apf, ", default")
-    profile_apf(apf, ", reuse_factor=True")
+    profile_apf(apf, f", {next(iter(reuse))}=True")
+if part == "--reuse":
     for label, options in (("default", {}), ("reuse_factor=True", reuse)):
         print(f"  cSMC steps, {label}:", flush=True)
         cs.profile_csmc_steps(dev, model, Y, U, X, refs, cs.N_GIBBS, steps=100, **options)
-else:
+elif part != "--dedup":
     profile_apf(apf, "")
 """
 
@@ -183,6 +221,7 @@ else:
 # the figures summed up at the end: name, and a pattern of one number
 FIGURES = (
     ("APF s", r"^\s*(?:vehicle APF )?32768 particles x \d+ steps in ([\d.]+) s"),
+    ("rank-1 sweep s", r"rank-1 cSMC sweep \d+ particles x \d+ steps in ([\d.]+) s"),
     ("toy sweep s (median)", r"200 particles x 39 steps: .* median ([\d.]+)"),
     ("osc sweep s (median)", r"200 particles x 749 steps: .* median ([\d.]+)"),
     ("vehicle sweep s (median)", r"10240 particles x 1499 steps: .* median ([\d.]+)"),
@@ -224,12 +263,15 @@ def main() -> int:
     only.add_argument("--oscillator", action="store_true")
     only.add_argument("--vehicle-apf", action="store_true")
     only.add_argument("--reuse", action="store_true")
+    only.add_argument("--dedup", action="store_true")
+    only.add_argument("--rank1", action="store_true")
     parser.add_argument("--rounds", type=int, default=1)
     args = parser.parse_args()
     before, after = os.path.abspath(args.before), os.path.abspath(args.after)
     part = next((flag for flag, on in (("--oscillator", args.oscillator),
                                         ("--vehicle-apf", args.vehicle_apf),
-                                        ("--reuse", args.reuse)) if on), "all")
+                                        ("--reuse", args.reuse), ("--dedup", args.dedup),
+                                        ("--rank1", args.rank1)) if on), "all")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

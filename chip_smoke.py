@@ -78,14 +78,16 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     factor-reusing draw and the dedup draw against their plain versions
     and against the refactoring kernels on identical inputs (bitwise
     equality reported), timed beside their bounds, at the APF's
-    statistics after 100 filtering steps (and how many blocks the dedup
-    kernel staged there), at the Gibbs shapes and at edge shapes; the
-    factor pair (the warp kernel's kEmit and kReuse, ``csrc/
+    statistics after 100 filtering steps (and how many columns the dedup
+    kernel read there), at the Gibbs shapes and at edge shapes (m = 9,
+    6, 20 and 24, n = 1 and 2, ragged, blocks of 8, 4, 2 and 1 warps); the
+    three (the warp kernel's kEmit, kReuse and kDedup, ``csrc/
     warp_mniw.cu``) also held bit for bit against the per-thread ``<24,
-    kEmit>`` and ``factor_gather_kernel`` it replaced on every one of
-    those sets, and timed in turns with them (per-thread, warp, warp,
-    per-thread) at 32768 and 10240, beside its registers, stack and
-    launch plan; an out-of-range ancestor in a child process per
+    kEmit>``, ``factor_gather_kernel`` and ``dedup_gather_kernel`` they
+    replaced, and the dedup draw against #4, on every one of those sets,
+    and timed in turns with them (per-thread, warp, warp, per-thread) at
+    32768 and 10240, beside their registers, stack and launch plan; an
+    out-of-range ancestor in a child process per
     gathering kernel (the warp gather/draw at m = 41 too) must fail with
     CUDA's device-side assertion;
 15. reuse/dedup path-vs-plain: phase 3 with ``reuse_factor=True`` and
@@ -104,9 +106,14 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     steps, unpacked (N = 32768, 10240, 200, 777), the oscillator's (m =
     41) and synthetic n = 2 ones, structured and flat; bitwise against the
     packed kernels on the same statistics and the projection on views of
-    an augmented factor against contiguous copies; timed beside their
-    bounds (#13 also beside ``torch.linalg.cholesky_ex`` on the augmented
-    matrices of its input); then the unpacked entry points (``APFKernel.factorize_all``,
+    an augmented factor against contiguous copies, and the projection
+    (the warp kernel's kFromFactor) bit for bit against the per-thread
+    ``project_kernel`` it replaced on both; timed beside their bounds
+    (#13 also beside ``torch.linalg.cholesky_ex`` on the augmented
+    matrices of its input; the projection in turns with its per-thread
+    kernel at 32768, 10240 and 200, and on the card's time alone beside
+    ``torch.linalg.solve_triangular``, which computes its v alone); then
+    the unpacked entry points (``APFKernel.factorize_all``,
     ``auxiliary``, ``auxiliary_fused``, ``draw_int_vars_fused``,
     ``draw_int_vars``, ``mniw.log_base_measure_bl``) once each at N =
     32768 with exact launches, and the plain versions of every kernel on
@@ -116,9 +123,9 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     x 50 over 10 seeds, paired; then the rank-1 and the direct steps on
     the same draws in f32, to the first step where their ancestors differ;
 20. rank-1 Gibbs: the Gibbs host loop on the rank-1 cSMC at 10240 x 1499
-    (a warm-up and two sweeps) with exact launches per sweep (4 x 1499 of
+    (a warm-up and one timed sweep) with exact launches per sweep (4 x 1499 of
     the projection, 1499 resamplings, nothing else), no non-finite
-    ancestor weight and phase 6's trajectory gate; 100 rank-1 cSMC steps
+    ancestor weight and phase 6's trajectory gate; 50 rank-1 cSMC steps
     under the sync check and profiled beside 100 direct ones;
 21. APF profile: phase 7 for 50 steps of the vehicle online APF at 32768
     particles (its step's device time, launches and idle share);
@@ -148,9 +155,11 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the
 fifteen main paths, error against the plain version, times and bound; for the
-warp kernels (rows 1, 3-7, and the factor pair, rows 1e and 8) also the
-per-thread kernels' times from the same turns, and both at the Gibbs
-paths' widths, 10240 particles at m = 20 and 200 at m = 40, 41; for the
+warp kernels (rows 1, 3-7, the factor pair, rows 1e and 8, the dedup
+gather, row 9, and the projection, row 12) also the per-thread kernels'
+times from the same turns, and both at the Gibbs paths' widths, 10240
+particles at m = 20 and 200 at m = 40, 41 (row 12 also at 200 particles,
+``_cs_gibbs``, and ``device_ms`` / ``solve_triangular_device_ms``); for the
 resampler the per-thread kernel's times from its
 turns at 32768, 10240 (``_gibbs``) and 200 (``_cs_gibbs``); for the
 log-determinants ``library_ms``, the time of
@@ -595,7 +604,7 @@ def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, 
         REUSE_KEYS["factor"] if reuse else WARP24_KEYS["dug"]: 2 * steps,
     }
     if rank1:  # two projections per GP and step (look-ahead mean, draw)
-        expected = {"project_blocks<24>": 4 * steps, "systematic_ancestors_blocks": steps}
+        expected = {"project_blocks<24w>": 4 * steps, "systematic_ancestors_blocks": steps}
     res, totals, _ = counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles,
                                    n_iterations, expected, smi, rank1=rank1, **options)
     draw, mu_draw = res.states[:, -1], res.int_vars[0][:, -1, 0]
@@ -790,7 +799,9 @@ WARP24_KEYS = {k: v.replace("<48w>", "<24w>") for k, v in WARP_KEYS.items()}
 # the warp kernel's factor pair (m <= 24): the factor-emitting look-ahead
 # (kEmit) and the factor-gather draw (kReuse)
 REUSE_KEYS = {"emit": "factorize_project_packed[emit]<24w>",
-              "factor": "draw_update_factor_gather_packed_blocks<24w>"}
+              "factor": "draw_update_factor_gather_packed_blocks<24w>",
+              # the dedup gather (kDedup)
+              "dedup": "draw_update_dedup_gather_packed_blocks<24w>"}
 
 
 def warp_calls(S, anc, phi, u, v, jitter, lam, prior, p3, m, n):
@@ -950,7 +961,8 @@ def warp_ptxas():
         if "Compiling entry" in line and "warp_mniw_kernel" in line:
             mode = next(name for name, arg in (("kProject", "ILi0E"), ("kDraw", "ILi1E"),
                                                ("kLogdets", "ILi2E"), ("kEmit", "ILi3E"),
-                                               ("kReuse", "ILi5E")) if arg in line)
+                                               ("kReuse", "ILi5E"), ("kDedup", "ILi6E"),
+                                               ("kFromFactor", "ILi7E")) if arg in line)
             lanes = 16 if "Li16E" in line else 32
             info = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 5]
                     if "registers" in ln or "stack frame" in ln]
@@ -967,13 +979,15 @@ def print_warp_plan(m, n, N):
 
 
 def print_factor_plan(m, n, N):
-    """The factor pair's launch plan: kEmit plans as the look-ahead, kReuse
-    stages LW too and keeps no triangle."""
+    """The launch plan of the factor pair and the dedup gather: kEmit plans
+    as the look-ahead, kReuse stages LW too and keeps no triangle, kDedup
+    plans as the draw with 2P + 1 ints more."""
     W, P, smem = ck.warp_plan(m, n, N, mode="emit")
     smem_reuse = ck.warp_plan(m, n, N, mode="reuse")[2]
-    print(f"  warp factor pair at m={m} n={n} N={N}: {W} warps, {P} particles per block, "
-          f"{smem} B of dynamic shared memory per block for kEmit, {smem_reuse} B for kReuse",
-          flush=True)
+    smem_dedup = ck.warp_plan(m, n, N, mode="dedup")[2]
+    print(f"  warp factor pair and dedup at m={m} n={n} N={N}: {W} warps, {P} particles per "
+          f"block, {smem} B of dynamic shared memory per block for kEmit, {smem_reuse} B for "
+          f"kReuse, {smem_dedup} B for kDedup", flush=True)
 
 
 VEHICLE_FILTER_STEPS = 100  # vehicle filtering steps before phase 2's warp sets
@@ -1538,14 +1552,16 @@ def check_reuse_set(label, S, phi_in, anc, phi, u, v, lam, prior, p3, m, n, jitt
     version on the same inputs (the factor-reusing draw with the emitting
     kernel's own LW), and against the refactoring kernels on identical
     inputs: the emitting projection's small outputs against #1's, the
-    factor-reusing and the dedup draws against #4's; the factor pair (the
-    warp kernel's kEmit and kReuse) also bit for bit against the
-    per-thread kernels it replaced (``<24, kEmit>``, every output and LW;
-    ``factor_gather_kernel`` on the same LW). ``phi_in`` (N_in columns)
-    is the look-ahead's basis, ``phi`` (N_out) the draw's. Returns the
-    largest absolute error against the plain version per kernel, per
-    kernel the calls that run it and its plain version, and per kernel of
-    the factor pair the call of its per-thread comparator."""
+    factor-reusing draw against #4's; the factor pair (the warp kernel's
+    kEmit and kReuse) also bit for bit against the per-thread kernels it
+    replaced (``<24, kEmit>``, every output and LW;
+    ``factor_gather_kernel`` on the same LW); the dedup draw (kDedup) bit
+    for bit against the per-thread ``dedup_gather_kernel`` it replaced
+    and against #4 (the warp gather/draw) on the same ancestors. ``phi_in``
+    (N_in columns) is the look-ahead's basis, ``phi`` (N_out) the draw's.
+    Returns the largest absolute error against the plain version per
+    kernel, per kernel the calls that run it and its plain version, and
+    per warp mode the call of its per-thread comparator."""
     fp_args = (S, phi_in, jitter, lam, prior)
     calls = {
         "emit": (lambda: ck.factorize_project_packed(*fp_args, m=m, n=n, emit_factor=True),
@@ -1573,10 +1589,17 @@ def check_reuse_set(label, S, phi_in, anc, phi, u, v, lam, prior, p3, m, n, jitt
     calls["dedup"] = (
         lambda: ck.draw_update_dedup_gather_packed_blocks(S, *du_args, m=m, n=n),
         lambda: ck.draw_update_dedup_gather_packed_blocks_plain(S, *du_args, m=m, n=n))
+    per_thread["dedup"] = lambda: ck.draw_update_dedup_gather_packed_blocks_per_thread(
+        S, *du_args, m=m, n=n)
+    warp_vs_per_thread(label, {"dedup": (calls["dedup"][0], per_thread["dedup"], DU_NAMES)},
+                       REUSE_KEYS)
     calls["gather"] = (
         lambda: ck.draw_update_gather_packed_blocks(S, *du_args, m=m, n=n),
         lambda: ck.draw_update_gather_packed_blocks_plain(S, *du_args, m=m, n=n))
     ref = calls["gather"][0]()
+    # the dedup draw is #4's warp draw on a tile filled another way
+    cross_layout(f"{REUSE_KEYS['dedup']} {label} against the warp gather/draw (#4)",
+                 calls["dedup"][0](), ref, DU_NAMES)
     for key, name in (("factor", "draw_update_factor_gather_packed_blocks"),
                       ("dedup", "draw_update_dedup_gather_packed_blocks")):
         got, want = (c() for c in calls[key])
@@ -1591,25 +1614,27 @@ def check_reuse_set(label, S, phi_in, anc, phi, u, v, lam, prior, p3, m, n, jitt
 
 def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
     """Phase 14: the emitting projection, the factor-reusing draw and the
-    dedup draw against their plain versions and against #1 / #4, and the
-    first two (the warp kernel's kEmit and kReuse) bit for bit against
-    the per-thread kernels they replaced (:func:`check_reuse_set`), on
-    every set below; timed (cold L2) beside their bounds, the factor pair
-    in turns with its per-thread kernels (per-thread, warp, warp,
-    per-thread) at 32768 (rows 1e and 8: ``ms``, ``per_thread_ms``) and
-    10240 (``ms_gibbs``, ``per_thread_ms_gibbs``, ``bound_ms_gibbs``),
-    beside its registers, stack and launch plan. The sets:
+    dedup draw against their plain versions and against #1 / #4, and
+    all three (the warp kernel's kEmit, kReuse and kDedup) bit for bit
+    against the per-thread kernels they replaced, and the dedup draw bit
+    for bit against #4 (:func:`check_reuse_set`), on every set below;
+    timed (cold L2) beside their bounds, in turns with their per-thread
+    kernels (per-thread, warp, warp, per-thread) at 32768 (rows 1e, 8 and
+    9: ``ms``, ``per_thread_ms``) and 10240 (``ms_gibbs``,
+    ``per_thread_ms_gibbs``, ``bound_ms_gibbs``), beside their registers,
+    stack and launch plan. The sets:
 
     - the APF's shapes: S (232, 32768) after ``REUSE_FILTER_STEPS``
       filtering steps of the port's own APF (``build_apf`` with the dedup
-      gather, so its ancestors show how many blocks the dedup kernel
-      staged), lambda = 0.999, the prior, the resampler's ancestors on the
+      gather, so its ancestors show how many columns the dedup kernel
+      read), lambda = 0.999, the prior, the resampler's ancestors on the
       filter's degenerate weights;
     - the Gibbs shapes: N = 10240 and 256 columns of those statistics,
       lambda = 1, the prior, the resampler's ancestors on their weights;
     - edge shapes: m = 9, n = 1 and m = 6, n = 2 at ragged N_in != N_out,
-      and m = 20 at N = 300, each with spread-out and with degenerate
-      (three distinct) ancestors.
+      m = 20, n = 2 and m = 24, n = 2 at ragged widths for blocks of 4
+      and 8 warps, and m = 20 at N = 300, each with spread-out and with
+      degenerate (three distinct) ancestors.
 
     Then an out-of-range ancestor in a child process per gathering kernel
     (#4, which is the warp gather/draw at m = 20, factor-gather, dedup, and
@@ -1618,7 +1643,7 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
     device-side assertion."""
     m, n = M, NN
     for mode, info in warp_ptxas().items():
-        if mode.startswith(("kEmit", "kReuse")):
+        if mode.startswith(("kEmit", "kReuse", "kDedup")):
             print(f"  warp_mniw_kernel<{mode}> (ptxas): {info}", flush=True)
     for N_p in (N, N_GIBBS, 256):
         print_factor_plan(m, n, N_p)
@@ -1630,15 +1655,13 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
     res = apf(torch.Generator(device=dev).manual_seed(21), Y[:k + 1], U[:k + 1],
               model.x0, model.p0)
     distinct = [int(torch.unique_consecutive(a).numel()) for a in res.ancestors]
-    plans = [ck.dedup_staged_blocks(a, m, n) for a in res.ancestors]
-    degenerate = [p for p, d in zip(plans, distinct) if d < N // 100]
-    blocks = N // 128
+    P = ck.warp_plan(m, n, N, mode="dedup")[1]
+    read = [int(ck.dedup_runs(a, P).sum()) for a in res.ancestors]
     print(f"  {k} filtering steps at {N} particles with the dedup gather: distinct ancestors "
           f"per step min {min(distinct)} median {statistics.median(distinct)} max "
-          f"{max(distinct)}; dedup blocks staged / read directly over all steps "
-          f"{sum(p[0] for p in plans)} / {sum(p[1] for p in plans)} of {blocks * k}; over the "
-          f"{len(degenerate)} steps with fewer than {N // 100} distinct ancestors "
-          f"{sum(p[0] for p in degenerate)} / {sum(p[1] for p in degenerate)}", flush=True)
+          f"{max(distinct)}; columns of S the dedup blocks of {P} read per step min "
+          f"{min(read)} median {statistics.median(read)} max {max(read)} (#4's blocks read "
+          f"{N})", flush=True)
     S = mniw.pack_stats_bl(mniw.MNIW(*(leaf.movedim(0, -1)
                                        for leaf in res.final_stats[0]))).contiguous()
     phi = model.gps[0].basis_fn_bl(res.states[-1].T.contiguous(), U[k]).contiguous()
@@ -1649,9 +1672,9 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
     u_res = torch.rand((1,), generator=gen, device=dev)
     anc, _ = check_systematic(f"systematic_ancestors_blocks N={N}", w, u_res, N)
     dist = int(torch.unique_consecutive(anc).numel())
-    staged, direct = ck.dedup_staged_blocks(anc, m, n)
     print(f"  S {tuple(S.shape)}, ESS {1.0 / float((w * w).sum()):.2f}, {dist} distinct "
-          f"ancestors of {N}; dedup blocks staged {staged}, read directly {direct}", flush=True)
+          f"ancestors of {N}; the dedup blocks read {int(ck.dedup_runs(anc, P).sum())} columns",
+          flush=True)
     label = f"m={m} N={N} lam={LAM}"
     errs, calls, per_thread = check_reuse_set(label, S, phi, anc, phi, u, v, LAM, prior, p3, m,
                                               n, jitter)
@@ -1660,19 +1683,20 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
     du_b = packed_bytes(m, n, N, dist)[1]
     pair = {"emit": ("factorize_project_packed[emit]", core_f),
             "factor": ("draw_update_factor_gather_packed_blocks", factor_gather_flops(m, n))}
+    pair["dedup"] = ("draw_update_dedup_gather_packed_blocks", core_f + draw_f)
     for name, key, bytes_, flops in (
         (pair["emit"][0], "emit", emit_b, core_f),
         (pair["factor"][0], "factor", fg_b, pair["factor"][1]),
-        ("draw_update_dedup_gather_packed_blocks", "dedup", du_b, core_f + draw_f),
+        (pair["dedup"][0], "dedup", du_b, pair["dedup"][1]),
     ):
-        # the factor pair's ms: in turns with its per-thread kernels, below
-        record_kernel(results, name, None if key in pair else calls[key][0], calls[key][1],
-                      bytes_, N * flops, errs[key], flush)
+        # the ms of the warp modes: in turns with their per-thread kernels,
+        # below
+        record_kernel(results, name, None, calls[key][1], bytes_, N * flops, errs[key], flush)
 
     def pair_in_turns(calls, per_thread, width, label, bytes_of):
-        """The factor pair in turns with its per-thread kernels at
-        ``width``; returns per key the warp and per-thread ms and the
-        bound."""
+        """The factor pair and the dedup draw in turns with their
+        per-thread kernels at ``width``; returns per key the warp and
+        per-thread ms and the bound."""
         out = {}
         for key, (name, flops) in pair.items():
             ms_w, ms_pt = in_turns(calls[key][0], per_thread[key], flush)
@@ -1683,7 +1707,8 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
         return out
 
     for key, (ms_w, ms_pt, _) in pair_in_turns(calls, per_thread, N, label,
-                                               {"emit": emit_b, "factor": fg_b}).items():
+                                               {"emit": emit_b, "factor": fg_b,
+                                                "dedup": du_b}).items():
         results[pair[key][0]].update(ms=ms_w, per_thread_ms=ms_pt)
     fp_ms = time_ms(lambda: ck.factorize_project_packed(S, phi, jitter, LAM, prior, m=m, n=n),
                     flush=flush)
@@ -1705,7 +1730,9 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
         emit_b, fg_b = factor_bytes(m, n, width, dist_w)
         if width == N_GIBBS:
             for key, (ms_w, ms_pt, bound) in pair_in_turns(
-                    calls_w, per_thread_w, width, label, {"emit": emit_b, "factor": fg_b}).items():
+                    calls_w, per_thread_w, width, label,
+                    {"emit": emit_b, "factor": fg_b,
+                     "dedup": packed_bytes(m, n, width, dist_w)[1]}).items():
                 results[pair[key][0]].update(ms_gibbs=ms_w, per_thread_ms_gibbs=ms_pt,
                                              bound_ms_gibbs=bound)
         for name, key, bytes_ in (
@@ -1720,7 +1747,8 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
 
     # edge shapes, spread-out and degenerate ancestors; checked, not timed
     gen = torch.Generator(device=dev).manual_seed(23)
-    for m_e, n_e, n_in, n_out in ((9, 1, 1000, 700), (6, 2, 777, 1000), (20, 1, 300, 300)):
+    for m_e, n_e, n_in, n_out in ((9, 1, 1000, 700), (6, 2, 777, 1000), (20, 2, 2000, 1500),
+                                  (24, 2, 3000, 2500), (20, 1, 300, 300)):
         S_e, phi_in, prior_e = edge_case(gen, dev, m_e, n_e, n_in)
         phi_e = torch.randn((m_e, n_out), generator=gen, device=dev)
         u_e = torch.rand((n_e, n_out), generator=gen, device=dev)
@@ -1732,8 +1760,9 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
             label = f"m={m_e} n={n_e} N_in={n_in} N_out={n_out} {kind} ancestors"
             check_reuse_set(label, S_e, phi_in, anc_e, phi_e, u_e, v_e, LAM, prior_e[:3],
                             prior_e[3], m_e, n_e, jitter)
-            print(f"  {label}: dedup blocks staged / direct "
-                  f"{ck.dedup_staged_blocks(anc_e, m_e, n_e)}", flush=True)
+            W_e, P_e, _ = ck.warp_plan(m_e, n_e, n_out, mode="dedup")
+            print(f"  {label}: dedup blocks of {W_e} warps read "
+                  f"{int(ck.dedup_runs(anc_e, P_e).sum())} columns", flush=True)
 
     # an out-of-range ancestor, one child process per gathering kernel
     # ("gather": the warp gather/draw at m = 20, "gather41" at m = 41)
@@ -1764,8 +1793,7 @@ def apf_configs_main_path(dev, model, X, Y, U, smi):
         "reuse": (dict(reuse_factor=True),
                   {REUSE_KEYS["emit"]: 2 * steps, REUSE_KEYS["factor"]: 2 * steps}),
         "dedup": (dict(dedup_gather=True),
-                  {WARP24_KEYS["fp"]: 2 * steps,
-                   "draw_update_dedup_gather_packed_blocks<24>": 2 * steps}),
+                  {WARP24_KEYS["fp"]: 2 * steps, REUSE_KEYS["dedup"]: 2 * steps}),
     }
     apfs = {}
     for name, (options, _) in configs.items():
@@ -1913,10 +1941,13 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
     the packed prior: #13 takes neither a prior nor lam, and a filter's
     statistics alone may be singular), #10's row against #1's and (m <=
     24) its chol and white against #1e's LW, #12 on strided views of an
-    augmented factor against #12 on contiguous copies. Returns per kernel
-    the largest absolute error against the plain version, the calls that
-    run the kernel and its plain version (#12 as the rank-1 path calls it,
-    on views) and #13's input, unpack(S_nat), structured."""
+    augmented factor against #12 on contiguous copies, and #12 (the warp
+    kernel's kFromFactor) bit for bit against the per-thread
+    ``project_kernel`` it replaced on both. Returns per kernel the
+    largest absolute error against the plain version, the calls that run
+    the kernel and its plain version (#12 as the rank-1 path calls it,
+    on views), #13's input, unpack(S_nat), structured, and #12's factor
+    views (``chol``, ``white``) and its per-thread call on them."""
     def layouts(S_):
         st = mniw.unpack_stats_bl(S_, m, n)
         flat = tuple(t.contiguous() for t in st[:3])
@@ -1970,6 +2001,14 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
         ("mean", "col"), got, ck.project_blocks_plain(views.chol, views.white_T0, phi)), 1e-3, ILL)
     cross_layout(f"project_blocks {label}, views of F against contiguous copies", got,
                  ck.project_blocks(factor[0], factor[1], phi), ("mean", "col"))
+    width = "<24w>" if m <= 24 else "<48w>"
+    project = {"views": (views.chol, views.white_T0), "copies": (factor[0], factor[1])}
+    warp_vs_per_thread(label, {
+        key: (lambda c=c, w=w: ck.project_blocks(c, w, phi),
+              lambda c=c, w=w: ck.project_blocks_per_thread(c, w, phi), ("mean", "col"))
+        for key, (c, w) in project.items()},
+        {"views": f"project_blocks{width} (views of F)",
+         "copies": f"project_blocks{width} (contiguous copies)"})
     calls = {
         "factorize_blocks": (lambda: ck.factorize_blocks(*structured, jitter, lam, prior),
                              lambda: ck.factorize_blocks_plain(*structured, jitter, lam, prior)),
@@ -1982,14 +2021,44 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
             lambda: ck.log_base_measure_logdets(*nat_structured, jitter),
             lambda: ck.log_base_measure_logdets_plain(*nat_structured, jitter)),
     }
-    return errs, calls, nat_structured
+    project_per_thread = lambda: ck.project_blocks_per_thread(views.chol, views.white_T0, phi)
+    return errs, calls, nat_structured, (views.chol, views.white_T0, project_per_thread)
+
+
+def project_yardstick(label, chol, white, phi, flush, suffix=""):
+    """Row 12's yardstick: ``torch.linalg.solve_triangular`` on the same
+    batch of factors, which computes ``v = chol^{-1} phi`` alone (a subset
+    of the projection: no mean, no col); its batch ``(N, m, m)`` and
+    right-hand sides ``(N, m, 1)`` assembled outside the timed window, its
+    ``v.v + 1`` held against the kernel's col at CS_TOL. The kernel (the
+    wrapper on the factor's views) and the call both on the card's time
+    alone (``device_ms``, ``solve_triangular_device_ms``, keys ending in
+    ``suffix``)."""
+    L = torch.tril(chol.permute(2, 0, 1)).contiguous()
+    b = phi.T.contiguous()[..., None]
+    v = torch.linalg.solve_triangular(L, b, upper=False)[..., 0]
+    check(f"torch.linalg.solve_triangular {label}, batch {tuple(L.shape)}",
+          [("v.v + 1 against the kernel's col", (v * v).sum(1) + 1,
+            ck.project_blocks(chol, white, phi)[1])], CS_TOL, ILL)
+    out = {"device_ms": time_ms(lambda: ck.project_blocks(chol, white, phi), flush=flush,
+                                hide_host=True),
+           "solve_triangular_device_ms": time_ms(
+               lambda: torch.linalg.solve_triangular(L, b, upper=False), flush=flush,
+               hide_host=True)}
+    print(f"  project_blocks {label}, the card's time alone: kernel {out['device_ms']:.4f} ms, "
+          f"torch.linalg.solve_triangular (v alone) {out['solve_triangular_device_ms']:.4f} ms",
+          flush=True)
+    return {k + suffix: v for k, v in out.items()}
 
 
 def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     """Phase 18: the unpacked kernels against their plain versions and
-    across layouts (:func:`check_unpacked_set`), timed (cold L2) beside
-    their bounds (#13 at N = 32768 also beside the library call,
-    :func:`library_yardstick`), at
+    across layouts, and #12 bit for bit against its per-thread kernel
+    (:func:`check_unpacked_set`), timed (cold L2) beside their bounds (#13
+    at N = 32768 also beside the library call, :func:`library_yardstick`;
+    #12 in turns with its per-thread kernel at 32768, 10240 and 200, and
+    beside ``torch.linalg.solve_triangular`` at 32768 and 10240,
+    :func:`project_yardstick`), at
 
     - the vehicle APF's statistics after ``UNPACKED_FILTER_STEPS``
       filtering steps (the port's own APF, front GP, m = 20, n = 1),
@@ -2002,6 +2071,13 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
 
     Returns the APF run's result (the entry-point phase's input)."""
     m, n = M, NN
+    for mode, info in warp_ptxas().items():
+        if mode.startswith("kFromFactor"):
+            print(f"  warp_mniw_kernel<{mode}> (ptxas): {info}", flush=True)
+    for m_p, N_p in ((m, N), (m, N_GIBBS), (m, N_CS_GIBBS), (41, N)):
+        W, P, smem = ck.warp_plan(m_p, n, N_p, mode="from_factor")
+        print(f"  warp projection from a given factor at m={m_p} n={n} N={N_p}: {W} warps, {P} "
+              f"particles per block, {smem} B of dynamic shared memory per block", flush=True)
     prior_m = model.gps[0].prior_as(torch.float32, dev)
     prior = tuple(prior_m[:3])
     k = UNPACKED_FILTER_STEPS
@@ -2013,11 +2089,27 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     print(f"  vehicle statistics after {k} filtering steps at {N} particles, S {tuple(S.shape)}",
           flush=True)
     label = f"m={m} n={n} N={N} lam={LAM}"
-    errs, calls, nat = check_unpacked_set(label, S, phi, LAM, prior, m, n, jitter)
+    errs, calls, nat, (chol, white, project_pt) = check_unpacked_set(label, S, phi, LAM, prior,
+                                                                      m, n, jitter)
     bytes_, flops = unpacked_bytes(m, n, N), unpacked_flops(m, n)
     for name in UNPACKED:
-        record_kernel(results, name, *calls[name], bytes_[name], N * flops[name], errs[name],
-                      flush)
+        # #12's ms: in turns with its per-thread kernel, below
+        record_kernel(results, name, None if name == "project_blocks" else calls[name][0],
+                      calls[name][1], bytes_[name], N * flops[name], errs[name], flush)
+
+    def project_in_turns(calls, per_thread, width, label):
+        """#12 in turns with its per-thread kernel at ``width``: the warp
+        and per-thread ms and the bound."""
+        ms_w, ms_pt = in_turns(calls["project_blocks"][0], per_thread, flush)
+        bound = max(unpacked_bytes(m, n, width)["project_blocks"] / PEAK_BYTES_PER_S,
+                    width * flops["project_blocks"] / PEAK_F32_FLOPS) * 1e3
+        print(f"  project_blocks<24w> {label} in turns: warp {ms_w:.4f} ms, per-thread "
+              f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bound:.5f} ms)", flush=True)
+        return ms_w, ms_pt, bound
+
+    ms_w, ms_pt, _ = project_in_turns(calls, project_pt, N, label)
+    results["project_blocks"].update(ms=ms_w, per_thread_ms=ms_pt)
+    results["project_blocks"].update(project_yardstick(label, chol, white, phi, flush))
     # #13's library call: cholesky_ex on the augmented matrices of its own
     # input (no prior); the wrapper launches the kernel alone
     lbm = calls["log_base_measure_logdets"]
@@ -2025,10 +2117,18 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
         f"{label}, unpack(S_nat)", nat, jitter, None, lbm[1](), lbm[0], flush))
     for width in (N_GIBBS, N_CS_GIBBS, 777):
         S_w, phi_w = S[:, :width].contiguous(), phi[:, :width].contiguous()
-        _, calls_w, _ = check_unpacked_set(f"m={m} n={n} N={width} lam=1", S_w, phi_w, 1.0, prior,
-                                        m, n, jitter)
+        label_w = f"m={m} n={n} N={width} lam=1"
+        _, calls_w, _, (chol_w, white_w, project_pt_w) = check_unpacked_set(
+            label_w, S_w, phi_w, 1.0, prior, m, n, jitter)
         if width == 777:
             continue
+        suffix = "_gibbs" if width == N_GIBBS else "_cs_gibbs"
+        ms_w, ms_pt, bound = project_in_turns(calls_w, project_pt_w, width, label_w)
+        results["project_blocks"].update({"ms" + suffix: ms_w, "per_thread_ms" + suffix: ms_pt,
+                                          "bound_ms" + suffix: bound})
+        if width == N_GIBBS:
+            results["project_blocks"].update(project_yardstick(label_w, chol_w, white_w, phi_w,
+                                                               flush, suffix))
         bytes_w = unpacked_bytes(m, n, width)
         for name in UNPACKED:
             bound = max(bytes_w[name] / PEAK_BYTES_PER_S,
@@ -2099,7 +2199,7 @@ def entry_point_calls(dev, model, Y, U, res, jitter):
     factors = counted("APFKernel.factorize_all", lambda kr: kr.factorize_all(stats, LAM),
                       "factorize_blocks<24>")
     counted("APFKernel.auxiliary", lambda kr: kr.auxiliary(
-        state, ivs, factors, inp_prev, inp_cur, obs, log_w), "project_blocks<24>")
+        state, ivs, factors, inp_prev, inp_cur, obs, log_w), "project_blocks<24w>")
     aux = counted("APFKernel.auxiliary_fused", lambda kr: kr.auxiliary_fused(
         stats, LAM, state, ivs, inp_prev, inp_cur, obs, log_w), "factorize_project_blocks<24>")
     anc = kern.resample(torch.softmax(aux[2], 0), torch.rand((1,), generator=gen, device=dev))
@@ -2110,7 +2210,7 @@ def entry_point_calls(dev, model, Y, U, res, jitter):
     counted("APFKernel.draw_int_vars_fused", lambda kr: kr.draw_int_vars_fused(
         uvs, stats_g, LAM, new_state, inp_cur), "factorize_project_blocks<24>")
     counted("APFKernel.draw_int_vars", lambda kr: kr.draw_int_vars(
-        uvs, factors_g, new_state, inp_cur), "project_blocks<24>")
+        uvs, factors_g, new_state, inp_cur), "project_blocks<24w>")
     # of prior + statistics, a posterior: a filter's statistics alone are
     # singular at m = 20 (both sides NaN)
     posts = tuple(mniw.MNIW(*(p[..., None] + leaf for p, leaf in zip(pr, st)))
@@ -2287,7 +2387,8 @@ def rank1_against_direct(dev, model, Y, U, X, ref_ivs, n_particles, steps):
 def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
     """Phase 20: the rank-1 Gibbs main path at full width, the vehicle
     (two GPs, m = 20), 10240 x 1499, seeded as phase 6; a warm-up sweep
-    and two more. Launches per sweep exactly 4 x 1499 of #12 and 1499 of
+    and one more (cut from two for the run's time). Launches per
+    sweep exactly 4 x 1499 of #12 and 1499 of
     #2 and nothing else; every weight an ancestor (or the trajectory) is
     drawn from finite (the hyperbolic downdate's sqrt in f32 for 1499
     steps); phase 6's trajectory gate. Then ``RANK1_PROFILE_STEPS``
@@ -2305,7 +2406,7 @@ def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
 
     resampling.categorical_from_weights = counting
     try:
-        counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=4,
+        counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=3,
                             smi=smi, rank1=True)
     finally:
         resampling.categorical_from_weights = real
@@ -3169,8 +3270,10 @@ def main() -> int:
     # cs-layout launchers: _cs_call's three kernels, _cs_du_gather_call),
     # rows 1e and 8 the factor pair (the warp kernel's kEmit and kReuse,
     # the per-thread <24, kEmit> and factor_gather_kernel beside them), 9
-    # the dedup gather, rows 10-13 the unpacked kernels' m <= 24
-    # instantiation. launches: over the fifteen main
+    # the dedup gather (kDedup, dedup_gather_kernel beside it), rows 10, 11
+    # and 13 the unpacked kernels' m <= 24 instantiation, 12 the projection
+    # from a given factor (kFromFactor, project_kernel<24> beside it, and
+    # torch.linalg.solve_triangular's v alone). launches: over the fifteen main
     # paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
@@ -3194,13 +3297,12 @@ def main() -> int:
         ("1e", "factorize_project_packed[emit]", REUSE_KEYS["emit"], warp_src, f"{pk}:526"),
         (8, "draw_update_factor_gather_packed_blocks", REUSE_KEYS["factor"], warp_src,
          f"{pk}:1422"),
-        (9, "draw_update_dedup_gather_packed_blocks",
-         "draw_update_dedup_gather_packed_blocks<24>", "bipk_tpu_torch/csrc/dedup_gather.cu",
+        (9, "draw_update_dedup_gather_packed_blocks", REUSE_KEYS["dedup"], warp_src,
          f"{pk}:1312"),
         (10, "factorize_blocks", "factorize_blocks<24>", unpacked_src, f"{pk}:1583"),
         (11, "factorize_project_blocks", "factorize_project_blocks<24>", unpacked_src,
          f"{pk}:1634"),
-        (12, "project_blocks", "project_blocks<24>", unpacked_src, f"{pk}:1712"),
+        (12, "project_blocks", "project_blocks<24w>", warp_src, f"{pk}:1712"),
         (13, "log_base_measure_logdets", "log_base_measure_logdets<24>", unpacked_src,
          f"{pk}:2000"),
     )

@@ -1,11 +1,12 @@
 // A stand-in for <cuda_runtime.h> that runs the port's CUDA kernels on
-// the host, for tests/test_torch_warp_rehearsal.py and
-// tests/test_torch_systematic_rehearsal.py. Every CUDA thread is a
+// the host, for tests/test_torch_warp_rehearsal.py,
+// tests/test_torch_systematic_rehearsal.py and
+// tests/test_torch_dedup_project_rehearsal.py. Every CUDA thread is a
 // host thread (from a pool kept between launches): a launch runs its
 // blocks one after another, each block's threads together;
 // __syncthreads is a barrier of the block, __syncwarp
-// one of the warp, and a shuffle writes each lane's value to an exchange
-// array of its warp between two warp barriers. The dynamic shared memory
+// one of the warp, and a shuffle or a ballot writes each lane's value to
+// an exchange array of its warp between two warp barriers. The dynamic shared memory
 // of a block is one host buffer, filled with NaN so that a read of an
 // entry no thread wrote shows in the results. Arithmetic is the host's
 // f32: built with -ffp-contract=off, __fmaf_rn is a rounded product and
@@ -130,6 +131,20 @@ inline T __shfl_up_sync(unsigned mask, T value, unsigned delta) {
   const int lane = (int)(threadIdx.x % 32);
   return __shfl_sync(mask, value, lane >= (int)delta ? lane - (int)delta : lane);
 }
+
+// bit l set where lane l of the caller's warp passed a true predicate
+inline unsigned __ballot_sync(unsigned, int predicate) {
+  uint32_t* lanes = bipk_stub::block->exchange.data() + 32 * (threadIdx.x / 32);
+  lanes[threadIdx.x % 32] = predicate != 0;
+  __syncwarp();
+  const int width = (int)blockDim.x - 32 * (int)(threadIdx.x / 32);  // the warp's lanes
+  unsigned bits = 0;
+  for (int l = 0; l < 32 && l < width; ++l) bits |= lanes[l] ? 1u << l : 0u;
+  __syncwarp();
+  return bits;
+}
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 // value of lane (lane ^ lane_mask) of the caller's warp
 template <class T>

@@ -98,11 +98,12 @@ def test_launches_count_per_instantiation():
     both draws and the log-determinants, ``<24w>`` for m <= 24 and
     ``<48w>`` for 24 < m <= 48, and for the factor pair (m <= 24): the
     factor-emitting projection ``[emit]<24w>``, the factor-gather draw
-    ``<24w>``; the per-thread comparator ``<24>`` / ``<48>`` /
-    ``[emit]<24>``."""
+    ``<24w>``, and the dedup gather (m <= 24) ``<24w>``; the per-thread
+    comparator ``<24>`` / ``<48>`` / ``[emit]<24>``."""
     warp = (ck.factorize_project_packed, ck.draw_update_packed_blocks,
             ck.draw_update_gather_packed_blocks, ck.log_base_measure_packed_logdets)
-    assert ck.WARP == (*warp, ck.draw_update_factor_gather_packed_blocks)
+    assert ck.WARP == (*warp, ck.draw_update_factor_gather_packed_blocks,
+                       ck.draw_update_dedup_gather_packed_blocks, ck.project_blocks)
     ck.reset_launch_counts()
     try:
         for fn in warp:
@@ -116,6 +117,8 @@ def test_launches_count_per_instantiation():
         ck._count(ck.draw_update_gather_packed_blocks, 41, per_thread=True)
         ck._count(ck.factorize_project_packed, 20, per_thread=True)
         ck._count(ck.log_base_measure_packed_logdets, 41, per_thread=True)
+        ck._count(ck.draw_update_dedup_gather_packed_blocks, 20)
+        ck._count(ck.draw_update_dedup_gather_packed_blocks, 9, per_thread=True)
         counts = ck.launch_counts()
         for fn in warp:
             assert counts[f"{fn.__name__}<24w>"] == 2
@@ -132,12 +135,15 @@ def test_launches_count_per_instantiation():
         assert counts["factorize_project_packed[emit]<24>"] == 1
         assert counts["draw_update_factor_gather_packed_blocks<24w>"] == 1
         assert counts["draw_update_factor_gather_packed_blocks<24>"] == 1
+        assert counts["draw_update_dedup_gather_packed_blocks<24w>"] == 1
+        assert counts["draw_update_dedup_gather_packed_blocks<24>"] == 1
         assert counts["systematic_ancestors_blocks"] == 1
         assert ck.factorize_project_packed.launches == 8
         assert ck.draw_update_factor_gather_packed_blocks.launches == 2
+        assert ck.draw_update_dedup_gather_packed_blocks.launches == 2
         assert ck.draw_update_gather_packed_blocks.launches == 6
         assert ck.log_base_measure_packed_logdets.launches == 6
-        assert sum(counts.values()) == 28
+        assert sum(counts.values()) == 30
     finally:
         ck.reset_launch_counts()
     # the CPU computes the plain version and counts no launch
@@ -227,6 +233,12 @@ class _CardTensor:
     def reshape(self, *shape):
         return _CardTensor(*shape, dtype=self.dtype)
 
+    def stride(self, dim=None):
+        strides = [1] * len(self.shape)
+        for d in range(len(self.shape) - 2, -1, -1):
+            strides[d] = strides[d + 1] * self.shape[d + 1]
+        return tuple(strides) if dim is None else strides[dim]
+
 
 def _entry_point_call(name, m, n, dtype):
     from bipk_tpu_torch.ops import mniw
@@ -299,6 +311,8 @@ def _packed_wrapper_calls(m, n=1, N=8):
                                                                m=m, n=n))
         calls["draw_update_dedup_gather_packed_blocks"] = (
             lambda: ck.draw_update_dedup_gather_packed_blocks(S, anc, phi, u, u, 0.0, m=m, n=n))
+    chol, white = _CardTensor(m, m, N), _CardTensor(m, n, N)
+    calls["project_blocks"] = lambda: ck.project_blocks(chol, white, phi)
     return calls
 
 
@@ -315,10 +329,11 @@ def _recording_lib(monkeypatch):
 
 @pytest.mark.parametrize("m", [20, 25, 41, 48])
 def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
-    """On a CUDA tensor every packed wrapper reaches its own C entry, which
-    launches the warp kernels for the look-ahead, the draws and the
-    log-determinants at every m (counted ``<24w>`` for m <= 24, ``<48w>``
-    above) and for the factor pair at m <= 24 (``[emit]<24w>``,
+    """On a CUDA tensor every packed wrapper, and the projection from a
+    given factor, reaches its own C entry, which launches the warp kernels
+    for the look-ahead, the draws, the log-determinants and the projection
+    at every m (counted ``<24w>`` for m <= 24, ``<48w>`` above) and for the
+    factor pair and the dedup gather at m <= 24 (``[emit]<24w>``,
     ``<24w>``); none reaches the per-thread comparator's entries, and none
     falls back to the plain version (a stand-in tensor has no data to
     compute on)."""
@@ -334,17 +349,21 @@ def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
     assert len(lib.called) == len(calls)
     assert not [c for c in lib.called if "per_thread" in c]
     width = "<24" if m <= 24 else "<48"
-    for fn in ck.WARP[:4]:
+    for fn in (*ck.WARP[:4], ck.project_blocks):
         assert counts[f"{fn.__name__}{width}w>"] == 1
         assert counts[f"{fn.__name__}<24>"] == 0
         assert counts[f"{fn.__name__}<48>"] == 0
     assert "bipk_log_base_measure_packed" in lib.called
+    assert "bipk_project_blocks" in lib.called
     if m <= 24:
         assert counts["factorize_project_packed[emit]<24w>"] == 1
         assert counts["factorize_project_packed[emit]<24>"] == 0
-        assert counts["draw_update_factor_gather_packed_blocks<24w>"] == 1
-        assert counts["draw_update_factor_gather_packed_blocks<24>"] == 0
+        for fn in (ck.draw_update_factor_gather_packed_blocks,
+                   ck.draw_update_dedup_gather_packed_blocks):
+            assert counts[f"{fn.__name__}<24w>"] == 1
+            assert counts[f"{fn.__name__}<24>"] == 0
         assert "bipk_draw_update_factor_gather_packed" in lib.called
+        assert "bipk_draw_update_dedup_gather_packed" in lib.called
     assert sum(counts.values()) == len(calls)
 
 
@@ -352,7 +371,10 @@ def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
 def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatch, m):
     """The comparator, given (stand-ins for) CUDA tensors, reaches the
     ``*_per_thread`` C entries and counts the per-thread instantiation
-    that serves m: ``<24>`` for m <= 24, ``<48>`` above; no warp key."""
+    that serves m: ``<24>`` for m <= 24, ``<48>`` above; no warp key. So
+    do the projection's (``project_kernel<24 | 48>``) and, at m <= 24, the
+    dedup gather's (``dedup_gather_kernel``); m > 24 the dedup's refuses
+    before any launch."""
     lib = _recording_lib(monkeypatch)
     N = 8
     S, phi = _CardTensor(ck.mniw.packed_rows(m, 1), N), _CardTensor(m, N)
@@ -363,17 +385,29 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
         ck.draw_update_gather_packed_blocks_per_thread(S, None, phi, u, u, 0.0, m=m, n=1)
         ck.draw_update_gather_packed_blocks_per_thread(S, anc, phi, u, u, 0.0, m=m, n=1)
         ck.log_base_measure_packed_logdets_per_thread(S, 0.0, m=m, n=1)
+        ck.project_blocks_per_thread(_CardTensor(m, m, N), _CardTensor(m, 1, N), phi)
+        if m <= 24:
+            ck.draw_update_dedup_gather_packed_blocks_per_thread(S, anc, phi, u, u, 0.0, m=m,
+                                                                 n=1)
+        else:
+            with pytest.raises(ValueError, match="m <= 24"):
+                ck.draw_update_dedup_gather_packed_blocks_per_thread(S, anc, phi, u, u, 0.0,
+                                                                     m=m, n=1)
         counts = ck.launch_counts()
     finally:
         ck.reset_launch_counts()
     assert lib.called == ["bipk_factorize_project_packed_per_thread",
                           "bipk_draw_update_packed_per_thread",
                           "bipk_draw_update_packed_per_thread",
-                          "bipk_log_base_measure_packed_per_thread"]
+                          "bipk_log_base_measure_packed_per_thread",
+                          "bipk_project_blocks_per_thread",
+                          *(["bipk_draw_update_dedup_gather_packed_per_thread"] * (m <= 24))]
     width = "<24>" if m <= 24 else "<48>"
-    for fn in ck.WARP[:4]:
+    for fn in (*ck.WARP[:4], ck.project_blocks):
         assert counts[f"{fn.__name__}{width}"] == 1
-    assert sum(counts.values()) == 4
+    if m <= 24:
+        assert counts["draw_update_dedup_gather_packed_blocks<24>"] == 1
+    assert sum(counts.values()) == len(lib.called)
 
 
 def test_factor_pair_comparator_reaches_its_entries(monkeypatch):
@@ -416,9 +450,12 @@ def test_per_thread_comparator_is_called_by_no_module_of_the_port():
              "log_base_measure_packed_logdets_per_thread",
              "systematic_ancestors_blocks_per_thread",
              "draw_update_factor_gather_packed_blocks_per_thread",
+             "draw_update_dedup_gather_packed_blocks_per_thread", "project_blocks_per_thread",
              "bipk_factorize_project_packed_per_thread", "bipk_draw_update_packed_per_thread",
              "bipk_log_base_measure_packed_per_thread", "bipk_systematic_ancestors_per_thread",
-             "bipk_draw_update_factor_gather_packed_per_thread")
+             "bipk_draw_update_factor_gather_packed_per_thread",
+             "bipk_draw_update_dedup_gather_packed_per_thread",
+             "bipk_project_blocks_per_thread")
     for path in sorted((REPO / "bipk_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         own = set()
@@ -559,16 +596,20 @@ def test_project_wrapper_checks_its_bounds():
 
 
 def test_unpacked_launches_count_per_instantiation():
-    """The unpacked wrappers count launches per width, and the CPU ones
-    (plain versions) count none."""
+    """The unpacked wrappers count launches per width (the projection from
+    a given factor by its warp kernel's, ``<24w>`` / ``<48w>``, and its
+    per-thread comparator's, ``<24>`` / ``<48>``), and the CPU ones (plain
+    versions) count none."""
     ck.reset_launch_counts()
     try:
         ck._count(ck.project_blocks, 20)
         ck._count(ck.project_blocks, 41)
+        ck._count(ck.project_blocks, 41, per_thread=True)
         ck._count(ck.factorize_blocks, 24)
         counts = ck.launch_counts()
-        assert counts["project_blocks<24>"] == 1 and counts["project_blocks<48>"] == 1
-        assert counts["factorize_blocks<24>"] == 1 and sum(counts.values()) == 3
+        assert counts["project_blocks<24w>"] == 1 and counts["project_blocks<48w>"] == 1
+        assert counts["project_blocks<24>"] == 0 and counts["project_blocks<48>"] == 1
+        assert counts["factorize_blocks<24>"] == 1 and sum(counts.values()) == 4
     finally:
         ck.reset_launch_counts()
     F = torch.eye(21)[:, :, None].expand(21, 21, 4).contiguous()
@@ -621,13 +662,21 @@ def test_factor_pair_and_dedup_wrappers_check_their_bounds():
 
 
 def test_dedup_stage_budget_matches_the_kernel():
-    """The Python mirror of the dedup kernel's shared-memory stage, which
-    ``dedup_staged_blocks`` reports by, is the kernel's own constant."""
-    src = (REPO / "bipk_tpu_torch" / "csrc" / "dedup_gather.cu").read_text()
-    assert f"constexpr int kStageFloats = {ck.DEDUP_STAGE_FLOATS};" in src
-    # one block of distinct ancestors, one of a single repeated one
+    """``dedup_runs`` reports the distinct columns each block of the warp
+    dedup gather reads by the kernel's own rule: runs of equal neighbouring
+    ancestors, a block's first particle starting one, so a value seen
+    again (out of order) starts another. The stage needs no budget: the
+    kernel stages every block's runs in its particles' triangles, which
+    ``tests/test_torch_dedup_project_rehearsal.py`` checks by the plan."""
+    src = (REPO / "bipk_tpu_torch" / "csrc" / "warp_mniw.cu").read_text()
+    assert "const bool starts = live && (t == 0 || left != col);" in src
+    assert "float* stage = smem + p.tile_floats;" in src
+    # 128 distinct ancestors, then 128 copies of one: blocks of 16
     anc = torch.cat([torch.arange(128), torch.full((128,), 200)]).int()
-    assert ck.dedup_staged_blocks(anc, 20, 1) == (1, 1)
+    assert ck.dedup_runs(anc, 16).tolist() == [16] * 8 + [1] * 8
+    # a ragged last block, and a value seen again out of order
+    anc = torch.tensor([3, 3, 5, 3, 3, 7, 7], dtype=torch.int32)
+    assert ck.dedup_runs(anc, 4).tolist() == [3, 2]
 
 
 @pytest.mark.parametrize("option", ["reuse_factor", "dedup_gather"])

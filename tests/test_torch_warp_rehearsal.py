@@ -255,21 +255,28 @@ print("launch state kept per card", flush=True)
 """
 
 
-def _host_sources(tmp_path):
-    """The CUDA sources rewritten for the stub: each launch
+# the sources the warp kernels' rehearsals build: the per-thread core and
+# its entries, the warp kernel
+HOST_SOURCES = ("packed_mniw.cuh", "packed_mniw.cu", "warp_mniw.cu")
+
+
+def _host_sources(tmp_path, names=HOST_SOURCES):
+    """The CUDA sources ``names`` rewritten for the stub: each launch
     ``k<<<grid, threads, smem, stream>>>(args);`` becomes
-    ``bipk_launch(grid, threads, smem, stream, [&] { k(args); });`` and the
-    dynamic shared-memory array the stub's block buffer; plus one
-    translation unit with the stub's controls."""
+    ``bipk_launch(grid, threads, smem, stream, [&] { k(args); });``, the
+    dynamic shared-memory array the stub's block buffer and a static
+    ``__shared__`` array a ``static`` one (the stub runs one block at a
+    time); plus one translation unit with the stub's controls."""
     inc = tmp_path / "include"
     inc.mkdir()
     shutil.copy(STUB, inc / "cuda_runtime.h")
     launch = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
     out = []
-    for path in [CSRC / "packed_mniw.cuh", CSRC / "packed_mniw.cu", CSRC / "warp_mniw.cu"]:
+    for path in (CSRC / name for name in names):
         text = launch.sub(r"bipk_launch(\2, [&] { \1(\3); });", path.read_text())
         text = text.replace("extern __shared__ float smem[];",
                             "float* smem = bipk_dynamic_smem();")
+        text = text.replace("__shared__ ", "static ")
         assert "<<<" not in text and "__shared__" not in text, path.name
         (tmp_path / path.name).write_text(text)
         out.append(tmp_path / path.name)
@@ -278,14 +285,14 @@ def _host_sources(tmp_path):
     return inc, [p for p in out if p.suffix == ".cu"] + [controls]
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The kernels built for the host against the stub, once per module."""
+def build_host_lib(tmp_path_factory, names=HOST_SOURCES):
+    """The sources ``names`` built for the host against the stub; skips
+    without ``g++``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernels for the host")
     tmp_path = tmp_path_factory.mktemp("warp_host")
-    inc, srcs = _host_sources(tmp_path)
+    inc, srcs = _host_sources(tmp_path, names)
     lib = tmp_path / "libbipk_host.so"
     build = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
@@ -293,6 +300,12 @@ def host_lib(tmp_path_factory):
         capture_output=True, text=True, timeout=TIMEOUT)
     assert build.returncode == 0, build.stderr[-4000:]
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The kernels built for the host against the stub, once per module."""
+    return build_host_lib(tmp_path_factory)
 
 
 def _run(code, lib, specs, expect):
