@@ -25,11 +25,13 @@ constexpr int kThreads = 128;
 // draw and the update with the factor read from LW (the factor-gather
 // draw), or the gathered draw with each block's distinct ancestor columns
 // read once (the dedup gather), or the projection from a given factor
-// (project_blocks); the last three are modes of the warp kernel only
-// (warp_mniw.cu).
+// (project_blocks), or the projection of unpacked statistics
+// (factorize_project_blocks); the last four are modes of the warp kernel
+// only (warp_mniw.cu: the per-thread core projects unpacked statistics in
+// mode kProject through UnpackedStats).
 enum Mode {
   kProject = 0, kDraw = 1, kLogdets = 2, kEmit = 3, kFactor = 4, kReuse = 5, kDedup = 6,
-  kFromFactor = 7
+  kFromFactor = 7, kProjectUnpacked = 8
 };
 
 __device__ __forceinline__ int tri_off(int j, int m) {

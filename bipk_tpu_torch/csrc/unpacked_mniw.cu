@@ -22,15 +22,26 @@
 // line. The prior is one f32 buffer [P0 | P1 | P2], read through the
 // read-only cache, as in packed_mniw.cu.
 //
-// Design. The first three are the packed kernels' per-thread column core
-// (packed_mniw.cuh) with another reader: UnpackedStats reads T1 as
-// 0.5 * (T1[i][c] + T1[c][i]), then scales by lam and adds P1, the order
-// of the JAX kernels' _make_read_a, and keeps the core's trace, left-looking
-// columns and rsqrtf. On exactly symmetric input 0.5 * (x + x) = x, so the
-// projection of unpack(S) is, bit for bit, the packed projection of S. One
-// thread per particle, <24> and <48> instantiations as in packed_mniw.cu
-// (the JAX package's tiled #10 and #12 stop at m = 24; these serve m <= 48
-// and compute the same function).
+// Design. The factorization and the factorization/projection run the warp
+// kernel (warp_mniw.cu) in its unpacked modes, kFactor and
+// kProjectUnpacked: a block stages the packed tile of its P particles from
+// the leaves (T1 read as 0.5 * (T1[i][c] + T1[c][i]) in the packed order,
+// then scaled by lam and P1 added, the order of the JAX kernels'
+// _make_read_a; T2 as stored) and factors each particle on 16 or 32 lanes
+// of a warp, two particles per warp at m <= 24, one above; kFactor's block
+// writes chol, white and row out by rows of P particles. They replaced the
+// packed kernels' per-thread column core (packed_mniw.cuh) with the
+// UnpackedStats reader, unpacked_mniw_kernel<24 | 48, kFactor | kProject>,
+// which stays compiled as their comparator behind
+// bipk_factorize_blocks_per_thread and
+// bipk_factorize_project_blocks_per_thread (no wrapper reaches them); the
+// warp modes equal it bit for bit (chip_smoke.py phase 18,
+// tests/test_torch_unpacked_rehearsal.py). On exactly symmetric input
+// 0.5 * (x + x) = x, so the projection of unpack(S) is, bit for bit, the
+// packed projection of S. The log-determinants are still that per-thread
+// core, one thread per particle, <24> and <48> instantiations as in
+// packed_mniw.cu (the JAX package's tiled #10 and #12 stop at m = 24;
+// these serve m <= 48 and compute the same function).
 //
 // The projection from a given factor reads it through element strides
 // with the particle stride 1: in the rank-1 cSMC, chol = F[:m, :m] and
@@ -52,9 +63,10 @@
 // factorize/project ~446, 17 us; log-determinants ~423, 17 us; project
 // ~252, 10 us), against a few kflop per particle. In practice, as for the
 // packed kernels, the per-thread factor sits in local memory and the
-// Cholesky's dependent loads bound them; project_kernel's m^2/2 dependent
-// loads of chol are global ones, each feeding one serial FMA chain.
-// Times: PERF.md.
+// Cholesky's dependent loads bound the per-thread kernels;
+// project_kernel's m^2/2 dependent loads of chol are global ones, each
+// feeding one serial FMA chain; the warp modes issue the instructions of
+// each particle's column-by-column Cholesky (warp_mniw.cu). Times: PERF.md.
 //
 // C interface (loaded with ctypes): every function launches on the given
 // stream, never synchronises, allocates nothing, and returns
@@ -135,24 +147,64 @@ Args unpacked_args(const float* T0, const float* T1, const float* T2,
   return a;
 }
 
+Args factor_args(const float* T0, const float* T1, const float* T2, const float* prior,
+                 int n_particles, int m, int n, float jitter, float lam, float* chol,
+                 float* white, float* row) {
+  Args a = unpacked_args(T0, T1, T2, prior, n_particles, m, n, jitter, lam);
+  a.chol = chol; a.white = white; a.row = row;
+  return a;
+}
+
+Args factor_project_args(const float* T0, const float* T1, const float* T2, const float* phi,
+                         const float* prior, int n_particles, int m, int n, float jitter,
+                         float lam, float* mean, float* col, float* row, float* ld) {
+  Args a = unpacked_args(T0, T1, T2, prior, n_particles, m, n, jitter, lam);
+  a.phi = phi; a.mean = mean; a.col = col; a.row = row; a.ld = ld;
+  return a;
+}
+
 }  // namespace
 
 extern "C" int bipk_factorize_blocks(
     const float* T0, const float* T1, const float* T2, const float* prior,
     int n_particles, int m, int n, float jitter, float lam, float* chol,
     float* white, float* row, void* stream) {
-  Args a = unpacked_args(T0, T1, T2, prior, n_particles, m, n, jitter, lam);
-  a.chol = chol; a.white = white; a.row = row;
-  return launch<kFactor>(a, static_cast<cudaStream_t>(stream));
+  return launch_warp_mniw(
+      factor_args(T0, T1, T2, prior, n_particles, m, n, jitter, lam, chol, white, row), kFactor,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The comparator of the warp kernel's kFactor mode: the per-thread
+// unpacked_mniw_kernel<24 | 48, kFactor>, which chip_smoke.py calls and no
+// wrapper does.
+extern "C" int bipk_factorize_blocks_per_thread(
+    const float* T0, const float* T1, const float* T2, const float* prior,
+    int n_particles, int m, int n, float jitter, float lam, float* chol,
+    float* white, float* row, void* stream) {
+  return launch<kFactor>(
+      factor_args(T0, T1, T2, prior, n_particles, m, n, jitter, lam, chol, white, row),
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bipk_factorize_project_blocks(
     const float* T0, const float* T1, const float* T2, const float* phi,
     const float* prior, int n_particles, int m, int n, float jitter,
     float lam, float* mean, float* col, float* row, float* ld, void* stream) {
-  Args a = unpacked_args(T0, T1, T2, prior, n_particles, m, n, jitter, lam);
-  a.phi = phi; a.mean = mean; a.col = col; a.row = row; a.ld = ld;
-  return launch<kProject>(a, static_cast<cudaStream_t>(stream));
+  return launch_warp_mniw(factor_project_args(T0, T1, T2, phi, prior, n_particles, m, n, jitter,
+                                              lam, mean, col, row, ld),
+                          kProjectUnpacked, static_cast<cudaStream_t>(stream));
+}
+
+// The comparator of the warp kernel's kProjectUnpacked mode: the
+// per-thread unpacked_mniw_kernel<24 | 48, kProject>, which chip_smoke.py
+// calls and no wrapper does.
+extern "C" int bipk_factorize_project_blocks_per_thread(
+    const float* T0, const float* T1, const float* T2, const float* phi,
+    const float* prior, int n_particles, int m, int n, float jitter,
+    float lam, float* mean, float* col, float* row, float* ld, void* stream) {
+  return launch<kProject>(factor_project_args(T0, T1, T2, phi, prior, n_particles, m, n, jitter,
+                                              lam, mean, col, row, ld),
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bipk_log_base_measure_logdets(

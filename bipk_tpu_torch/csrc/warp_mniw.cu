@@ -31,10 +31,16 @@
 //     gathered draw with each block's distinct ancestor columns read once;
 //   - at every m <= 48, the projection from a given factor: _project_kernel
 //     (:352) behind project_blocks (:1712), mean = white^T L^{-1} phi and
-//     col = |L^{-1} phi|^2 + 1 from a factor read through its strides.
+//     col = |L^{-1} phi|^2 + 1 from a factor read through its strides;
+//   - at every m <= 48, on unpacked statistics (structured or flat T0, T1,
+//     T2): _factorize_kernel (:299) behind factorize_blocks (:1583), the
+//     factor written whole (chol, white, row), and
+//     _factorize_project_kernel (:468, core :371) behind
+//     factorize_project_blocks (:1634), the look-ahead's projection.
 // packed_mniw.cu launches these for its look-ahead, draw, log-determinants
 // and factor pair at every m they serve, dedup_gather.cu and
-// unpacked_mniw.cu for the dedup gather and the projection. The log-determinants are a third
+// unpacked_mniw.cu for the dedup gather, the projection and the two
+// unpacked modes. The log-determinants are a third
 // mode of the same kernel (kLogdets): no phi (no phi rows in the tile, no
 // phi^T row in the triangle), no gather, and lane 0 writes the two
 // log-determinants only. The factor-emitting look-ahead (kEmit) is kProject
@@ -59,7 +65,19 @@
 // the factor's element strides (each row P neighbouring floats, read in
 // place from views of an augmented factor), runs kReuse's substitution
 // across the particle's lanes, and gives mean and col one lane each: no
-// S, no Cholesky, no draw.
+// S, no Cholesky, no draw. The unpacked modes stage the packed tile from
+// the leaves (T0 as stored; T1 in the packed order, each entry read as
+// 0.5 (T1[i][c] + T1[c][i]), the per-thread reader's UnpackedStats with
+// its roundings written out, both loads rows of P neighbouring floats;
+// all n^2 entries of T2 as stored, which Psi reads as T2[a][b], as the
+// per-thread core does: no T3 row) and run kProject's core on it
+// (kProjectUnpacked) or, without phi, kEmit's (kFactor): each entry of L
+// and white goes to LW's rows of the particle's tile column as the
+// Cholesky finishes it, Psi over its T2 row, and the block writes chol
+// (zeros above the diagonal), white and row out by rows of P particles
+// from the tile, whose rows hold P neighbouring floats (read from the
+// particles' triangles, 16 (mod 32) floats apart at m <= 24, one entry of
+// 16 particles would come from 2 banks).
 //
 // Design. One particle on 32 / PW lanes of a warp, PW = 2 particles per
 // warp for m <= 24 (a half warp each) and 1 above, the factor in shared
@@ -122,17 +140,22 @@
 // mode kDraw as packed_mniw_kernel<24, kDraw> does. project_kernel,
 // kFromFactor's comparator, contracts its substitution's acc - L v and
 // its mean's and col's multiply-adds into FFMAs as factor_gather_kernel
-// does (SASS, PERF.md), which kFromFactor writes out with __fmaf_rn.
+// does (SASS, PERF.md), which kFromFactor writes out with __fmaf_rn. The
+// unpacked modes are kProject's and kEmit's arithmetic on values that the
+// per-thread core reads through UnpackedStats (unpacked_mniw_kernel<24 |
+// 48, kProject | kFactor>), the symmetric read of T1 written out as a
+// rounded sum and a rounded product.
 // chip_smoke.py holds these kernels against the per-thread ones bit for bit (phase 2 at m <= 24,
 // phase 8 above, phase 14 for the factor pair and the dedup gather (also
-// against #4), phase 18 for the projection; the comparator is
-// packed_mniw_kernel<24 | 48, kProject / kDraw / kLogdets / kEmit> and
-// factor_gather_kernel behind bipk_*_per_thread in packed_mniw.cu,
-// dedup_gather_kernel and project_kernel<24 | 48> behind the
+// against #4), phase 18 for the projection and the unpacked modes; the
+// comparator is packed_mniw_kernel<24 | 48, kProject / kDraw / kLogdets /
+// kEmit> and factor_gather_kernel behind bipk_*_per_thread in
+// packed_mniw.cu, dedup_gather_kernel, project_kernel<24 | 48> and
+// unpacked_mniw_kernel<24 | 48, kProject | kFactor> behind the
 // *_per_thread entries of dedup_gather.cu and unpacked_mniw.cu, which no
-// wrapper reaches), and phase 18 against the unpacked kernels;
-// tests/test_torch_warp_rehearsal.py, test_torch_factor_rehearsal.py and
-// test_torch_dedup_project_rehearsal.py run them on the host (below).
+// wrapper reaches); tests/test_torch_warp_rehearsal.py,
+// test_torch_factor_rehearsal.py, test_torch_dedup_project_rehearsal.py
+// and test_torch_unpacked_rehearsal.py run them on the host (below).
 //
 // What bounds it on the H100. The bytes are those of the per-thread
 // kernels: at m = 20, N = 32768, S is read once (30 MB: 0.010 ms for the
@@ -147,7 +170,10 @@
 // block's runs (a degenerate block of 16 reads 1-2 columns, not 16); the
 // projection from a given factor at m = 20, n = 1 reads tril(L), white
 // and phi and writes mean and col, 252 floats per particle (0.0099 ms at
-// N = 32768, 0.0031 at 10240). In practice the instructions
+// N = 32768, 0.0031 at 10240); the unpacked modes at m = 20, n = 1 read
+// the leaves (421 floats per particle) and write the factor whole (421:
+// 0.033 ms at N = 32768) or the five small outputs (0.0175 ms). In
+// practice the instructions
 // a particle's lanes issue: most of them are the Cholesky's columns, each
 // a dot product whose terms wait on their shared-memory loads followed by
 // a serial shuffle, rsqrtf, division and stores, with fewer and fewer of
@@ -210,18 +236,27 @@ constexpr unsigned kFull = 0xffffffffu;
 // extra space and no fallback), and keeps 2P + 1 ints: the runs' source
 // columns, each particle's run and the count of runs. The projection from
 // a given factor (kFromFactor) stages LW's rows (tril(chol) and white)
-// and phi, and keeps one row for v.
+// and phi, and keeps one row for v. The unpacked modes (kFactor,
+// kProjectUnpacked) stage n^2 rows of T2 and no T3 row; kFactor reads no
+// phi.
+__host__ __device__ constexpr bool unpacked_mode(int mode) {
+  return mode == kFactor || mode == kProjectUnpacked;
+}
+__host__ __device__ constexpr bool reads_phi(int mode) {
+  return mode != kLogdets && mode != kFactor;
+}
+
 struct WarpPlan {
   int rows, lw_rows, tile_rows, ts, ld, R, per_particle, tile_floats, ints;
   __host__ __device__ WarpPlan(int m, int n, int P, int GW, int mode)
-      : rows(m * n + m * (m + 1) / 2 + n * (n + 1) / 2 + 1),
+      : rows(m * n + m * (m + 1) / 2 + (unpacked_mode(mode) ? n * n : n * (n + 1) / 2 + 1)),
         lw_rows(m * (m + 1) / 2 + m * n),
         tile_rows(mode == kFromFactor
                       ? lw_rows + m
-                      : rows + (mode != kLogdets ? m : 0) + (mode == kReuse ? lw_rows : 0)),
+                      : rows + (reads_phi(mode) ? m : 0) + (mode == kReuse ? lw_rows : 0)),
         ts(P | 1),  // odd row stride: 32 rows of one column hit 32 banks
         ld(m | 1),  // odd: 32 lanes on 32 rows of one column hit 32 banks
-        R(mode == kReuse || mode == kFromFactor ? 1 : m + n + (mode != kLogdets)),
+        R(mode == kReuse || mode == kFromFactor ? 1 : m + n + reads_phi(mode)),
         per_particle(padded(mode == kFromFactor ? ld
                             : mode == kDedup  ? max(R * ld + m, rows)
                                               : R * ld + m,
@@ -283,8 +318,9 @@ __device__ __forceinline__ void solve_lanes(const float* lw, const float* phi, i
 // and loop counts, since they share m and n, so the warp-wide __syncwarp
 // and shuffles of width GW serve both). x: its column of the block's tile,
 // element r at x[r * ts] (rows [0, rows) its statistics, [rows, rows + m)
-// its phi, which kLogdets has not, then LW's rows in kReuse; kEmit
-// writes LW over rows [0, m(m+1)/2 + m n) once it has read them); L: its
+// its phi, which kLogdets and kFactor have not, then LW's rows in kReuse;
+// kEmit and kFactor write LW over rows [0, m(m+1)/2 + m n) once they have
+// read them, and kFactor Psi over T2's rows); L: its
 // augmented triangle (kReuse: v); logs: m floats; lane: 0 .. GW - 1;
 // valid: j < n_out (a particle past the end computes on a stand-in column
 // and writes nothing to global memory).
@@ -293,12 +329,15 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
                                               float* L, float* logs, int lane) {
   constexpr bool REUSE = MODE == kReuse;
   constexpr bool DRAW = MODE == kDraw || REUSE;  // the draw and the rank-1 update
-  constexpr bool PHI = MODE != kLogdets;
+  constexpr bool PHI = reads_phi(MODE);
+  constexpr bool UNPACKED = unpacked_mode(MODE);
+  constexpr bool EMIT = MODE == kEmit || MODE == kFactor;  // L and white into LW's rows
   const int m = a.m, n = a.n;
   const int64_t n_out = a.n_out;
   const int o1 = m * n, o2 = o1 + m * (m + 1) / 2, o3 = o2 + n * (n + 1) / 2;
   const int tri = m * (m + 1) / 2;
-  const float* phi = x + (o3 + 1) * ts;  // read only where PHI
+  // after T3's row, or (unpacked) after T2's n^2 rows; read only where PHI
+  const float* phi = x + (UNPACKED ? o2 + n * n : o3 + 1) * ts;
   const float* lw = phi + m * ts;        // kReuse: LW, row r at lw[r * ts]
   const float lam = a.lam;
   const float* P0 = a.prior;
@@ -357,8 +396,8 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
 
     // left-looking Cholesky of the augmented triangle, column by column:
     // lane l on row c + l (and c + l + GW), s = A[r][c] - sum_{k < c} L[r][k]
-    // L[c][k] in increasing k; L[c][c] itself goes to logs[c]. kEmit also
-    // stores each finished entry in LW's rows of the tile column x
+    // L[c][k] in increasing k; L[c][c] itself goes to logs[c]. kEmit and
+    // kFactor also store each finished entry in LW's rows of the tile column x
     for (int c = 0; c < m; ++c) {
       const float* Lc = L + c * ld;
       const int r0 = c + lane, r1 = r0 + GW;
@@ -381,26 +420,29 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
       const float d = __fmul_rn(scc, inv);
       if (lane == 0) {
         logs[c] = d;
-        if constexpr (MODE == kEmit) x[(c * (c + 1) / 2 + c) * ts] = d;
+        if constexpr (EMIT) x[(c * (c + 1) / 2 + c) * ts] = d;
       } else if (r0 < R) {
         const float f = r0 < m ? __fmul_rn(s0, inv) : __fdiv_rn(s0, d);
         L[r0 * ld + c] = f;
-        if constexpr (MODE == kEmit) emit_lw(x, ts, m, n, r0, c, f);
+        if constexpr (EMIT) emit_lw(x, ts, m, n, r0, c, f);
       }
       if (two && r1 < R) {
         const float f = r1 < m ? __fmul_rn(s1, inv) : __fdiv_rn(s1, d);
         L[r1 * ld + c] = f;
-        if constexpr (MODE == kEmit) emit_lw(x, ts, m, n, r1, c, f);
+        if constexpr (EMIT) emit_lw(x, ts, m, n, r1, c, f);
       }
       __syncwarp();
     }
-    for (int c = lane; c < m; c += GW) logs[c] = logf(logs[c]);
+    if constexpr (MODE != kFactor)  // no log-determinants there
+      for (int c = lane; c < m; c += GW) logs[c] = logf(logs[c]);
   }
 
   // Psi = P2 + lam*T2 - white^T white, mean = white^T v, col = v.v + 1
-  // (not kLogdets): one lane per entry, each summed over k in the core's
-  // order. white[k][c] at W[c * wc + k * wk]: row m + c of the triangle,
-  // or (kReuse) LW's row tri + k n + c; v in row m + n, or (kReuse) L
+  // (not kLogdets or kFactor): one lane per entry, each summed over k in
+  // the core's order. T2[a][b] the stored lower entry, or (unpacked) the
+  // entry itself. white[k][c] at W[c * wc + k * wk]: row m + c of the
+  // triangle, or (kReuse) LW's row tri + k n + c; v in row m + n, or
+  // (kReuse) L
   const float* W = REUSE ? lw + tri * ts : L + m * ld;
   const int wc = REUSE ? ts : ld, wk = REUSE ? n * ts : 1;
   const float* V = REUSE ? L : L + (m + n) * ld;
@@ -409,12 +451,13 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
   if (lane < nn) {
     const int a_ = lane / n, b = lane - (lane / n) * n;
     const int lo = a_ < b ? a_ : b, hi = a_ < b ? b : a_;
-    float acc = scaled_prior(x[(o2 + tri_off(lo, n) + hi - lo) * ts], lam,
-                             P2 ? P2 + a_ * n + b : nullptr);
+    const int t2 = UNPACKED ? o2 + lane : o2 + tri_off(lo, n) + hi - lo;
+    float acc = scaled_prior(x[t2 * ts], lam, P2 ? P2 + a_ * n + b : nullptr);
     const float* Wa = W + a_ * wc;
     const float* Wb = W + b * wc;
     for (int k = 0; k < m; ++k) acc = __fmaf_rn(-Wa[k * wk], Wb[k * wk], acc);
     val = acc;
+    if constexpr (MODE == kFactor) x[t2 * ts] = acc;  // Psi over its own T2 row
   } else if constexpr (PHI) {
     if (lane < nn + n) {
       const float* Wc = W + (lane - nn) * wc;
@@ -427,6 +470,7 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
       val = __fadd_rn(acc, 1.f);
     }
   }
+  if constexpr (MODE == kFactor) return;  // the block writes the factor out
   __syncwarp();
   float psi[2][2], mean[2] = {0.f, 0.f}, colv = 0.f;
   for (int a_ = 0; a_ < 2; ++a_)
@@ -442,7 +486,7 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
     for (int c = 0; c < m; ++c) half_ld = __fadd_rn(half_ld, logs[c]);
     a.ld[j] = 2.f * half_ld;
     a.ld[n_out + j] = logdet_psi_of(psi, n);
-    if constexpr (MODE == kProject || MODE == kEmit) {
+    if constexpr (MODE == kProject || MODE == kEmit || MODE == kProjectUnpacked) {
       for (int c = 0; c < n; ++c) a.mean[c * n_out + j] = mean[c];
       a.col[j] = colv;
       for (int a_ = 0; a_ < n; ++a_)
@@ -516,6 +560,34 @@ __device__ __forceinline__ const float* factor_source(const Args& a, int r, int6
     return a.white_in + k * a.ws_k + (r - tri - k * a.n) * a.ws_c + j;
   }
   return a.phi + (int64_t)(r - tri - mn) * a.n_out + j;
+}
+
+// The unpacked modes: where tile row r of particle j is read from the
+// leaves (each row P neighbouring floats): T0[i][c] at rows [0, m n) as
+// stored; the packed T1 row m n + k (column c, row i >= c, column-major:
+// k' = m(m+1)/2 - 1 - k lies in row m - 1 - c of a row-packed triangle)
+// from T1[i][c] and, its mirror, T1[c][i], which the staging adds and
+// halves (sym_entry); T2[a][b] at row m n + m(m+1)/2 + a n + b as stored;
+// then phi (kProjectUnpacked). `mirror` is set for T1's rows only.
+__device__ __forceinline__ const float* unpacked_source(const Args& a, int r, int64_t j,
+                                                        const float*& mirror) {
+  const int m = a.m, n = a.n, mn = m * n, tri = m * (m + 1) / 2, o2 = mn + tri;
+  const int64_t n_in = a.n_in;
+  mirror = nullptr;
+  if (r < mn) return a.T0 + r * n_in + j;
+  if (r < o2) {
+    const int k = r - mn, c = m - 1 - tri_row(tri - 1 - k), i = c + k - tri_off(c, m);
+    mirror = a.T1 + (c * m + i) * n_in + j;
+    return a.T1 + (i * m + c) * n_in + j;
+  }
+  if (r < o2 + n * n) return a.T2 + (r - o2) * n_in + j;
+  return a.phi + (r - o2 - n * n) * (int64_t)a.n_out + j;
+}
+
+// 0.5 (T1[i][c] + T1[c][i]) with the per-thread reader's (UnpackedStats)
+// roundings: a rounded sum, then a rounded product
+__device__ __forceinline__ float sym_entry(float x, float mirrored) {
+  return __fmul_rn(0.5f, __fadd_rn(x, mirrored));
 }
 
 // A block of 1 << log_w warps, 32 / GW particles on each.
@@ -594,6 +666,31 @@ warp_mniw_kernel(const Args a, int log_w) {
       const int r = e >> log_p, w = e & (P - 1);
       tile[r * p.ts + w] = stage[r * D + slot[w]];
     }
+  } else if constexpr (unpacked_mode(MODE)) {
+    // the P particles' packed tile from the leaves (unpacked_source), a
+    // particle past n_out on column n_out - 1 (read, never written), kLoads
+    // entries in flight per thread: T1's mirrored loads go into their own
+    // registers, and every sum waits for the store loop, so no load waits
+    // on another
+    const int total = p.tile_rows << log_p;
+    const int t1_rows = a.m * a.n, t1_end = t1_rows + a.m * (a.m + 1) / 2;
+    for (int e0 = threadIdx.x; e0 < total; e0 += kLoads * blockDim.x) {
+      float v[kLoads], v_mirror[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = min(e0 + u * (int)blockDim.x, total - 1);
+        const float* mirror;
+        v[u] = __ldg(unpacked_source(a, e >> log_p, min(j0 + (e & (P - 1)), n_out - 1), mirror));
+        v_mirror[u] = mirror ? __ldg(mirror) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = e0 + u * (int)blockDim.x, r = e >> log_p;
+        if (e < total)
+          tile[r * p.ts + (e & (P - 1))] =
+              r >= t1_rows && r < t1_end ? sym_entry(v[u], v_mirror[u]) : v[u];
+      }
+    }
   } else {
     // the block's P source columns; only the draws gather. A column past
     // n_out reads column 0 (read, never used)
@@ -648,6 +745,29 @@ warp_mniw_kernel(const Args a, int log_w) {
     for (int e = threadIdx.x; e < out_rows << log_p; e += blockDim.x) {
       const int r = e >> log_p, w = e & (P - 1);
       if (j0 + w < n_out) out[r * n_out + j0 + w] = tile[r * p.ts + w];
+    }
+  }
+  if constexpr (MODE == kFactor) {
+    // chol (m m rows, zeros above the diagonal), white (m n) and row (n n)
+    // by rows of P particles: L[i][k] from LW's row i(i+1)/2 + k of the
+    // tile, white's row q from row m(m+1)/2 + q and Psi's row q from T2's,
+    // m(m+1)/2 + m n + q: the two follow each other
+    __syncthreads();
+    const int m = a.m, mm = m * m, mn = m * a.n, tri = m * (m + 1) / 2;
+    const int total = (mm + mn + a.n * a.n) << log_p;
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int r = e >> log_p, w = e & (P - 1);
+      if (j0 + w >= n_out) continue;
+      float v, *out;
+      if (r < mm) {
+        const int i = r / m, k = r - i * m;
+        v = k <= i ? tile[(i * (i + 1) / 2 + k) * p.ts + w] : 0.f;
+        out = a.chol + r * n_out;
+      } else {
+        v = tile[(tri + r - mm) * p.ts + w];
+        out = r < mm + mn ? a.white + (r - mm) * n_out : a.row + (r - mm - mn) * n_out;
+      }
+      out[j0 + w] = v;
     }
   }
 }
@@ -729,7 +849,8 @@ int launch_width(const Args& a, cudaStream_t stream) {
 // (DEDUP_MAX_M)
 bool takes(int mode, int m) {
   if (mode == kEmit || mode == kReuse || mode == kDedup) return m <= 24;
-  return mode == kProject || mode == kDraw || mode == kLogdets || mode == kFromFactor;
+  return mode == kProject || mode == kDraw || mode == kLogdets || mode == kFromFactor ||
+         unpacked_mode(mode);
 }
 
 }  // namespace
@@ -745,6 +866,8 @@ int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream) {
     case kEmit: return launch_width<kEmit>(a, stream);
     case kReuse: return launch_width<kReuse>(a, stream);
     case kDedup: return launch_width<kDedup>(a, stream);
+    case kFactor: return launch_width<kFactor>(a, stream);
+    case kProjectUnpacked: return launch_width<kProjectUnpacked>(a, stream);
     default: return launch_width<kFromFactor>(a, stream);
   }
 }
@@ -752,7 +875,8 @@ int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream) {
 }  // namespace bipk_mniw
 
 // The warp kernel's launch in `mode` (kProject, kDraw, kLogdets, kEmit,
-// kReuse, kDedup or kFromFactor) at (m, n) and n_out particles on the
+// kFactor, kReuse, kDedup, kFromFactor or kProjectUnpacked) at (m, n) and
+// n_out particles on the
 // current card: warps and particles per block and dynamic shared memory in
 // bytes, for reports.
 extern "C" int bipk_warp_mniw_plan(int mode, int m, int n, int n_out, int* warps,

@@ -20,8 +20,10 @@ wrapper                                     CUDA source
                                             ``csrc/warp_mniw.cu``
 ``draw_update_dedup_gather_packed_blocks``  ``csrc/dedup_gather.cu``,
                                             ``csrc/warp_mniw.cu``
-``factorize_blocks``                        ``csrc/unpacked_mniw.cu``
-``factorize_project_blocks``                ``csrc/unpacked_mniw.cu``
+``factorize_blocks``                        ``csrc/unpacked_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
+``factorize_project_blocks``                ``csrc/unpacked_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
 ``project_blocks``                          ``csrc/unpacked_mniw.cu``,
                                             ``csrc/warp_mniw.cu``
 ``log_base_measure_logdets``                ``csrc/unpacked_mniw.cu``
@@ -43,11 +45,13 @@ draw and the log-determinants run the warp-per-particle
 ``warp_mniw_kernel`` (``csrc/warp_mniw.cu``) at both widths, counted as
 ``"<24w>"`` and ``"<48w>"``; so do the factor pair and the dedup gather
 at m <= 24, the factor-emitting projection counted as ``"[emit]<24w>"``,
-and the projection from a given factor (``project_blocks``) at every m.
-The per-thread ``<24>`` and ``<48>`` look-ahead, draw and
-log-determinants, ``<24, kEmit>``, ``factor_gather_kernel``,
-``dedup_gather_kernel`` and ``project_kernel<24 | 48>`` stay compiled as
-the warp kernels' comparator (``*_per_thread`` below, counted as
+and the projection from a given factor (``project_blocks``), the
+unpacked factorization (``factorize_blocks``) and factorization/projection
+(``factorize_project_blocks``) at every m. The per-thread ``<24>`` and
+``<48>`` look-ahead, draw and log-determinants, ``<24, kEmit>``,
+``factor_gather_kernel``, ``dedup_gather_kernel``, ``project_kernel<24 |
+48>`` and ``unpacked_mniw_kernel<24 | 48, kFactor | kProject>`` stay
+compiled as the warp kernels' comparator (``*_per_thread`` below, counted as
 ``"<24>"`` / ``"<48>"`` / ``"[emit]<24>"``), which no wrapper calls. The
 factor pair and the dedup gather take m <= 24 only. The resampler's
 wrapper launches the one-block scan
@@ -107,7 +111,11 @@ _SIGNATURES = {
     "bipk_log_base_measure_packed_per_thread": [_P, _P, _I, _I, _I, _F, _P, _P],
     "bipk_warp_mniw_plan": [_I, _I, _I, _I, _P, _P, _P],
     "bipk_factorize_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    "bipk_factorize_blocks_per_thread": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "bipk_factorize_project_blocks": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
+    ],
+    "bipk_factorize_project_blocks_per_thread": [
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
     ],
     "bipk_log_base_measure_logdets": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
@@ -696,9 +704,11 @@ def log_base_measure_packed_logdets_per_thread(
 
 # the warp kernel's modes (csrc/packed_mniw.cuh ``Mode``) by name: the
 # look-ahead (the draw's plan is the same), the log-determinants, the
-# factor-emitting look-ahead, the factor-gather draw, the dedup gather and
-# the projection from a given factor
-WARP_MODES = {"project": 0, "logdets": 2, "emit": 3, "reuse": 5, "dedup": 6, "from_factor": 7}
+# factor-emitting look-ahead, the unpacked factorization, the
+# factor-gather draw, the dedup gather, the projection from a given factor
+# and the unpacked factorization/projection
+WARP_MODES = {"project": 0, "logdets": 2, "emit": 3, "factor": 4, "reuse": 5, "dedup": 6,
+              "from_factor": 7, "project_unpacked": 8}
 
 
 def warp_plan(m: int, n: int, N: int, mode: str = "project") -> tuple[int, int, int]:
@@ -768,24 +778,56 @@ def factorize_blocks(
     + lam sym(T1)`` with the relative jitter ``jitter * trace / m`` on its
     diagonal."""
     name = "factorize_blocks"
-    if T0.dim() != 3:
-        raise ValueError(f"{name}: needs structured statistics, T0 (m, n, N)")
-    m, n = _unpacked_mn(name, T0, T1, T2, 0, 0)
+    m, n = _check_factorize(name, T0, T1, T2)
     if not _on_cuda(name, T0):
         return factorize_blocks_plain(T0, T1, T2, jitter, lam, prior)
+    rc, out = _factorize(name, T0, T1, T2, jitter, lam, prior, m, n, _lib().bipk_factorize_blocks)
+    _count(factorize_blocks, m)
+    _check(rc, name)
+    return out
+
+
+def factorize_blocks_per_thread(
+    T0: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor, jitter: float,
+    lam: float = 1.0, prior: Sequence[torch.Tensor] | None = None,
+):
+    """:func:`factorize_blocks` through the per-thread
+    ``unpacked_mniw_kernel<24 | 48, kFactor>``: the same outputs, which
+    the warp kernel (kFactor) must equal bit for bit. Counted as
+    ``"<24>"`` / ``"<48>"`` of :func:`factorize_blocks`; no wrapper calls
+    it."""
+    name = "factorize_blocks_per_thread"
+    m, n = _check_factorize(name, T0, T1, T2)
+    _per_thread_device(name, T0)
+    rc, out = _factorize(name, T0, T1, T2, jitter, lam, prior, m, n,
+                         _lib().bipk_factorize_blocks_per_thread)
+    _count(factorize_blocks, m, per_thread=True)
+    _check(rc, name)
+    return out
+
+
+def _check_factorize(name, T0, T1, T2):
+    """``(m, n)`` of the factorization's structured leaves."""
+    if T0.dim() != 3:
+        raise ValueError(f"{name}: needs structured statistics, T0 (m, n, N)")
+    return _unpacked_mn(name, T0, T1, T2, 0, 0)
+
+
+def _factorize(name, T0, T1, T2, jitter, lam, prior, m, n, launch):
+    """Check, allocate and launch a factorization through the C entry
+    ``launch`` (``bipk_factorize_blocks`` or its comparator): ``(rc,
+    (chol, white, row))``."""
     N = _require_unpacked(name, T0, T1, T2)
     pbuf = _prior_buffer(name, prior, m, n, T0)
     chol = torch.empty((m, m, N), dtype=T0.dtype, device=T0.device)
     white = torch.empty((m, n, N), dtype=T0.dtype, device=T0.device)
     row = torch.empty((n, n, N), dtype=T0.dtype, device=T0.device)
-    rc = _lib().bipk_factorize_blocks(
+    rc = launch(
         T0.data_ptr(), T1.data_ptr(), T2.data_ptr(), _ptr(pbuf), N, m, n,
         float(jitter), float(lam), chol.data_ptr(), white.data_ptr(),
         row.data_ptr(), _stream(T0.device),
     )
-    _count(factorize_blocks, m)
-    _check(rc, name)
-    return chol, white, row
+    return rc, (chol, white, row)
 
 
 def factorize_project_blocks_plain(T0, T1, T2, phi, jitter, lam=1.0, prior=None,
@@ -810,20 +852,50 @@ def factorize_project_blocks(
     m, n = _unpacked_mn(name, T0, T1, T2, m, n)
     if not _on_cuda(name, T0):
         return factorize_project_blocks_plain(T0, T1, T2, phi, jitter, lam, prior, m, n)
+    rc, out = _factorize_project_unpacked(name, T0, T1, T2, phi, jitter, lam, prior, m, n,
+                                          _lib().bipk_factorize_project_blocks)
+    _count(factorize_project_blocks, m)
+    _check(rc, name)
+    return out
+
+
+def factorize_project_blocks_per_thread(
+    T0: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor, phi: torch.Tensor,
+    jitter: float, lam: float = 1.0,
+    prior: Sequence[torch.Tensor] | None = None,
+    m: int | None = None, n: int | None = None,
+):
+    """:func:`factorize_project_blocks` through the per-thread
+    ``unpacked_mniw_kernel<24 | 48, kProject>``: the same outputs, which
+    the warp kernel (kProjectUnpacked) must equal bit for bit. Counted as
+    ``"<24>"`` / ``"<48>"`` of :func:`factorize_project_blocks`; no wrapper
+    calls it."""
+    name = "factorize_project_blocks_per_thread"
+    m, n = _unpacked_mn(name, T0, T1, T2, m, n)
+    _per_thread_device(name, T0)
+    rc, out = _factorize_project_unpacked(name, T0, T1, T2, phi, jitter, lam, prior, m, n,
+                                          _lib().bipk_factorize_project_blocks_per_thread)
+    _count(factorize_project_blocks, m, per_thread=True)
+    _check(rc, name)
+    return out
+
+
+def _factorize_project_unpacked(name, T0, T1, T2, phi, jitter, lam, prior, m, n, launch):
+    """Check, allocate and launch a factorization/projection of unpacked
+    statistics through the C entry ``launch`` (``bipk_factorize_project_blocks``
+    or its comparator): ``(rc, (mean, col, row, logdet_T1, logdet_Psi))``."""
     N = _require_unpacked(name, T0, T1, T2, phi=(phi, (m, T0.shape[-1])))
     pbuf = _prior_buffer(name, prior, m, n, T0)
     mean = torch.empty((n, N), dtype=T0.dtype, device=T0.device)
     col = torch.empty((N,), dtype=T0.dtype, device=T0.device)
     row = torch.empty((n, n, N), dtype=T0.dtype, device=T0.device)
     ld = torch.empty((2, N), dtype=T0.dtype, device=T0.device)
-    rc = _lib().bipk_factorize_project_blocks(
+    rc = launch(
         T0.data_ptr(), T1.data_ptr(), T2.data_ptr(), phi.data_ptr(), _ptr(pbuf),
         N, m, n, float(jitter), float(lam), mean.data_ptr(), col.data_ptr(),
         row.data_ptr(), ld.data_ptr(), _stream(T0.device),
     )
-    _count(factorize_project_blocks, m)
-    _check(rc, name)
-    return mean, col, row, ld[0], ld[1]
+    return rc, (mean, col, row, ld[0], ld[1])
 
 
 def project_blocks_plain(chol, white, phi):
@@ -955,11 +1027,13 @@ PLAIN = {
 
 
 # the wrappers whose launches run the warp kernels (all the packed-MNIW
-# ones, the factor pair and the dedup gather at m <= 24 only, and the
-# projection from a given factor)
+# ones, the factor pair and the dedup gather at m <= 24 only, the
+# projection from a given factor and the unpacked factorization and
+# factorization/projection)
 WARP = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks,
         log_base_measure_packed_logdets, draw_update_factor_gather_packed_blocks,
-        draw_update_dedup_gather_packed_blocks, project_blocks)
+        draw_update_dedup_gather_packed_blocks, project_blocks, factorize_blocks,
+        factorize_project_blocks)
 # the packed-MNIW wrappers and the instantiations each launches (those of
 # the WARP wrappers without "w": the per-thread comparator only)
 PACKED_MNIW = {
@@ -970,13 +1044,14 @@ PACKED_MNIW = {
     draw_update_factor_gather_packed_blocks: ("<24w>", "<24>"),
     draw_update_dedup_gather_packed_blocks: ("<24w>", "<24>"),
 }
-# the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths; the
-# projection from a given factor also by its warp kernel's
+# the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths; all
+# but the log-determinants also by their warp kernel's
 UNPACKED = (factorize_blocks, factorize_project_blocks, project_blocks,
             log_base_measure_logdets)
 # the resampler's scan kernel ("") and per-thread comparator ("_per_thread")
 PER_INSTANTIATION = {**PACKED_MNIW, **{fn: ("<24>", "<48>") for fn in UNPACKED},
-                     project_blocks: ("<24w>", "<48w>", "<24>", "<48>"),
+                     **{fn: ("<24w>", "<48w>", "<24>", "<48>")
+                        for fn in (factorize_blocks, factorize_project_blocks, project_blocks)},
                      systematic_ancestors_blocks: ("", "_per_thread")}
 
 

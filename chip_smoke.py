@@ -943,10 +943,12 @@ def warp_vs_per_thread(label, calls, keys=WARP_KEYS):
                 f"{keys[key]} {label}: not bitwise equal to the per-thread kernel: {rels}")
 
 
-def in_turns(warp, per_thread, flush):
+def in_turns(warp, per_thread, flush, hide_host=False):
     """The warp kernel and the per-thread one timed in turns (per-thread,
-    warp, warp, per-thread; cold L2): the mean of each one's two medians."""
-    t = [time_ms(f, flush=flush) for f in (per_thread, warp, warp, per_thread)]
+    warp, warp, per-thread; cold L2): the mean of each one's two medians;
+    with ``hide_host`` on the card's time alone (:func:`time_ms`)."""
+    t = [time_ms(f, flush=flush, hide_host=hide_host)
+         for f in (per_thread, warp, warp, per_thread)]
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
 
 
@@ -961,8 +963,9 @@ def warp_ptxas():
         if "Compiling entry" in line and "warp_mniw_kernel" in line:
             mode = next(name for name, arg in (("kProject", "ILi0E"), ("kDraw", "ILi1E"),
                                                ("kLogdets", "ILi2E"), ("kEmit", "ILi3E"),
-                                               ("kReuse", "ILi5E"), ("kDedup", "ILi6E"),
-                                               ("kFromFactor", "ILi7E")) if arg in line)
+                                               ("kFactor", "ILi4E"), ("kReuse", "ILi5E"),
+                                               ("kDedup", "ILi6E"), ("kFromFactor", "ILi7E"),
+                                               ("kProjectUnpacked", "ILi8E")) if arg in line)
             lanes = 16 if "Li16E" in line else 32
             info = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 5]
                     if "registers" in ln or "stack frame" in ln]
@@ -1932,22 +1935,30 @@ def unpacked_flops(m, n):
     }
 
 
+# the unpacked kernels that run the warp kernel (kFactor, kProjectUnpacked,
+# kFromFactor), timed in turns with the per-thread kernels they replaced
+UNPACKED_WARP = ("factorize_blocks", "factorize_project_blocks", "project_blocks")
+
+
 def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
     """The four unpacked kernels on one input set, the packed statistics
     ``S`` unpacked to structured and flat leaves (T1 mirrored, so exactly
-    symmetric): each against its plain version on the same inputs, and
+    symmetric): each against its plain version on the same inputs; #10,
+    #11 and #12 (the warp kernel's kFactor, kProjectUnpacked and
+    kFromFactor) bit for bit against the per-thread kernels they replaced
+    (``unpacked_mniw_kernel<24 | 48, kFactor | kProject>``,
+    ``project_kernel``; #11 on both layouts, #12 on views and copies); and
     across layouts bit for bit: #11 on unpack(S) against #1 on S, #13 on
     unpack(S_nat) against #5 on S_nat without a prior (``S_nat = S`` plus
     the packed prior: #13 takes neither a prior nor lam, and a filter's
     statistics alone may be singular), #10's row against #1's and (m <=
     24) its chol and white against #1e's LW, #12 on strided views of an
-    augmented factor against #12 on contiguous copies, and #12 (the warp
-    kernel's kFromFactor) bit for bit against the per-thread
-    ``project_kernel`` it replaced on both. Returns per kernel the
-    largest absolute error against the plain version, the calls that run
-    the kernel and its plain version (#12 as the rank-1 path calls it,
-    on views), #13's input, unpack(S_nat), structured, and #12's factor
-    views (``chol``, ``white``) and its per-thread call on them."""
+    augmented factor against #12 on contiguous copies. Returns per kernel
+    the largest absolute error against the plain version, the calls that
+    run the kernel and its plain version (#12 as the rank-1 path calls it,
+    on views), the per-thread calls of ``UNPACKED_WARP`` on the same
+    inputs, and the inputs: the structured leaves, #13's unpack(S_nat)
+    structured, and #12's factor views (``chol``, ``white``)."""
     def layouts(S_):
         st = mniw.unpack_stats_bl(S_, m, n)
         flat = tuple(t.contiguous() for t in st[:3])
@@ -1959,11 +1970,13 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
     flat, structured = layouts(S)
     nat_flat, nat_structured = layouts(S_nat)
     errs = dict.fromkeys(UNPACKED, 0.0)
+    width = "<24w>" if m <= 24 else "<48w>"
     fp_packed = ck.factorize_project_packed(S, phi, jitter, lam, prior, m=m, n=n)
     lbm_packed = ck.log_base_measure_packed_logdets(S_nat, jitter, None, m=m, n=n)
     for layout, leaves, nat, kw in (("structured", structured, nat_structured, {}),
                                     ("flat", flat, nat_flat, dict(m=m, n=n))):
         tag = f"{layout} {label}"
+        unpacked_vs_per_thread(tag, leaves, phi, jitter, lam, prior, kw, width)
         got = ck.factorize_project_blocks(*leaves, phi, jitter, lam, prior, **kw)
         want = ck.factorize_project_blocks_plain(*leaves, phi, jitter, lam, prior, **kw)
         errs["factorize_project_blocks"] = max(errs["factorize_project_blocks"], check_finite(
@@ -1977,6 +1990,7 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
             1e-3, ILL))
         cross_layout(f"log_base_measure_logdets {tag}, unpack(S_nat) against "
                      "log_base_measure_packed_logdets on S_nat", got, lbm_packed, LD_NAMES)
+    factor_vs_per_thread(label, structured, jitter, lam, prior, width)
     factor = ck.factorize_blocks(*structured, jitter, lam, prior)
     errs["factorize_blocks"] = check_finite(
         f"factorize_blocks {label}", zip(FACTOR_NAMES, factor,
@@ -2001,7 +2015,6 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
         ("mean", "col"), got, ck.project_blocks_plain(views.chol, views.white_T0, phi)), 1e-3, ILL)
     cross_layout(f"project_blocks {label}, views of F against contiguous copies", got,
                  ck.project_blocks(factor[0], factor[1], phi), ("mean", "col"))
-    width = "<24w>" if m <= 24 else "<48w>"
     project = {"views": (views.chol, views.white_T0), "copies": (factor[0], factor[1])}
     warp_vs_per_thread(label, {
         key: (lambda c=c, w=w: ck.project_blocks(c, w, phi),
@@ -2021,8 +2034,87 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
             lambda: ck.log_base_measure_logdets(*nat_structured, jitter),
             lambda: ck.log_base_measure_logdets_plain(*nat_structured, jitter)),
     }
-    project_per_thread = lambda: ck.project_blocks_per_thread(views.chol, views.white_T0, phi)
-    return errs, calls, nat_structured, (views.chol, views.white_T0, project_per_thread)
+    per_thread = {
+        "factorize_blocks": lambda: ck.factorize_blocks_per_thread(*structured, jitter, lam, prior),
+        "factorize_project_blocks": lambda: ck.factorize_project_blocks_per_thread(
+            *structured, phi, jitter, lam, prior),
+        "project_blocks": lambda: ck.project_blocks_per_thread(views.chol, views.white_T0, phi),
+    }
+    inputs = dict(structured=structured, nat=nat_structured, chol=views.chol,
+                  white=views.white_T0)
+    return errs, calls, per_thread, inputs
+
+
+def unpacked_vs_per_thread(label, leaves, phi, jitter, lam, prior, kw, width):
+    """#11 (kProjectUnpacked) bit for bit against
+    ``unpacked_mniw_kernel<24 | 48, kProject>`` on ``leaves`` (structured,
+    or flat with ``kw`` = ``dict(m=m, n=n)``)."""
+    args = (*leaves, phi, jitter, lam, prior)
+    warp_vs_per_thread(label, {"fpb": (
+        lambda: ck.factorize_project_blocks(*args, **kw),
+        lambda: ck.factorize_project_blocks_per_thread(*args, **kw), FP_NAMES)},
+        {"fpb": f"factorize_project_blocks{width}"})
+
+
+def factor_vs_per_thread(label, structured, jitter, lam, prior, width):
+    """#10 (kFactor) bit for bit against ``unpacked_mniw_kernel<24 | 48,
+    kFactor>`` on structured leaves (chol, white, row)."""
+    args = (*structured, jitter, lam, prior)
+    warp_vs_per_thread(label, {"fb": (lambda: ck.factorize_blocks(*args),
+                                      lambda: ck.factorize_blocks_per_thread(*args),
+                                      FACTOR_NAMES)},
+                       {"fb": f"factorize_blocks{width}"})
+
+
+def check_asymmetric_set(label, S, phi, lam, prior, m, n, jitter, gen):
+    """#10 and #11 on statistics whose T1 and T2 are not exactly
+    symmetric: S unpacked and each entry of T1 and T2 scaled by 1 +
+    1e-2 z (z standard normal from ``gen``). Bit for bit against the
+    per-thread kernels (whose reader takes 0.5 (T1[i][c] + T1[c][i]) and
+    T2 as stored), and within CS_TOL of the plain versions (T1 symmetrised,
+    T2 as stored); #11 on structured and flat leaves."""
+    st = list(structured(S, m, n))
+    for i in (1, 2):
+        st[i] = st[i] * (1 + 1e-2 * torch.randn(st[i].shape, generator=gen, device=S.device))
+    require(not bitwise(st[1], st[1].transpose(0, 1).contiguous()),
+            f"{label}: T1 is still symmetric")
+    require(n == 1 or not bitwise(st[2], st[2].transpose(0, 1).contiguous()),
+            f"{label}: T2 is still symmetric")
+    flat = tuple(leaf.reshape(-1, leaf.shape[-1]) for leaf in st)
+    width = "<24w>" if m <= 24 else "<48w>"
+    label = f"{label}, asymmetric T1 and T2"
+    errs = {"factorize_project_blocks": 0.0}
+    for layout, leaves, kw in (("structured", tuple(st), {}), ("flat", flat, dict(m=m, n=n))):
+        tag = f"{layout} {label}"
+        unpacked_vs_per_thread(tag, leaves, phi, jitter, lam, prior, kw, width)
+        errs["factorize_project_blocks"] = max(errs["factorize_project_blocks"], check_finite(
+            f"factorize_project_blocks {tag}", zip(
+                FP_NAMES, ck.factorize_project_blocks(*leaves, phi, jitter, lam, prior, **kw),
+                ck.factorize_project_blocks_plain(*leaves, phi, jitter, lam, prior, **kw)),
+            CS_TOL, ILL))
+    factor_vs_per_thread(label, st, jitter, lam, prior, width)
+    errs["factorize_blocks"] = check_finite(
+        f"factorize_blocks {label}", zip(FACTOR_NAMES, ck.factorize_blocks(*st, jitter, lam, prior),
+                                         ck.factorize_blocks_plain(*st, jitter, lam, prior)),
+        CS_TOL, ILL)
+    return errs
+
+
+def unpacked_yardsticks(label, calls, leaves, jitter, lam, prior, flush, suffix=""):
+    """The library call for #10 and #11 (:func:`library_yardstick`):
+    ``torch.linalg.cholesky_ex`` on the augmented matrices of the kernels'
+    own input, ``prior + lam * leaves`` (its Cholesky factor holds chol,
+    white^T and the factor of Psi), its log-determinants held against the
+    plain versions' (#11's outputs; #10's from its chol and row). Returns
+    per kernel the three times, keys ending in ``suffix``."""
+    scaled = tuple(lam * leaf for leaf in leaves)
+    chol, _, row = calls["factorize_blocks"][1]()
+    wants = {"factorize_blocks": (2 * torch.diagonal(chol, 0, 0, 1).log().sum(-1),
+                                  mniw._logdet_psi(row)),
+             "factorize_project_blocks": calls["factorize_project_blocks"][1]()[3:5]}
+    return {name: library_yardstick(f"{name} {label}", scaled, jitter, prior, want,
+                                    calls[name][0], flush, suffix)
+            for name, want in wants.items()}
 
 
 def project_yardstick(label, chol, white, phi, flush, suffix=""):
@@ -2053,12 +2145,13 @@ def project_yardstick(label, chol, white, phi, flush, suffix=""):
 
 def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     """Phase 18: the unpacked kernels against their plain versions and
-    across layouts, and #12 bit for bit against its per-thread kernel
-    (:func:`check_unpacked_set`), timed (cold L2) beside their bounds (#13
-    at N = 32768 also beside the library call, :func:`library_yardstick`;
-    #12 in turns with its per-thread kernel at 32768, 10240 and 200, and
-    beside ``torch.linalg.solve_triangular`` at 32768 and 10240,
-    :func:`project_yardstick`), at
+    across layouts, and #10, #11 and #12 bit for bit against their
+    per-thread kernels (:func:`check_unpacked_set`), timed (cold L2)
+    beside their bounds (#10, #11 and #13 at N = 32768 also beside the
+    library call, :func:`library_yardstick`, #10 and #11 at 10240 too;
+    #10, #11 and #12 in turns with their per-thread kernels at 32768, 10240
+    and 200; #12 beside ``torch.linalg.solve_triangular`` at 32768 and
+    10240, :func:`project_yardstick`), at
 
     - the vehicle APF's statistics after ``UNPACKED_FILTER_STEPS``
       filtering steps (the port's own APF, front GP, m = 20, n = 1),
@@ -2067,17 +2160,21 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
       rank-1 Gibbs widths), its first 777 (ragged);
     - the oscillator APF's statistics (m = 41) after as many steps at a
       ragged N = 1000, and synthetic ones at n = 2 (m = 20, N = 777;
-      m = 41, N = 300).
+      m = 41, N = 300), these also with T1 and T2 made asymmetric for #10
+      and #11 (:func:`check_asymmetric_set`).
 
     Returns the APF run's result (the entry-point phase's input)."""
     m, n = M, NN
     for mode, info in warp_ptxas().items():
-        if mode.startswith("kFromFactor"):
+        if mode.split(",")[0] in ("kFactor", "kProjectUnpacked", "kFromFactor"):
             print(f"  warp_mniw_kernel<{mode}> (ptxas): {info}", flush=True)
     for m_p, N_p in ((m, N), (m, N_GIBBS), (m, N_CS_GIBBS), (41, N)):
-        W, P, smem = ck.warp_plan(m_p, n, N_p, mode="from_factor")
-        print(f"  warp projection from a given factor at m={m_p} n={n} N={N_p}: {W} warps, {P} "
-              f"particles per block, {smem} B of dynamic shared memory per block", flush=True)
+        for mode, what in (("factor", "factorization"),
+                           ("project_unpacked", "factorization/projection"),
+                           ("from_factor", "projection from a given factor")):
+            W, P, smem = ck.warp_plan(m_p, n, N_p, mode=mode)
+            print(f"  warp {what} at m={m_p} n={n} N={N_p}: {W} warps, {P} particles per "
+                  f"block, {smem} B of dynamic shared memory per block", flush=True)
     prior_m = model.gps[0].prior_as(torch.float32, dev)
     prior = tuple(prior_m[:3])
     k = UNPACKED_FILTER_STEPS
@@ -2089,46 +2186,64 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     print(f"  vehicle statistics after {k} filtering steps at {N} particles, S {tuple(S.shape)}",
           flush=True)
     label = f"m={m} n={n} N={N} lam={LAM}"
-    errs, calls, nat, (chol, white, project_pt) = check_unpacked_set(label, S, phi, LAM, prior,
-                                                                      m, n, jitter)
+    errs, calls, per_thread, inputs = check_unpacked_set(label, S, phi, LAM, prior, m, n, jitter)
     bytes_, flops = unpacked_bytes(m, n, N), unpacked_flops(m, n)
     for name in UNPACKED:
-        # #12's ms: in turns with its per-thread kernel, below
-        record_kernel(results, name, None if name == "project_blocks" else calls[name][0],
+        # the warp kernels' ms: in turns with their per-thread kernels, below
+        record_kernel(results, name, None if name in UNPACKED_WARP else calls[name][0],
                       calls[name][1], bytes_[name], N * flops[name], errs[name], flush)
 
-    def project_in_turns(calls, per_thread, width, label):
-        """#12 in turns with its per-thread kernel at ``width``: the warp
-        and per-thread ms and the bound."""
-        ms_w, ms_pt = in_turns(calls["project_blocks"][0], per_thread, flush)
-        bound = max(unpacked_bytes(m, n, width)["project_blocks"] / PEAK_BYTES_PER_S,
-                    width * flops["project_blocks"] / PEAK_F32_FLOPS) * 1e3
-        print(f"  project_blocks<24w> {label} in turns: warp {ms_w:.4f} ms, per-thread "
-              f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bound:.5f} ms)", flush=True)
-        return ms_w, ms_pt, bound
+    def warp_in_turns(calls, per_thread, width, label, suffix=""):
+        """#10, #11 and #12 in turns with their per-thread kernels at
+        ``width``, on the card's time alone (the unpacked wrappers' host
+        work, a prior concatenation and four allocations, can take as long
+        as the warp kernels at 32768): the warp and
+        per-thread ms and the bound, into the results under keys ending in
+        ``suffix``."""
+        for name in UNPACKED_WARP:
+            ms_w, ms_pt = in_turns(calls[name][0], per_thread[name], flush, hide_host=True)
+            bound = max(unpacked_bytes(m, n, width)[name] / PEAK_BYTES_PER_S,
+                        width * flops[name] / PEAK_F32_FLOPS) * 1e3
+            print(f"  {name}<24w> {label} in turns: warp {ms_w:.4f} ms, per-thread "
+                  f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bound:.5f} ms)", flush=True)
+            results[name].update({"ms" + suffix: ms_w, "per_thread_ms" + suffix: ms_pt,
+                                  **({"bound_ms" + suffix: bound} if suffix else {})})
 
-    ms_w, ms_pt, _ = project_in_turns(calls, project_pt, N, label)
-    results["project_blocks"].update(ms=ms_w, per_thread_ms=ms_pt)
-    results["project_blocks"].update(project_yardstick(label, chol, white, phi, flush))
-    # #13's library call: cholesky_ex on the augmented matrices of its own
-    # input (no prior); the wrapper launches the kernel alone
+    warp_in_turns(calls, per_thread, N, label)
+    # what the unpacked read costs: #11 and #10 in turns with #1 and 1e on
+    # the same statistics packed (the same bits: check_unpacked_set)
+    for name, packed, emit in (("factorize_project_blocks", "factorize_project_packed", False),
+                               ("factorize_blocks", "factorize_project_packed[emit]", True)):
+        ms_p, ms_u = in_turns(lambda: ck.factorize_project_packed(
+            S, phi, jitter, LAM, prior, m=m, n=n, emit_factor=emit), calls[name][0], flush,
+            hide_host=True)
+        print(f"  {name}<24w> {label} in turns with {packed}<24w> on the packed S: "
+              f"{ms_u:.4f} against {ms_p:.4f} ms", flush=True)
+    results["project_blocks"].update(project_yardstick(label, inputs["chol"], inputs["white"],
+                                                       phi, flush))
+    # the library calls: cholesky_ex on the augmented matrices of each
+    # kernel's own input (#13: no prior, lam = 1)
+    for name, times in unpacked_yardsticks(label, calls, inputs["structured"], jitter, LAM,
+                                           prior, flush).items():
+        results[name].update(times)
     lbm = calls["log_base_measure_logdets"]
     results["log_base_measure_logdets"].update(library_yardstick(
-        f"{label}, unpack(S_nat)", nat, jitter, None, lbm[1](), lbm[0], flush))
+        f"{label}, unpack(S_nat)", inputs["nat"], jitter, None, lbm[1](), lbm[0], flush))
     for width in (N_GIBBS, N_CS_GIBBS, 777):
         S_w, phi_w = S[:, :width].contiguous(), phi[:, :width].contiguous()
         label_w = f"m={m} n={n} N={width} lam=1"
-        _, calls_w, _, (chol_w, white_w, project_pt_w) = check_unpacked_set(
+        _, calls_w, per_thread_w, inputs_w = check_unpacked_set(
             label_w, S_w, phi_w, 1.0, prior, m, n, jitter)
         if width == 777:
             continue
         suffix = "_gibbs" if width == N_GIBBS else "_cs_gibbs"
-        ms_w, ms_pt, bound = project_in_turns(calls_w, project_pt_w, width, label_w)
-        results["project_blocks"].update({"ms" + suffix: ms_w, "per_thread_ms" + suffix: ms_pt,
-                                          "bound_ms" + suffix: bound})
+        warp_in_turns(calls_w, per_thread_w, width, label_w, suffix)
         if width == N_GIBBS:
-            results["project_blocks"].update(project_yardstick(label_w, chol_w, white_w, phi_w,
-                                                               flush, suffix))
+            results["project_blocks"].update(project_yardstick(
+                label_w, inputs_w["chol"], inputs_w["white"], phi_w, flush, suffix))
+            for name, times in unpacked_yardsticks(label_w, calls_w, inputs_w["structured"],
+                                                   jitter, 1.0, prior, flush, suffix).items():
+                results[name].update(times)
         bytes_w = unpacked_bytes(m, n, width)
         for name in UNPACKED:
             bound = max(bytes_w[name] / PEAK_BYTES_PER_S,
@@ -2151,8 +2266,11 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     gen = torch.Generator(device=dev).manual_seed(43)
     for m_e, n_e, N_e in ((20, 2, 777), (41, 2, 300)):
         S_e, phi_e, prior_e = edge_case(gen, dev, m_e, n_e, N_e)
-        check_unpacked_set(f"m={m_e} n={n_e} N={N_e} lam={LAM}", S_e, phi_e, LAM, prior_e[:3],
-                           m_e, n_e, jitter)
+        label_e = f"m={m_e} n={n_e} N={N_e} lam={LAM}"
+        check_unpacked_set(label_e, S_e, phi_e, LAM, prior_e[:3], m_e, n_e, jitter)
+        for name, err in check_asymmetric_set(label_e, S_e, phi_e, LAM, prior_e[:3], m_e, n_e,
+                                              jitter, gen).items():
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     return res
 
 
@@ -2197,18 +2315,18 @@ def entry_point_calls(dev, model, Y, U, res, jitter):
         return out
 
     factors = counted("APFKernel.factorize_all", lambda kr: kr.factorize_all(stats, LAM),
-                      "factorize_blocks<24>")
+                      "factorize_blocks<24w>")
     counted("APFKernel.auxiliary", lambda kr: kr.auxiliary(
         state, ivs, factors, inp_prev, inp_cur, obs, log_w), "project_blocks<24w>")
     aux = counted("APFKernel.auxiliary_fused", lambda kr: kr.auxiliary_fused(
-        stats, LAM, state, ivs, inp_prev, inp_cur, obs, log_w), "factorize_project_blocks<24>")
+        stats, LAM, state, ivs, inp_prev, inp_cur, obs, log_w), "factorize_project_blocks<24w>")
     anc = kern.resample(torch.softmax(aux[2], 0), torch.rand((1,), generator=gen, device=dev))
     stats_g = tuple(kern.gather(st, anc) for st in stats)
     factors_g = tuple(kern.gather(f, anc) for f in factors)
     state_g, *iv_g = kern.packed_gather([state, *ivs], anc)
     new_state = kern.propagate_all(z, state_g, inp_prev, iv_g)
     counted("APFKernel.draw_int_vars_fused", lambda kr: kr.draw_int_vars_fused(
-        uvs, stats_g, LAM, new_state, inp_cur), "factorize_project_blocks<24>")
+        uvs, stats_g, LAM, new_state, inp_cur), "factorize_project_blocks<24w>")
     counted("APFKernel.draw_int_vars", lambda kr: kr.draw_int_vars(
         uvs, factors_g, new_state, inp_cur), "project_blocks<24w>")
     # of prior + statistics, a posterior: a filter's statistics alone are
@@ -3270,10 +3388,13 @@ def main() -> int:
     # cs-layout launchers: _cs_call's three kernels, _cs_du_gather_call),
     # rows 1e and 8 the factor pair (the warp kernel's kEmit and kReuse,
     # the per-thread <24, kEmit> and factor_gather_kernel beside them), 9
-    # the dedup gather (kDedup, dedup_gather_kernel beside it), rows 10, 11
-    # and 13 the unpacked kernels' m <= 24 instantiation, 12 the projection
-    # from a given factor (kFromFactor, project_kernel<24> beside it, and
-    # torch.linalg.solve_triangular's v alone). launches: over the fifteen main
+    # the dedup gather (kDedup, dedup_gather_kernel beside it), rows 10 and
+    # 11 the unpacked factorization and factorization/projection (kFactor
+    # and kProjectUnpacked, unpacked_mniw_kernel<24, kFactor | kProject>
+    # beside them, and cholesky_ex on their augmented matrices), 12 the
+    # projection from a given factor (kFromFactor, project_kernel<24> beside
+    # it, and torch.linalg.solve_triangular's v alone), 13 the unpacked
+    # log-determinants' m <= 24 instantiation. launches: over the fifteen main
     # paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
@@ -3299,8 +3420,8 @@ def main() -> int:
          f"{pk}:1422"),
         (9, "draw_update_dedup_gather_packed_blocks", REUSE_KEYS["dedup"], warp_src,
          f"{pk}:1312"),
-        (10, "factorize_blocks", "factorize_blocks<24>", unpacked_src, f"{pk}:1583"),
-        (11, "factorize_project_blocks", "factorize_project_blocks<24>", unpacked_src,
+        (10, "factorize_blocks", "factorize_blocks<24w>", warp_src, f"{pk}:1583"),
+        (11, "factorize_project_blocks", "factorize_project_blocks<24w>", warp_src,
          f"{pk}:1634"),
         (12, "project_blocks", "project_blocks<24w>", warp_src, f"{pk}:1712"),
         (13, "log_base_measure_logdets", "log_base_measure_logdets<24>", unpacked_src,

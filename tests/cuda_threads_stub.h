@@ -1,9 +1,10 @@
 // A stand-in for <cuda_runtime.h> that runs the port's CUDA kernels on
 // the host, for tests/test_torch_warp_rehearsal.py,
-// tests/test_torch_systematic_rehearsal.py and
-// tests/test_torch_dedup_project_rehearsal.py. Every CUDA thread is a
-// host thread (from a pool kept between launches): a launch runs its
-// blocks one after another, each block's threads together;
+// tests/test_torch_systematic_rehearsal.py,
+// tests/test_torch_dedup_project_rehearsal.py and
+// tests/test_torch_unpacked_rehearsal.py. Every CUDA thread is a host
+// thread (from a pool kept between launches, each woken alone): a launch
+// runs its blocks one after another, each block's threads together;
 // __syncthreads is a barrier of the block, __syncwarp
 // one of the warp, and a shuffle or a ballot writes each lane's value to
 // an exchange array of its warp between two warp barriers. The dynamic shared memory
@@ -27,6 +28,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <barrier>
 #include <condition_variable>
 #include <cstring>
@@ -34,6 +36,7 @@
 #include <limits>
 #include <memory>
 #include <mutex>
+#include <semaphore>
 #include <set>
 #include <thread>
 #include <utility>
@@ -225,42 +228,35 @@ namespace bipk_stub {
 // The host threads that run a block's CUDA threads, kept from one launch
 // to the next (creating 1024 of them took most of a launch's time):
 // worker i runs CUDA thread i of each block, and run() returns when every
-// one of the n has finished.
+// one of the n has finished. Each worker waits on a semaphore of its own,
+// so a block of n threads wakes n workers and no more: a pool grown to
+// 256 by an earlier launch, woken whole for every one-warp block, made
+// launches of 100 one-warp blocks take most of a child's 120 s on a
+// loaded host.
 class Pool {
  public:
   void run(int n, const std::function<void(int)>& job) {
-    std::unique_lock<std::mutex> lock(mutex_);
-    while ((int)workers_ < n) {
-      std::thread([this, id = workers_, seen = generation_] { work(id, seen); }).detach();
-      ++workers_;
+    while ((int)workers_.size() < n) {
+      workers_.push_back(std::make_unique<std::binary_semaphore>(0));
+      std::thread([this, id = (int)workers_.size() - 1, go = workers_.back().get()] {
+        for (;;) {
+          go->acquire();
+          (*job_)(id);
+          if (pending_.fetch_sub(1, std::memory_order_acq_rel) == 1) done_.release();
+        }
+      }).detach();
     }
     job_ = &job;
-    active_ = pending_ = n;
-    ++generation_;
-    start_.notify_all();
-    done_.wait(lock, [this] { return pending_ == 0; });
+    pending_.store(n, std::memory_order_relaxed);
+    for (int i = 0; i < n; ++i) workers_[i]->release();
+    done_.acquire();
   }
 
  private:
-  void work(int id, unsigned seen) {
-    std::unique_lock<std::mutex> lock(mutex_);
-    for (;;) {
-      start_.wait(lock, [&] { return generation_ != seen; });
-      seen = generation_;
-      if (id >= active_) continue;
-      const std::function<void(int)>* job = job_;
-      lock.unlock();
-      (*job)(id);
-      lock.lock();
-      if (--pending_ == 0) done_.notify_one();
-    }
-  }
-
-  std::mutex mutex_;
-  std::condition_variable start_, done_;
+  std::vector<std::unique_ptr<std::binary_semaphore>> workers_;
   const std::function<void(int)>* job_ = nullptr;
-  int workers_ = 0, active_ = 0, pending_ = 0;
-  unsigned generation_ = 0;
+  std::atomic<int> pending_{0};
+  std::binary_semaphore done_{0};
 };
 
 // never destroyed: its detached workers wait on it until the process ends

@@ -16,8 +16,9 @@ entries: ``bipk_draw_update_dedup_gather_packed`` /
 ``bipk_project_blocks`` (the warp kernel) and their ``*_per_thread``
 comparators.
 
-One child process per group of sets, each with its own time limit. The
-dedup sets:
+One child process per set, each with its own time limit (a group of sets
+runs its children one after another), and each prints its set before it
+starts it. The dedup sets:
 m = 20 at n = 1 and 2 (the vehicle's width), m = 24 with n = 2, m = 9,
 m = 6 with n = 2; ragged N_out != N_in; a resampler's ancestors on
 degenerate weights (as the APF's), spread-out and degenerate (three
@@ -42,7 +43,7 @@ from test_torch_warp_rehearsal import COMMON, HOST_SOURCES, _run, _specs, build_
 # (m, n, N_in, N_out, lam, with prior, ancestors): blocks of 8 warps from
 # 241 particles, 4 from 121, 2 from 61 (the wide blocks, slow on the
 # stub, take two of the four kinds of ancestors each); one child process
-# per group
+# per set
 DEDUP_SETS = {
     "8_and_4_warps": [
         (20, 1, 300, 257, 0.999, True, "resampled+out of order"),
@@ -102,6 +103,7 @@ for spec in sys.argv[2:]:
         "out of order": torch.as_tensor(rng.permutation(spread), dtype=torch.int32),
     }
     label = f"m={m} n={n} N_in={n_in} N_out={n_out} lam={lam} prior={with_prior}"
+    print(f"set {label} {kinds}", flush=True)
     for kind, anc in ancestors.items():
         if kinds != "all" and kind not in kinds.split("+"):
             continue
@@ -141,6 +143,7 @@ for spec in sys.argv[2:]:
     nan_above = torch.where(torch.tril(torch.ones(m, m, dtype=torch.bool))[..., None],
                             chol, torch.tensor(float("nan")))
     label = f"m={m} n={n} N={N}"
+    print(f"set {label}", flush=True)
     want = ck.project_blocks_plain(chol, white, phi)
     for kind, (c, w_) in (("views of F", (views.chol, views.white_T0)),
                           ("contiguous, NaN above the diagonal",
@@ -161,8 +164,9 @@ def test_warp_dedup_equals_the_per_thread_kernels_bit_for_bit(host_lib, group):
     per-thread comparator on the same ancestors
     (``S_new``, ``y``, both log-determinants), with a resampler's, spread,
     degenerate and out-of-order ancestors; the per-thread dedup against
-    the plain version at 1e-3 (``S_new`` 1e-4)."""
-    _run(DEDUP_CHILD, host_lib, _specs(DEDUP_SETS[group]), "dedup gather bitwise equal")
+    the plain version at 1e-3 (``S_new`` 1e-4). One child per set."""
+    for spec in _specs(DEDUP_SETS[group]):
+        _run(DEDUP_CHILD, host_lib, [spec], "dedup gather bitwise equal")
 
 
 @pytest.mark.parametrize("group", PROJECT_SETS)
@@ -170,8 +174,9 @@ def test_warp_projection_equals_the_per_thread_kernel_bit_for_bit(host_lib, grou
     """The warp kFromFactor against ``project_kernel<24 | 48>`` on views
     of an augmented factor and on contiguous copies with NaN above the
     diagonal (``mean``, ``col``); the per-thread outputs against the plain
-    version at 1e-3."""
-    _run(PROJECT_CHILD, host_lib, _specs(PROJECT_SETS[group]), "projection bitwise equal")
+    version at 1e-3. One child per set."""
+    for spec in _specs(PROJECT_SETS[group]):
+        _run(PROJECT_CHILD, host_lib, [spec], "projection bitwise equal")
 
 
 def test_warp_dedup_and_projection_plans(host_lib):

@@ -103,7 +103,8 @@ def test_launches_count_per_instantiation():
     warp = (ck.factorize_project_packed, ck.draw_update_packed_blocks,
             ck.draw_update_gather_packed_blocks, ck.log_base_measure_packed_logdets)
     assert ck.WARP == (*warp, ck.draw_update_factor_gather_packed_blocks,
-                       ck.draw_update_dedup_gather_packed_blocks, ck.project_blocks)
+                       ck.draw_update_dedup_gather_packed_blocks, ck.project_blocks,
+                       ck.factorize_blocks, ck.factorize_project_blocks)
     ck.reset_launch_counts()
     try:
         for fn in warp:
@@ -313,6 +314,9 @@ def _packed_wrapper_calls(m, n=1, N=8):
             lambda: ck.draw_update_dedup_gather_packed_blocks(S, anc, phi, u, u, 0.0, m=m, n=n))
     chol, white = _CardTensor(m, m, N), _CardTensor(m, n, N)
     calls["project_blocks"] = lambda: ck.project_blocks(chol, white, phi)
+    leaves = (_CardTensor(m, n, N), _CardTensor(m, m, N), _CardTensor(n, n, N))
+    calls["factorize_blocks"] = lambda: ck.factorize_blocks(*leaves, 0.0)
+    calls["factorize_project_blocks"] = lambda: ck.factorize_project_blocks(*leaves, phi, 0.0)
     return calls
 
 
@@ -329,10 +333,12 @@ def _recording_lib(monkeypatch):
 
 @pytest.mark.parametrize("m", [20, 25, 41, 48])
 def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
-    """On a CUDA tensor every packed wrapper, and the projection from a
-    given factor, reaches its own C entry, which launches the warp kernels
-    for the look-ahead, the draws, the log-determinants and the projection
-    at every m (counted ``<24w>`` for m <= 24, ``<48w>`` above) and for the
+    """On a CUDA tensor every packed wrapper, the projection from a given
+    factor and the unpacked factorization and factorization/projection
+    reach their own C entries, which launch the warp kernels for the
+    look-ahead, the draws, the log-determinants, the projection and the
+    unpacked modes at every m (counted ``<24w>`` for m <= 24, ``<48w>``
+    above) and for the
     factor pair and the dedup gather at m <= 24 (``[emit]<24w>``,
     ``<24w>``); none reaches the per-thread comparator's entries, and none
     falls back to the plain version (a stand-in tensor has no data to
@@ -349,12 +355,14 @@ def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
     assert len(lib.called) == len(calls)
     assert not [c for c in lib.called if "per_thread" in c]
     width = "<24" if m <= 24 else "<48"
-    for fn in (*ck.WARP[:4], ck.project_blocks):
+    for fn in (*ck.WARP[:4], ck.project_blocks, ck.factorize_blocks, ck.factorize_project_blocks):
         assert counts[f"{fn.__name__}{width}w>"] == 1
         assert counts[f"{fn.__name__}<24>"] == 0
         assert counts[f"{fn.__name__}<48>"] == 0
     assert "bipk_log_base_measure_packed" in lib.called
     assert "bipk_project_blocks" in lib.called
+    assert "bipk_factorize_blocks" in lib.called
+    assert "bipk_factorize_project_blocks" in lib.called
     if m <= 24:
         assert counts["factorize_project_packed[emit]<24w>"] == 1
         assert counts["factorize_project_packed[emit]<24>"] == 0
@@ -372,9 +380,11 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
     """The comparator, given (stand-ins for) CUDA tensors, reaches the
     ``*_per_thread`` C entries and counts the per-thread instantiation
     that serves m: ``<24>`` for m <= 24, ``<48>`` above; no warp key. So
-    do the projection's (``project_kernel<24 | 48>``) and, at m <= 24, the
-    dedup gather's (``dedup_gather_kernel``); m > 24 the dedup's refuses
-    before any launch."""
+    do the projection's (``project_kernel<24 | 48>``), the unpacked
+    factorization's and factorization/projection's
+    (``unpacked_mniw_kernel<24 | 48, kFactor | kProject>``) and, at m <=
+    24, the dedup gather's (``dedup_gather_kernel``); m > 24 the dedup's
+    refuses before any launch."""
     lib = _recording_lib(monkeypatch)
     N = 8
     S, phi = _CardTensor(ck.mniw.packed_rows(m, 1), N), _CardTensor(m, N)
@@ -386,6 +396,9 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
         ck.draw_update_gather_packed_blocks_per_thread(S, anc, phi, u, u, 0.0, m=m, n=1)
         ck.log_base_measure_packed_logdets_per_thread(S, 0.0, m=m, n=1)
         ck.project_blocks_per_thread(_CardTensor(m, m, N), _CardTensor(m, 1, N), phi)
+        leaves = (_CardTensor(m, 1, N), _CardTensor(m, m, N), _CardTensor(1, 1, N))
+        ck.factorize_blocks_per_thread(*leaves, 0.0)
+        ck.factorize_project_blocks_per_thread(*leaves, phi, 0.0)
         if m <= 24:
             ck.draw_update_dedup_gather_packed_blocks_per_thread(S, anc, phi, u, u, 0.0, m=m,
                                                                  n=1)
@@ -401,9 +414,11 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
                           "bipk_draw_update_packed_per_thread",
                           "bipk_log_base_measure_packed_per_thread",
                           "bipk_project_blocks_per_thread",
+                          "bipk_factorize_blocks_per_thread",
+                          "bipk_factorize_project_blocks_per_thread",
                           *(["bipk_draw_update_dedup_gather_packed_per_thread"] * (m <= 24))]
     width = "<24>" if m <= 24 else "<48>"
-    for fn in (*ck.WARP[:4], ck.project_blocks):
+    for fn in (*ck.WARP[:4], ck.project_blocks, ck.factorize_blocks, ck.factorize_project_blocks):
         assert counts[f"{fn.__name__}{width}"] == 1
     if m <= 24:
         assert counts["draw_update_dedup_gather_packed_blocks<24>"] == 1
@@ -451,11 +466,13 @@ def test_per_thread_comparator_is_called_by_no_module_of_the_port():
              "systematic_ancestors_blocks_per_thread",
              "draw_update_factor_gather_packed_blocks_per_thread",
              "draw_update_dedup_gather_packed_blocks_per_thread", "project_blocks_per_thread",
+             "factorize_blocks_per_thread", "factorize_project_blocks_per_thread",
              "bipk_factorize_project_packed_per_thread", "bipk_draw_update_packed_per_thread",
              "bipk_log_base_measure_packed_per_thread", "bipk_systematic_ancestors_per_thread",
              "bipk_draw_update_factor_gather_packed_per_thread",
              "bipk_draw_update_dedup_gather_packed_per_thread",
-             "bipk_project_blocks_per_thread")
+             "bipk_project_blocks_per_thread", "bipk_factorize_blocks_per_thread",
+             "bipk_factorize_project_blocks_per_thread")
     for path in sorted((REPO / "bipk_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         own = set()
@@ -526,6 +543,11 @@ def test_per_thread_comparator_needs_a_card():
         ck.log_base_measure_packed_logdets_per_thread(S, 0.0, m=41, n=1)
     with pytest.raises(ValueError, match="CUDA tensor only"):
         ck.systematic_ancestors_blocks_per_thread(torch.ones(7), torch.zeros(1), 7)
+    leaves = torch.zeros((41, 1, 4)), torch.zeros((41, 41, 4)), torch.zeros((1, 1, 4))
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        ck.factorize_blocks_per_thread(*leaves, 0.0)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        ck.factorize_project_blocks_per_thread(*leaves, phi, 0.0)
 
 
 def test_kernels_take_decides_by_device_dtype_and_width():
@@ -597,19 +619,30 @@ def test_project_wrapper_checks_its_bounds():
 
 def test_unpacked_launches_count_per_instantiation():
     """The unpacked wrappers count launches per width (the projection from
-    a given factor by its warp kernel's, ``<24w>`` / ``<48w>``, and its
-    per-thread comparator's, ``<24>`` / ``<48>``), and the CPU ones (plain
-    versions) count none."""
+    a given factor, the factorization and the factorization/projection by
+    their warp kernel's, ``<24w>`` / ``<48w>``, and their per-thread
+    comparator's, ``<24>`` / ``<48>``; the log-determinants by their
+    per-thread kernel's), and the CPU ones (plain versions) count none."""
     ck.reset_launch_counts()
     try:
         ck._count(ck.project_blocks, 20)
         ck._count(ck.project_blocks, 41)
         ck._count(ck.project_blocks, 41, per_thread=True)
         ck._count(ck.factorize_blocks, 24)
+        ck._count(ck.factorize_blocks, 41, per_thread=True)
+        ck._count(ck.factorize_project_blocks, 48)
+        ck._count(ck.factorize_project_blocks, 20, per_thread=True)
+        ck._count(ck.log_base_measure_logdets, 41)
         counts = ck.launch_counts()
         assert counts["project_blocks<24w>"] == 1 and counts["project_blocks<48w>"] == 1
         assert counts["project_blocks<24>"] == 0 and counts["project_blocks<48>"] == 1
-        assert counts["factorize_blocks<24>"] == 1 and sum(counts.values()) == 4
+        assert counts["factorize_blocks<24w>"] == 1 and counts["factorize_blocks<48>"] == 1
+        assert counts["factorize_blocks<24>"] == 0 and counts["factorize_blocks<48w>"] == 0
+        assert counts["factorize_project_blocks<48w>"] == 1
+        assert counts["factorize_project_blocks<24>"] == 1
+        assert counts["log_base_measure_logdets<48>"] == 1
+        assert "log_base_measure_logdets<48w>" not in counts
+        assert sum(counts.values()) == 8
     finally:
         ck.reset_launch_counts()
     F = torch.eye(21)[:, :, None].expand(21, 21, 4).contiguous()

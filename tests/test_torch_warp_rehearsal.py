@@ -18,7 +18,11 @@ kernels at every m) and their ``*_per_thread`` comparators.
 
 Each run is a child process with its own time limit, so that a barrier
 that never opens (a lane that skips a shuffle) fails the test instead of
-hanging it. The look-ahead and draw sets: m = 20 at n = 1 and 2 (the
+hanging it; a child prints each set before it starts it, and a child past
+its limit fails with what it printed, so the failure names the set. Each
+look-ahead and draw set has a child of its own (a parametrised case), and
+so has each log-determinant set (run one after another).
+The look-ahead and draw sets: m = 20 at n = 1 and 2 (the
 vehicle's width), m = 24, m = 9, m = 6 with n = 2, and m = 41 (one and
 two rows per lane), a few hundred particles or fewer, so that the
 stand-in card's 16 SMs give blocks of 8, 4, 2 and 1 warps; ragged N_out
@@ -140,6 +144,8 @@ checked = 0
 for spec in sys.argv[2:]:
     m, n, n_in, n_out, lam, with_prior = spec.split(",")
     m, n, n_in, n_out, lam, with_prior = int(m), int(n), int(n_in), int(n_out), float(lam), with_prior == "1"
+    label = f"m={m} n={n} N_in={n_in} N_out={n_out} lam={lam} prior={with_prior}"
+    print(f"set {label}", flush=True)
     rng = np.random.default_rng(1000 * m + 10 * n + n_in)
     S, prior, p3, scale = stats(rng, m, n, n_in)
     if not with_prior:
@@ -151,7 +157,6 @@ for spec in sys.argv[2:]:
     spread = torch.as_tensor(np.sort(rng.integers(0, n_in, n_out)), dtype=torch.int32)
     few = rng.integers(0, n_in, 3)
     degenerate = torch.as_tensor(np.sort(few[rng.integers(0, 3, n_out)]), dtype=torch.int32)
-    label = f"m={m} n={n} N_in={n_in} N_out={n_out} lam={lam} prior={with_prior}"
 
     fp = {k: ck._factorize_project(k, S, phi_in, jitter, lam, prior, m, n, launch=f)[1][:5]
           for k, f in (("warp", lib.bipk_factorize_project_packed),
@@ -190,6 +195,7 @@ for spec in sys.argv[2:]:
     elif kind == "none":
         prior = None
     label = f"log-determinants m={m} n={n} N={N} prior={kind}"
+    print(f"set {label}", flush=True)
     warp = logdets(S, prior, m, n, "bipk_log_base_measure_packed")
     per_thread = logdets(S, prior, m, n, "bipk_log_base_measure_packed_per_thread")
     same(label, LD, warp, per_thread)
@@ -309,25 +315,40 @@ def host_lib(tmp_path_factory):
 
 
 def _run(code, lib, specs, expect):
-    run = subprocess.run([sys.executable, "-c", code, str(lib), *specs], cwd=REPO,
-                         capture_output=True, text=True, timeout=TIMEOUT)
+    """Run ``code`` in a child process on the host library ``lib`` with
+    the set specs as arguments; it must exit 0 within ``TIMEOUT`` and print
+    ``expect``. A child past its limit fails the test with what it printed
+    (the set it was on)."""
+    try:
+        run = subprocess.run([sys.executable, "-c", code, str(lib), *specs], cwd=REPO,
+                             capture_output=True, text=True, timeout=TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        said = e.stdout.decode() if isinstance(e.stdout, bytes) else (e.stdout or "")
+        pytest.fail(f"child past its {TIMEOUT} s limit on {specs}; it printed:\n{said[-2000:]}")
     assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
-    assert expect in run.stdout
+    assert expect in run.stdout, run.stdout[-2000:]
 
 
 def _specs(sets):
     return [",".join(str(int(x) if isinstance(x, bool) else x) for x in s) for s in sets]
 
 
-def test_warp_kernels_equal_the_per_thread_core_bit_for_bit(host_lib):
-    _run(CHILD, host_lib, _specs(SETS), f"bitwise equal on {len(SETS)} sets")
+@pytest.mark.parametrize("spec", SETS, ids=lambda s: "m{}n{}_{}to{}_lam{}_{}".format(
+    *s[:5], "prior" if s[5] else "none"))
+def test_warp_kernels_equal_the_per_thread_core_bit_for_bit(host_lib, spec):
+    """The warp look-ahead, draw and gathered draw (spread and degenerate
+    ancestors) against the per-thread core bit for bit on one set, in a
+    child of its own; the per-thread outputs against the plain versions at
+    1e-3 (``S_new`` 1e-4)."""
+    _run(CHILD, host_lib, _specs([spec]), "bitwise equal on 1 sets")
 
 
 def test_warp_log_determinants_equal_the_per_thread_core_bit_for_bit(host_lib):
     """``bipk_log_base_measure_packed`` (the warp kernel's kLogdets mode)
     against ``bipk_log_base_measure_packed_per_thread`` bit for bit, and the
-    per-thread core against the plain version at 1e-3."""
-    _run(LBM_CHILD, host_lib, _specs(LBM_SETS), f"bitwise equal on {len(LBM_SETS)} sets")
+    per-thread core against the plain version at 1e-3; one child per set."""
+    for spec in _specs(LBM_SETS):
+        _run(LBM_CHILD, host_lib, [spec], "bitwise equal on 1 sets")
 
 
 def test_warp_launch_state_is_kept_per_card(host_lib):
