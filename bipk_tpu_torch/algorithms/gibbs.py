@@ -1,13 +1,15 @@
 """Algorithm 2: the PGAS Gibbs loop with marginalized GP parameters (port
-of ``bipk_tpu/algorithms/gibbs.py``, one device and one chain).
+of ``bipk_tpu/algorithms/gibbs.py``, one device).
 
 Each Gibbs iteration runs the cSMC sweep (Algorithm 3) conditioned on the
 previous draw, its interface variables and its summed statistics, and
 recomputes the summed statistics of the new draw. The JAX package fuses
 the iterations into one ``lax.scan`` (``fused=True``) or runs them from a
 host loop with checkpoints (``fused=False``); here both are a host loop of
-sweeps with the same result layout. Several chains, the sharded sweeps
-and checkpointing are not ported.
+sweeps with the same result layout. ``n_chains=C`` runs C independent
+chains from the same host loop, one sweep per chain in each iteration
+(the JAX package vmaps the sampler over its chains). The sharded sweeps,
+the chain mesh and checkpointing are not ported.
 """
 
 from __future__ import annotations
@@ -90,35 +92,129 @@ class Gibbs:
             log_likelihood=log_lik,
         )
 
-    def __call__(
-        self, generator, observations, inputs, init_state_mean,
-        init_state_cov, init_ref_state, init_ref_int_vars,
-        callback: Callable | None = None,
-    ) -> GibbsResult:
+    def data(self, observations, inputs):
+        """The observations ``(T, dy)`` and inputs as the sweeps take them."""
         kern = self.kern
         obs = as_tensor(observations, kern.dtype, kern.device)
-        obs = obs.reshape(obs.shape[0], -1)
-        inputs = as_tensor(inputs, kern.dtype, kern.device)
+        return obs.reshape(obs.shape[0], -1), as_tensor(inputs, kern.dtype, kern.device)
+
+    def initial_ref(self, init_ref_state, init_ref_int_vars, inputs):
+        """The first reference ``(state (T, dx), int_vars each (T, n_i),
+        stats)`` of one chain."""
+        kern = self.kern
         ref_state = as_tensor(init_ref_state, kern.dtype, kern.device)
         ref_state = ref_state.reshape(ref_state.shape[0], -1)
         ref_iv = tuple(
             as_tensor(v, kern.dtype, kern.device).reshape(ref_state.shape[0], -1)
             for v in init_ref_int_vars
         )
-        ref = (ref_state, ref_iv, self._stats(ref_state, ref_iv, inputs))
+        return ref_state, ref_iv, self._stats(ref_state, ref_iv, inputs)
+
+    def result(self, obs, inputs, refs) -> GibbsResult:
+        """One chain's references over its iterations -> its result."""
+        n_gp = self.kern.n_gp
+        states_kt = torch.stack([r[0] for r in refs])
+        iv_kt = tuple(torch.stack([r[1][i] for r in refs]) for i in range(n_gp))
+        stats_k = tuple(
+            mniw.MNIW(*(torch.stack(leaves) for leaves in zip(*(r[2][i] for r in refs))))
+            for i in range(n_gp)
+        )
+        return self.finalize(obs, inputs, states_kt, iv_kt, stats_k)
+
+    def __call__(
+        self, generator, observations, inputs, init_state_mean,
+        init_state_cov, init_ref_state, init_ref_int_vars,
+        callback: Callable | None = None,
+    ) -> GibbsResult:
+        obs, inputs = self.data(observations, inputs)
+        ref = self.initial_ref(init_ref_state, init_ref_int_vars, inputs)
         refs = [ref]
         for k in range(1, self.n_iterations):
             ref = self.sweep(generator, obs, inputs, init_state_mean, init_state_cov, ref)
             refs.append(ref)
             if callback is not None:
                 callback(k, ref)
-        states_kt = torch.stack([r[0] for r in refs])
-        iv_kt = tuple(torch.stack([r[1][i] for r in refs]) for i in range(kern.n_gp))
-        stats_k = tuple(
-            mniw.MNIW(*(torch.stack(leaves) for leaves in zip(*(r[2][i] for r in refs))))
-            for i in range(kern.n_gp)
-        )
-        return self.finalize(obs, inputs, states_kt, iv_kt, stats_k)
+        return self.result(obs, inputs, refs)
+
+
+def chain_generators(generator: torch.Generator, n_chains: int) -> list:
+    """One generator per chain, on ``generator``'s device: ``n_chains``
+    seeds drawn from ``generator`` at once (the host reads them once,
+    before the first sweep), each seeding its chain's own generator. The
+    JAX package splits the key instead (``jax.random.split(key,
+    n_chains)``)."""
+    seeds = torch.randint(1 << 62, (n_chains,), generator=generator,
+                          device=generator.device).tolist()
+    return [torch.Generator(device=generator.device).manual_seed(s) for s in seeds]
+
+
+def _map_leaves(fn, trees):
+    """``fn`` over the tensors at the same place in ``trees`` (nested
+    tuples and NamedTuples of one structure)."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    out = [_map_leaves(fn, parts) for parts in zip(*trees)]
+    return type(first)(*out) if hasattr(first, "_fields") else type(first)(out)
+
+
+def stack_chains(trees):
+    """The chains' results (or references) stacked along a new leading
+    ``(C,)`` axis, leaf by leaf."""
+    return _map_leaves(lambda *leaves: torch.stack(leaves), trees)
+
+
+def select_chain(tree, c: int):
+    """Chain ``c`` of a chain-parallel result (every leaf's row ``c``)."""
+    return _map_leaves(lambda leaf: leaf[c], [tree])
+
+
+class ParallelGibbs:
+    """``n_chains`` independent Gibbs chains of one sampler, run from one
+    host loop: each iteration runs one cSMC sweep per chain, each chain on
+    its own generator (:func:`chain_generators`), so chain ``c`` is the
+    single-chain sampler run on chain ``c``'s generator, bit for bit. Its
+    kernels launch once per chain and step. Call it as :class:`Gibbs`;
+    the initial reference is shared (``init_ref_state (T, dx)``, each
+    ``init_ref_int_vars`` entry ``(T, n_i)`` or ``(T,)``) or per chain (a
+    leading ``(C,)`` on the state and on every entry). Every
+    ``GibbsResult`` field gains a leading ``(C,)`` (the stats' leaves
+    ``(C, K, ...)``), and ``callback(k, ref)`` receives the chains'
+    references stacked along a leading ``C``."""
+
+    def __init__(self, gibbs: Gibbs, n_chains: int):
+        self.gibbs = gibbs
+        self.kern = gibbs.kern
+        self.n_iterations = gibbs.n_iterations
+        self.n_chains = n_chains
+
+    def chain_refs(self, init_ref_state, init_ref_int_vars):
+        """The initial reference of each chain: ``[(state, int_vars)] * C``."""
+        C = self.n_chains
+        if torch.as_tensor(init_ref_state).dim() != 3:  # shared: chains diverge by their draws
+            return [(init_ref_state, init_ref_int_vars)] * C
+        if init_ref_state.shape[0] != C:
+            raise ValueError(f"per-chain init_ref_state has leading axis "
+                             f"{init_ref_state.shape[0]}, expected n_chains={C}")
+        return [(init_ref_state[c], tuple(v[c] for v in init_ref_int_vars)) for c in range(C)]
+
+    def __call__(
+        self, generator, observations, inputs, init_state_mean,
+        init_state_cov, init_ref_state, init_ref_int_vars,
+        callback: Callable | None = None,
+    ) -> GibbsResult:
+        gibbs = self.gibbs
+        gens = chain_generators(generator, self.n_chains)
+        obs, inputs = gibbs.data(observations, inputs)
+        refs = [[gibbs.initial_ref(state, ivs, inputs)]
+                for state, ivs in self.chain_refs(init_ref_state, init_ref_int_vars)]
+        for k in range(1, self.n_iterations):
+            for g, chain in zip(gens, refs):
+                chain.append(gibbs.sweep(g, obs, inputs, init_state_mean, init_state_cov,
+                                         chain[-1]))
+            if callback is not None:
+                callback(k, stack_chains([chain[-1] for chain in refs]))
+        return stack_chains([gibbs.result(obs, inputs, chain) for chain in refs])
 
 
 def build_gibbs(
@@ -135,23 +231,35 @@ def build_gibbs(
     device: str | torch.device = "cuda",
     reuse_factor: bool = False,
     dedup_gather: bool = False,
-) -> Gibbs:
-    """Build the marginalized-PGAS Gibbs sampler on one device, one chain.
+) -> Gibbs | ParallelGibbs:
+    """Build the marginalized-PGAS Gibbs sampler on one device.
 
     ``n_iterations`` counts the initial reference, as in the JAX package:
     the sampler runs ``n_iterations - 1`` sweeps. ``fused`` is accepted
     for the JAX signature; both values run the same host loop. ``device``
     defaults to CUDA and raises if no card is present. ``reuse_factor``
     and ``dedup_gather`` go to the cSMC sweep (:func:`~bipk_tpu_torch.
-    algorithms.csmc.build_csmc`). ``mesh``, ``shard_mesh``, ``n_chains``
-    and ``chain_mesh`` are not ported.
+    algorithms.csmc.build_csmc`). ``n_chains=C`` (C >= 2) runs C
+    independent chains (:class:`ParallelGibbs`). ``mesh``, ``shard_mesh``
+    and ``chain_mesh`` are not ported (ROADMAP Queue A item 8); the
+    combinations the JAX package refuses raise ``ValueError`` first.
     """
-    if any(a is not None for a in (mesh, shard_mesh, n_chains, chain_mesh)):
+    if chain_mesh is not None and n_chains is None:
+        raise ValueError("chain_mesh= requires n_chains=")
+    if n_chains is not None:
+        if mesh is not None or shard_mesh is not None:
+            raise ValueError("n_chains composes with particle-axis sharding only via "
+                             "chain_mesh=; per-chain execution stays single-device")
+        if n_chains < 2:
+            raise ValueError(f"n_chains must be >= 2, got {n_chains}")
+    if any(a is not None for a in (mesh, shard_mesh, chain_mesh)):
         raise NotImplementedError(
-            "the port's Gibbs sampler runs one chain on one device"
+            "mesh=, shard_mesh= and chain_mesh= (multi-device) are not ported yet: "
+            "ROADMAP Queue A item 8"
         )
     del fused
     device = resolve_device(device)
     csmc = build_csmc(ssm, gps, n_particles, dtype=dtype, device=device,
                       reuse_factor=reuse_factor, dedup_gather=dedup_gather)
-    return Gibbs(csmc, n_iterations)
+    gibbs = Gibbs(csmc, n_iterations)
+    return gibbs if n_chains is None else ParallelGibbs(gibbs, n_chains)

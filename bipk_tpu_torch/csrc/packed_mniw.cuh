@@ -26,12 +26,14 @@ constexpr int kThreads = 128;
 // draw), or the gathered draw with each block's distinct ancestor columns
 // read once (the dedup gather), or the projection from a given factor
 // (project_blocks), or the projection of unpacked statistics
-// (factorize_project_blocks); the last four are modes of the warp kernel
-// only (warp_mniw.cu: the per-thread core projects unpacked statistics in
-// mode kProject through UnpackedStats).
+// (factorize_project_blocks), or the log-determinants of unpacked
+// statistics (log_base_measure_logdets); the last five are modes of the
+// warp kernel only (warp_mniw.cu: the per-thread core projects unpacked
+// statistics in mode kProject, and stops at their log-determinants in
+// mode kLogdets, through UnpackedStats).
 enum Mode {
   kProject = 0, kDraw = 1, kLogdets = 2, kEmit = 3, kFactor = 4, kReuse = 5, kDedup = 6,
-  kFromFactor = 7, kProjectUnpacked = 8
+  kFromFactor = 7, kProjectUnpacked = 8, kLogdetsUnpacked = 9
 };
 
 __device__ __forceinline__ int tri_off(int j, int m) {
@@ -339,10 +341,10 @@ inline Args draw_args(const float* S, int n_in, const int* anc, int n_out, const
 }
 
 // The warp-per-particle kernel in `mode` (warp_mniw.cu): the look-ahead,
-// the draw, the log-determinants and the projection from a given factor
-// at 1 <= m <= 48, the factor pair (kEmit, kReuse) and the dedup gather
-// at m <= 24. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// shape or mode it does not take.
+// the draw, the log-determinants, the projection from a given factor and
+// the three unpacked modes at 1 <= m <= 48, the factor pair (kEmit,
+// kReuse) and the dedup gather at m <= 24. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a shape or mode it does not take.
 int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream);
 
 // The core on a column of the packed layout at Sc, row stride `stride`.

@@ -22,26 +22,27 @@
 // line. The prior is one f32 buffer [P0 | P1 | P2], read through the
 // read-only cache, as in packed_mniw.cu.
 //
-// Design. The factorization and the factorization/projection run the warp
-// kernel (warp_mniw.cu) in its unpacked modes, kFactor and
-// kProjectUnpacked: a block stages the packed tile of its P particles from
-// the leaves (T1 read as 0.5 * (T1[i][c] + T1[c][i]) in the packed order,
+// Design. The factorization, the factorization/projection and the
+// log-determinants run the warp kernel (warp_mniw.cu) in its unpacked
+// modes, kFactor, kProjectUnpacked and kLogdetsUnpacked (the last at
+// lam = 1, no prior): a block stages the packed tile of its P particles from the
+// leaves (T1 read as 0.5 * (T1[i][c] + T1[c][i]) in the packed order,
 // then scaled by lam and P1 added, the order of the JAX kernels'
 // _make_read_a; T2 as stored) and factors each particle on 16 or 32 lanes
 // of a warp, two particles per warp at m <= 24, one above; kFactor's block
 // writes chol, white and row out by rows of P particles. They replaced the
 // packed kernels' per-thread column core (packed_mniw.cuh) with the
-// UnpackedStats reader, unpacked_mniw_kernel<24 | 48, kFactor | kProject>,
-// which stays compiled as their comparator behind
-// bipk_factorize_blocks_per_thread and
-// bipk_factorize_project_blocks_per_thread (no wrapper reaches them); the
+// UnpackedStats reader, unpacked_mniw_kernel<24 | 48, kFactor | kProject |
+// kLogdets>, one thread per particle, which stays compiled as their
+// comparator behind bipk_factorize_blocks_per_thread,
+// bipk_factorize_project_blocks_per_thread and
+// bipk_log_base_measure_logdets_per_thread (no wrapper reaches them); the
 // warp modes equal it bit for bit (chip_smoke.py phase 18,
 // tests/test_torch_unpacked_rehearsal.py). On exactly symmetric input
 // 0.5 * (x + x) = x, so the projection of unpack(S) is, bit for bit, the
-// packed projection of S. The log-determinants are still that per-thread
-// core, one thread per particle, <24> and <48> instantiations as in
-// packed_mniw.cu (the JAX package's tiled #10 and #12 stop at m = 24;
-// these serve m <= 48 and compute the same function).
+// packed projection of S, and the log-determinants of unpack(S) are the
+// packed ones (kLogdets) of S. The JAX package's tiled #10 and #12 stop
+// at m = 24; these serve m <= 48 and compute the same function.
 //
 // The projection from a given factor reads it through element strides
 // with the particle stride 1: in the rank-1 cSMC, chol = F[:m, :m] and
@@ -163,6 +164,13 @@ Args factor_project_args(const float* T0, const float* T1, const float* T2, cons
   return a;
 }
 
+Args logdets_args(const float* T0, const float* T1, const float* T2, int n_particles, int m,
+                  int n, float jitter, float* ld) {
+  Args a = unpacked_args(T0, T1, T2, nullptr, n_particles, m, n, jitter, 1.f);
+  a.ld = ld;
+  return a;
+}
+
 }  // namespace
 
 extern "C" int bipk_factorize_blocks(
@@ -210,9 +218,18 @@ extern "C" int bipk_factorize_project_blocks_per_thread(
 extern "C" int bipk_log_base_measure_logdets(
     const float* T0, const float* T1, const float* T2, int n_particles,
     int m, int n, float jitter, float* ld, void* stream) {
-  Args a = unpacked_args(T0, T1, T2, nullptr, n_particles, m, n, jitter, 1.f);
-  a.ld = ld;
-  return launch<kLogdets>(a, static_cast<cudaStream_t>(stream));
+  return launch_warp_mniw(logdets_args(T0, T1, T2, n_particles, m, n, jitter, ld),
+                          kLogdetsUnpacked, static_cast<cudaStream_t>(stream));
+}
+
+// The comparator of the warp kernel's kLogdetsUnpacked mode: the
+// per-thread unpacked_mniw_kernel<24 | 48, kLogdets>, which chip_smoke.py
+// calls and no wrapper does.
+extern "C" int bipk_log_base_measure_logdets_per_thread(
+    const float* T0, const float* T1, const float* T2, int n_particles,
+    int m, int n, float jitter, float* ld, void* stream) {
+  return launch<kLogdets>(logdets_args(T0, T1, T2, n_particles, m, n, jitter, ld),
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bipk_project_blocks(

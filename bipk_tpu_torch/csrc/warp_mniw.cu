@@ -34,12 +34,14 @@
 //     col = |L^{-1} phi|^2 + 1 from a factor read through its strides;
 //   - at every m <= 48, on unpacked statistics (structured or flat T0, T1,
 //     T2): _factorize_kernel (:299) behind factorize_blocks (:1583), the
-//     factor written whole (chol, white, row), and
+//     factor written whole (chol, white, row),
 //     _factorize_project_kernel (:468, core :371) behind
-//     factorize_project_blocks (:1634), the look-ahead's projection.
+//     factorize_project_blocks (:1634), the look-ahead's projection, and
+//     _log_base_measure_kernel (:1530) behind log_base_measure_logdets
+//     (:2000), logdet sym(T1) and logdet Psi at lam = 1 with no prior.
 // packed_mniw.cu launches these for its look-ahead, draw, log-determinants
 // and factor pair at every m they serve, dedup_gather.cu and
-// unpacked_mniw.cu for the dedup gather, the projection and the two
+// unpacked_mniw.cu for the dedup gather, the projection and the three
 // unpacked modes. The log-determinants are a third
 // mode of the same kernel (kLogdets): no phi (no phi rows in the tile, no
 // phi^T row in the triangle), no gather, and lane 0 writes the two
@@ -77,7 +79,9 @@
 // (zeros above the diagonal), white and row out by rows of P particles
 // from the tile, whose rows hold P neighbouring floats (read from the
 // particles' triangles, 16 (mod 32) floats apart at m <= 24, one entry of
-// 16 particles would come from 2 banks).
+// 16 particles would come from 2 banks). The unpacked log-determinants
+// (kLogdetsUnpacked) stage that tile without phi and run kLogdets's core
+// on it, T2 read over its n^2 rows as kProjectUnpacked reads it.
 //
 // Design. One particle on 32 / PW lanes of a warp, PW = 2 particles per
 // warp for m <= 24 (a half warp each) and 1 above, the factor in shared
@@ -141,17 +145,17 @@
 // kFromFactor's comparator, contracts its substitution's acc - L v and
 // its mean's and col's multiply-adds into FFMAs as factor_gather_kernel
 // does (SASS, PERF.md), which kFromFactor writes out with __fmaf_rn. The
-// unpacked modes are kProject's and kEmit's arithmetic on values that the
-// per-thread core reads through UnpackedStats (unpacked_mniw_kernel<24 |
-// 48, kProject | kFactor>), the symmetric read of T1 written out as a
-// rounded sum and a rounded product.
+// unpacked modes are kProject's, kEmit's and kLogdets's arithmetic on
+// values that the per-thread core reads through UnpackedStats
+// (unpacked_mniw_kernel<24 | 48, kProject | kFactor | kLogdets>), the
+// symmetric read of T1 written out as a rounded sum and a rounded product.
 // chip_smoke.py holds these kernels against the per-thread ones bit for bit (phase 2 at m <= 24,
 // phase 8 above, phase 14 for the factor pair and the dedup gather (also
 // against #4), phase 18 for the projection and the unpacked modes; the
 // comparator is packed_mniw_kernel<24 | 48, kProject / kDraw / kLogdets /
 // kEmit> and factor_gather_kernel behind bipk_*_per_thread in
 // packed_mniw.cu, dedup_gather_kernel, project_kernel<24 | 48> and
-// unpacked_mniw_kernel<24 | 48, kProject | kFactor> behind the
+// unpacked_mniw_kernel<24 | 48, kProject | kFactor | kLogdets> behind the
 // *_per_thread entries of dedup_gather.cu and unpacked_mniw.cu, which no
 // wrapper reaches); tests/test_torch_warp_rehearsal.py,
 // test_torch_factor_rehearsal.py, test_torch_dedup_project_rehearsal.py
@@ -172,7 +176,8 @@
 // and phi and writes mean and col, 252 floats per particle (0.0099 ms at
 // N = 32768, 0.0031 at 10240); the unpacked modes at m = 20, n = 1 read
 // the leaves (421 floats per particle) and write the factor whole (421:
-// 0.033 ms at N = 32768) or the five small outputs (0.0175 ms). In
+// 0.033 ms at N = 32768), the five small outputs (0.0175 ms) or the two
+// log-determinants (0.0166 ms). In
 // practice the instructions
 // a particle's lanes issue: most of them are the Cholesky's columns, each
 // a dot product whose terms wait on their shared-memory loads followed by
@@ -237,13 +242,13 @@ constexpr unsigned kFull = 0xffffffffu;
 // columns, each particle's run and the count of runs. The projection from
 // a given factor (kFromFactor) stages LW's rows (tril(chol) and white)
 // and phi, and keeps one row for v. The unpacked modes (kFactor,
-// kProjectUnpacked) stage n^2 rows of T2 and no T3 row; kFactor reads no
-// phi.
+// kProjectUnpacked, kLogdetsUnpacked) stage n^2 rows of T2 and no T3 row;
+// kFactor and kLogdetsUnpacked read no phi.
 __host__ __device__ constexpr bool unpacked_mode(int mode) {
-  return mode == kFactor || mode == kProjectUnpacked;
+  return mode == kFactor || mode == kProjectUnpacked || mode == kLogdetsUnpacked;
 }
 __host__ __device__ constexpr bool reads_phi(int mode) {
-  return mode != kLogdets && mode != kFactor;
+  return mode != kLogdets && mode != kFactor && mode != kLogdetsUnpacked;
 }
 
 struct WarpPlan {
@@ -318,7 +323,8 @@ __device__ __forceinline__ void solve_lanes(const float* lw, const float* phi, i
 // and loop counts, since they share m and n, so the warp-wide __syncwarp
 // and shuffles of width GW serve both). x: its column of the block's tile,
 // element r at x[r * ts] (rows [0, rows) its statistics, [rows, rows + m)
-// its phi, which kLogdets and kFactor have not, then LW's rows in kReuse;
+// its phi, which kLogdets, kFactor and kLogdetsUnpacked have not, then
+// LW's rows in kReuse;
 // kEmit and kFactor write LW over rows [0, m(m+1)/2 + m n) once they have
 // read them, and kFactor Psi over T2's rows); L: its
 // augmented triangle (kReuse: v); logs: m floats; lane: 0 .. GW - 1;
@@ -438,7 +444,7 @@ __device__ __forceinline__ void warp_particle(const Args& a, int j, bool valid, 
   }
 
   // Psi = P2 + lam*T2 - white^T white, mean = white^T v, col = v.v + 1
-  // (not kLogdets or kFactor): one lane per entry, each summed over k in
+  // (not without phi): one lane per entry, each summed over k in
   // the core's order. T2[a][b] the stored lower entry, or (unpacked) the
   // entry itself. white[k][c] at W[c * wc + k * wk]: row m + c of the
   // triangle, or (kReuse) LW's row tri + k n + c; v in row m + n, or
@@ -868,6 +874,7 @@ int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream) {
     case kDedup: return launch_width<kDedup>(a, stream);
     case kFactor: return launch_width<kFactor>(a, stream);
     case kProjectUnpacked: return launch_width<kProjectUnpacked>(a, stream);
+    case kLogdetsUnpacked: return launch_width<kLogdetsUnpacked>(a, stream);
     default: return launch_width<kFromFactor>(a, stream);
   }
 }
@@ -875,10 +882,10 @@ int launch_warp_mniw(const Args& a, int mode, cudaStream_t stream) {
 }  // namespace bipk_mniw
 
 // The warp kernel's launch in `mode` (kProject, kDraw, kLogdets, kEmit,
-// kFactor, kReuse, kDedup, kFromFactor or kProjectUnpacked) at (m, n) and
-// n_out particles on the
-// current card: warps and particles per block and dynamic shared memory in
-// bytes, for reports.
+// kFactor, kReuse, kDedup, kFromFactor, kProjectUnpacked or
+// kLogdetsUnpacked) at (m, n) and n_out particles on the current card:
+// warps and particles per block and dynamic shared memory in bytes, for
+// reports.
 extern "C" int bipk_warp_mniw_plan(int mode, int m, int n, int n_out, int* warps,
                                    int* particles, int* smem_bytes) {
   if (m < 1 || m > 48 || n < 1 || n > 2 || !bipk_mniw::takes(mode, m))

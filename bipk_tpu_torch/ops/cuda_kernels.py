@@ -26,7 +26,8 @@ wrapper                                     CUDA source
                                             ``csrc/warp_mniw.cu``
 ``project_blocks``                          ``csrc/unpacked_mniw.cu``,
                                             ``csrc/warp_mniw.cu``
-``log_base_measure_logdets``                ``csrc/unpacked_mniw.cu``
+``log_base_measure_logdets``                ``csrc/unpacked_mniw.cu``,
+                                            ``csrc/warp_mniw.cu``
 =========================================== =========================
 
 Each wrapper's plain version is the ``*_plain`` function beside it (a thin
@@ -46,11 +47,12 @@ draw and the log-determinants run the warp-per-particle
 ``"<24w>"`` and ``"<48w>"``; so do the factor pair and the dedup gather
 at m <= 24, the factor-emitting projection counted as ``"[emit]<24w>"``,
 and the projection from a given factor (``project_blocks``), the
-unpacked factorization (``factorize_blocks``) and factorization/projection
-(``factorize_project_blocks``) at every m. The per-thread ``<24>`` and
+unpacked factorization (``factorize_blocks``), factorization/projection
+(``factorize_project_blocks``) and log-determinants
+(``log_base_measure_logdets``) at every m. The per-thread ``<24>`` and
 ``<48>`` look-ahead, draw and log-determinants, ``<24, kEmit>``,
 ``factor_gather_kernel``, ``dedup_gather_kernel``, ``project_kernel<24 |
-48>`` and ``unpacked_mniw_kernel<24 | 48, kFactor | kProject>`` stay
+48>`` and ``unpacked_mniw_kernel<24 | 48, kFactor | kProject | kLogdets>`` stay
 compiled as the warp kernels' comparator (``*_per_thread`` below, counted as
 ``"<24>"`` / ``"<48>"`` / ``"[emit]<24>"``), which no wrapper calls. The
 factor pair and the dedup gather take m <= 24 only. The resampler's
@@ -119,6 +121,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
     ],
     "bipk_log_base_measure_logdets": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "bipk_log_base_measure_logdets_per_thread": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
     "bipk_project_blocks": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
     "bipk_project_blocks_per_thread": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
 }
@@ -705,10 +708,10 @@ def log_base_measure_packed_logdets_per_thread(
 # the warp kernel's modes (csrc/packed_mniw.cuh ``Mode``) by name: the
 # look-ahead (the draw's plan is the same), the log-determinants, the
 # factor-emitting look-ahead, the unpacked factorization, the
-# factor-gather draw, the dedup gather, the projection from a given factor
-# and the unpacked factorization/projection
+# factor-gather draw, the dedup gather, the projection from a given factor,
+# the unpacked factorization/projection and the unpacked log-determinants
 WARP_MODES = {"project": 0, "logdets": 2, "emit": 3, "factor": 4, "reuse": 5, "dedup": 6,
-              "from_factor": 7, "project_unpacked": 8}
+              "from_factor": 7, "project_unpacked": 8, "logdets_unpacked": 9}
 
 
 def warp_plan(m: int, n: int, N: int, mode: str = "project") -> tuple[int, int, int]:
@@ -987,15 +990,41 @@ def log_base_measure_logdets(
     m, n = _unpacked_mn(name, T0, T1, T2, m, n)
     if not _on_cuda(name, T0):
         return log_base_measure_logdets_plain(T0, T1, T2, jitter, m, n)
-    N = _require_unpacked(name, T0, T1, T2)
-    ld = torch.empty((2, N), dtype=T0.dtype, device=T0.device)
-    rc = _lib().bipk_log_base_measure_logdets(
-        T0.data_ptr(), T1.data_ptr(), T2.data_ptr(), N, m, n, float(jitter),
-        ld.data_ptr(), _stream(T0.device),
-    )
+    rc, out = _logdets_unpacked(name, T0, T1, T2, jitter, m, n,
+                                _lib().bipk_log_base_measure_logdets)
     _count(log_base_measure_logdets, m)
     _check(rc, name)
-    return ld[0], ld[1]
+    return out
+
+
+def log_base_measure_logdets_per_thread(
+    T0: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor, jitter: float,
+    m: int | None = None, n: int | None = None,
+):
+    """:func:`log_base_measure_logdets` through the per-thread
+    ``unpacked_mniw_kernel<24 | 48, kLogdets>``: the same outputs, which
+    the warp kernel (kLogdetsUnpacked) must equal bit for bit. Counted as
+    ``"<24>"`` / ``"<48>"`` of :func:`log_base_measure_logdets`; no
+    wrapper calls it."""
+    name = "log_base_measure_logdets_per_thread"
+    m, n = _unpacked_mn(name, T0, T1, T2, m, n)
+    _per_thread_device(name, T0)
+    rc, out = _logdets_unpacked(name, T0, T1, T2, jitter, m, n,
+                                _lib().bipk_log_base_measure_logdets_per_thread)
+    _count(log_base_measure_logdets, m, per_thread=True)
+    _check(rc, name)
+    return out
+
+
+def _logdets_unpacked(name, T0, T1, T2, jitter, m, n, launch):
+    """Check, allocate and launch the log-determinants of unpacked
+    statistics through the C entry ``launch`` (``bipk_log_base_measure_logdets``
+    or its comparator): ``(rc, (logdet_T1, logdet_Psi))``."""
+    N = _require_unpacked(name, T0, T1, T2)
+    ld = torch.empty((2, N), dtype=T0.dtype, device=T0.device)
+    rc = launch(T0.data_ptr(), T1.data_ptr(), T2.data_ptr(), N, m, n, float(jitter),
+                ld.data_ptr(), _stream(T0.device))
+    return rc, (ld[0], ld[1])
 
 
 WRAPPERS = (
@@ -1028,12 +1057,12 @@ PLAIN = {
 
 # the wrappers whose launches run the warp kernels (all the packed-MNIW
 # ones, the factor pair and the dedup gather at m <= 24 only, the
-# projection from a given factor and the unpacked factorization and
-# factorization/projection)
+# projection from a given factor and the unpacked factorization,
+# factorization/projection and log-determinants)
 WARP = (factorize_project_packed, draw_update_packed_blocks, draw_update_gather_packed_blocks,
         log_base_measure_packed_logdets, draw_update_factor_gather_packed_blocks,
         draw_update_dedup_gather_packed_blocks, project_blocks, factorize_blocks,
-        factorize_project_blocks)
+        factorize_project_blocks, log_base_measure_logdets)
 # the packed-MNIW wrappers and the instantiations each launches (those of
 # the WARP wrappers without "w": the per-thread comparator only)
 PACKED_MNIW = {
@@ -1044,14 +1073,13 @@ PACKED_MNIW = {
     draw_update_factor_gather_packed_blocks: ("<24w>", "<24>"),
     draw_update_dedup_gather_packed_blocks: ("<24w>", "<24>"),
 }
-# the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths; all
-# but the log-determinants also by their warp kernel's
+# the unpacked wrappers (csrc/unpacked_mniw.cu), each at both widths by
+# its warp kernel's and its per-thread comparator's
 UNPACKED = (factorize_blocks, factorize_project_blocks, project_blocks,
             log_base_measure_logdets)
 # the resampler's scan kernel ("") and per-thread comparator ("_per_thread")
-PER_INSTANTIATION = {**PACKED_MNIW, **{fn: ("<24>", "<48>") for fn in UNPACKED},
-                     **{fn: ("<24w>", "<48w>", "<24>", "<48>")
-                        for fn in (factorize_blocks, factorize_project_blocks, project_blocks)},
+PER_INSTANTIATION = {**PACKED_MNIW,
+                     **{fn: ("<24w>", "<48w>", "<24>", "<48>") for fn in UNPACKED},
                      systematic_ancestors_blocks: ("", "_per_thread")}
 
 

@@ -106,12 +106,14 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     steps, unpacked (N = 32768, 10240, 200, 777), the oscillator's (m =
     41) and synthetic n = 2 ones, structured and flat; bitwise against the
     packed kernels on the same statistics and the projection on views of
-    an augmented factor against contiguous copies, and the projection
-    (the warp kernel's kFromFactor) bit for bit against the per-thread
-    ``project_kernel`` it replaced on both; timed beside their bounds
-    (#13 also beside ``torch.linalg.cholesky_ex`` on the augmented
-    matrices of its input; the projection in turns with its per-thread
-    kernel at 32768, 10240 and 200, and on the card's time alone beside
+    an augmented factor against contiguous copies; all four (the warp
+    kernel's kFactor, kProjectUnpacked, kFromFactor and kLogdetsUnpacked)
+    bit for bit against the per-thread kernels they replaced on every
+    set, the log-determinants and factorizations also on two sets with
+    asymmetric T1 and T2; timed beside their bounds, in turns with the
+    per-thread kernels at 32768, 10240 and 200 on the card's time alone
+    (#13 also at m = 41, and beside ``torch.linalg.cholesky_ex`` on the
+    augmented matrices of its input; the projection beside
     ``torch.linalg.solve_triangular``, which computes its v alone); then
     the unpacked entry points (``APFKernel.factorize_all``,
     ``auxiliary``, ``auxiliary_fused``, ``draw_int_vars_fused``,
@@ -150,17 +152,26 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     against the plain versions), the EMPS APF (300 steps) and cSMC (200
     steps) through the kernels and through the plain versions on 10
     paired seeds at 200 particles; then phase 7 for 100 steps each of
-    the EMPS cSMC and the classic-PGAS cSMC (m = 729).
+    the EMPS cSMC and the classic-PGAS cSMC (m = 729);
+24. chains: the toy Gibbs sampler at 200 particles as four parallel
+    chains (``build_gibbs(n_chains=4)``) from phase 12's reference, 40
+    sweeps with exactly four times the single chain's launches per sweep;
+    each chain's first three sweeps bit for bit against the single-chain
+    sampler on that chain's generator; the split R-hat (under
+    ``tests/test_chains.py``'s 1.7) and bulk ESS of the trajectory-mean
+    interface variable over the second half; then the EMPS entry point
+    with ``--chains 2`` (600 steps, two sweeps): exact launches, the
+    friction's R-hat / ESS line, and its ``.mat`` file read back.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the
-fifteen main paths, error against the plain version, times and bound; for the
-warp kernels (rows 1, 3-7, the factor pair, rows 1e and 8, the dedup
-gather, row 9, and the projection, row 12) also the per-thread kernels'
+seventeen main paths, error against the plain version, times and bound; for
+the warp kernels (rows 1, 3-7, the factor pair, rows 1e and 8, the dedup
+gather, row 9, and the unpacked rows 10-13) also the per-thread kernels'
 times from the same turns, and both at the Gibbs paths' widths, 10240
 particles at m = 20 and 200 at m = 40, 41 (row 12 also at 200 particles,
-``_cs_gibbs``, and ``device_ms`` / ``solve_triangular_device_ms``); for the
-resampler the per-thread kernel's times from its
+``_cs_gibbs``, and ``device_ms`` / ``solve_triangular_device_ms``; row 13
+also at m = 41, ``_48w``); for the resampler the per-thread kernel's times from its
 turns at 32768, 10240 (``_gibbs``) and 200 (``_cs_gibbs``); for the
 log-determinants ``library_ms``, the time of
 ``torch.linalg.cholesky_ex`` on the same batch of augmented matrices, and
@@ -171,6 +182,7 @@ raises, so the script exits non-zero and prints neither. Needs one CUDA
 card.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -185,7 +197,8 @@ import torch
 
 from bipk_tpu_torch.algorithms.apf import APFKernel, build_apf
 from bipk_tpu_torch.algorithms.csmc import build_csmc, ref_contributions
-from bipk_tpu_torch.algorithms.gibbs import Gibbs, build_gibbs, summed_reference_stats
+from bipk_tpu_torch.algorithms.gibbs import (Gibbs, build_gibbs, chain_generators, select_chain,
+                                             summed_reference_stats)
 from bipk_tpu_torch.algorithms.pgas import build_pgas, build_pgas_csmc
 from bipk_tpu_torch.models import emps
 from bipk_tpu_torch.models import oscillator as osc
@@ -196,6 +209,7 @@ from bipk_tpu_torch.ops import cuda_kernels as ck
 from bipk_tpu_torch.ops import cholup, mniw, resampling
 from bipk_tpu_torch.ops.gaussian import mvn_logpdf_chol
 from bipk_tpu_torch.parallel.sharded import build_sharded_apf
+from bipk_tpu_torch.utils import diagnostics
 from bipk_tpu_torch.utils.matio import sample_reference_trajectory
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -965,7 +979,8 @@ def warp_ptxas():
                                                ("kLogdets", "ILi2E"), ("kEmit", "ILi3E"),
                                                ("kFactor", "ILi4E"), ("kReuse", "ILi5E"),
                                                ("kDedup", "ILi6E"), ("kFromFactor", "ILi7E"),
-                                               ("kProjectUnpacked", "ILi8E")) if arg in line)
+                                               ("kProjectUnpacked", "ILi8E"),
+                                               ("kLogdetsUnpacked", "ILi9E")) if arg in line)
             lanes = 16 if "Li16E" in line else 32
             info = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 5]
                     if "registers" in ln or "stack frame" in ln]
@@ -1935,19 +1950,15 @@ def unpacked_flops(m, n):
     }
 
 
-# the unpacked kernels that run the warp kernel (kFactor, kProjectUnpacked,
-# kFromFactor), timed in turns with the per-thread kernels they replaced
-UNPACKED_WARP = ("factorize_blocks", "factorize_project_blocks", "project_blocks")
-
-
 def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
     """The four unpacked kernels on one input set, the packed statistics
     ``S`` unpacked to structured and flat leaves (T1 mirrored, so exactly
-    symmetric): each against its plain version on the same inputs; #10,
-    #11 and #12 (the warp kernel's kFactor, kProjectUnpacked and
-    kFromFactor) bit for bit against the per-thread kernels they replaced
-    (``unpacked_mniw_kernel<24 | 48, kFactor | kProject>``,
-    ``project_kernel``; #11 on both layouts, #12 on views and copies); and
+    symmetric): each against its plain version on the same inputs; each
+    (the warp kernel's kFactor, kProjectUnpacked, kFromFactor and
+    kLogdetsUnpacked) bit for bit against the per-thread kernel it
+    replaced (``unpacked_mniw_kernel<24 | 48, kFactor | kProject |
+    kLogdets>``, ``project_kernel``; #11 and #13 on both layouts, #12 on
+    views and copies); and
     across layouts bit for bit: #11 on unpack(S) against #1 on S, #13 on
     unpack(S_nat) against #5 on S_nat without a prior (``S_nat = S`` plus
     the packed prior: #13 takes neither a prior nor lam, and a filter's
@@ -1956,7 +1967,7 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
     augmented factor against #12 on contiguous copies. Returns per kernel
     the largest absolute error against the plain version, the calls that
     run the kernel and its plain version (#12 as the rank-1 path calls it,
-    on views), the per-thread calls of ``UNPACKED_WARP`` on the same
+    on views), the per-thread calls of the four on the same
     inputs, and the inputs: the structured leaves, #13's unpack(S_nat)
     structured, and #12's factor views (``chol``, ``white``)."""
     def layouts(S_):
@@ -1983,6 +1994,7 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
             f"factorize_project_blocks {tag}", zip(FP_NAMES, got, want), 1e-3, ILL))
         cross_layout(f"factorize_project_blocks {tag}, unpack(S) against factorize_project_packed"
                      " on S", got, fp_packed, FP_NAMES)
+        logdets_vs_per_thread(f"{tag} (prior + statistics)", nat, jitter, kw, width)
         got = ck.log_base_measure_logdets(*nat, jitter, **kw)
         want = ck.log_base_measure_logdets_plain(*nat, jitter, **kw)
         errs["log_base_measure_logdets"] = max(errs["log_base_measure_logdets"], check_finite(
@@ -2039,6 +2051,8 @@ def check_unpacked_set(label, S, phi, lam, prior, m, n, jitter):
         "factorize_project_blocks": lambda: ck.factorize_project_blocks_per_thread(
             *structured, phi, jitter, lam, prior),
         "project_blocks": lambda: ck.project_blocks_per_thread(views.chol, views.white_T0, phi),
+        "log_base_measure_logdets": lambda: ck.log_base_measure_logdets_per_thread(
+            *nat_structured, jitter),
     }
     inputs = dict(structured=structured, nat=nat_structured, chol=views.chol,
                   white=views.white_T0)
@@ -2056,6 +2070,16 @@ def unpacked_vs_per_thread(label, leaves, phi, jitter, lam, prior, kw, width):
         {"fpb": f"factorize_project_blocks{width}"})
 
 
+def logdets_vs_per_thread(label, leaves, jitter, kw, width):
+    """#13 (kLogdetsUnpacked) bit for bit against
+    ``unpacked_mniw_kernel<24 | 48, kLogdets>`` on ``leaves`` (structured,
+    or flat with ``kw`` = ``dict(m=m, n=n)``)."""
+    warp_vs_per_thread(label, {"lbm": (
+        lambda: ck.log_base_measure_logdets(*leaves, jitter, **kw),
+        lambda: ck.log_base_measure_logdets_per_thread(*leaves, jitter, **kw), LD_NAMES)},
+        {"lbm": f"log_base_measure_logdets{width}"})
+
+
 def factor_vs_per_thread(label, structured, jitter, lam, prior, width):
     """#10 (kFactor) bit for bit against ``unpacked_mniw_kernel<24 | 48,
     kFactor>`` on structured leaves (chol, white, row)."""
@@ -2066,13 +2090,9 @@ def factor_vs_per_thread(label, structured, jitter, lam, prior, width):
                        {"fb": f"factorize_blocks{width}"})
 
 
-def check_asymmetric_set(label, S, phi, lam, prior, m, n, jitter, gen):
-    """#10 and #11 on statistics whose T1 and T2 are not exactly
-    symmetric: S unpacked and each entry of T1 and T2 scaled by 1 +
-    1e-2 z (z standard normal from ``gen``). Bit for bit against the
-    per-thread kernels (whose reader takes 0.5 (T1[i][c] + T1[c][i]) and
-    T2 as stored), and within CS_TOL of the plain versions (T1 symmetrised,
-    T2 as stored); #11 on structured and flat leaves."""
+def asymmetric(S, m, n, gen, label):
+    """The packed ``S`` unpacked to structured leaves with each entry of T1
+    and T2 scaled by 1 + 1e-2 z (z standard normal from ``gen``)."""
     st = list(structured(S, m, n))
     for i in (1, 2):
         st[i] = st[i] * (1 + 1e-2 * torch.randn(st[i].shape, generator=gen, device=S.device))
@@ -2080,11 +2100,27 @@ def check_asymmetric_set(label, S, phi, lam, prior, m, n, jitter, gen):
             f"{label}: T1 is still symmetric")
     require(n == 1 or not bitwise(st[2], st[2].transpose(0, 1).contiguous()),
             f"{label}: T2 is still symmetric")
-    flat = tuple(leaf.reshape(-1, leaf.shape[-1]) for leaf in st)
+    return st
+
+
+def check_asymmetric_set(label, S, phi, lam, prior, m, n, jitter, gen):
+    """#10, #11 and #13 on statistics whose T1 and T2 are not exactly
+    symmetric (:func:`asymmetric`; #13 on S plus the packed prior, as
+    :func:`check_unpacked_set` gives it, its noise from a generator of its
+    own, so that ``gen`` draws what it drew before). Bit for bit against the
+    per-thread kernels (whose reader takes 0.5 (T1[i][c] + T1[c][i]) and
+    T2 as stored), and within CS_TOL of the plain versions (T1 symmetrised,
+    T2 as stored); #11 and #13 on structured and flat leaves."""
+    st = asymmetric(S, m, n, gen, label)
+    one = torch.zeros(1, dtype=S.dtype, device=S.device)
+    nat = asymmetric(S + mniw.pack_stats_bl(mniw.MNIW(*(b[..., None] for b in prior), one)), m, n,
+                     torch.Generator(device=S.device).manual_seed(100 * m + n), label)
     width = "<24w>" if m <= 24 else "<48w>"
     label = f"{label}, asymmetric T1 and T2"
-    errs = {"factorize_project_blocks": 0.0}
-    for layout, leaves, kw in (("structured", tuple(st), {}), ("flat", flat, dict(m=m, n=n))):
+    errs = {"factorize_project_blocks": 0.0, "log_base_measure_logdets": 0.0}
+    for layout, kw in (("structured", {}), ("flat", dict(m=m, n=n))):
+        leaves, nat_leaves = (tuple(leaf.reshape(-1, leaf.shape[-1]) if kw else leaf
+                                    for leaf in lv) for lv in (st, nat))
         tag = f"{layout} {label}"
         unpacked_vs_per_thread(tag, leaves, phi, jitter, lam, prior, kw, width)
         errs["factorize_project_blocks"] = max(errs["factorize_project_blocks"], check_finite(
@@ -2092,6 +2128,11 @@ def check_asymmetric_set(label, S, phi, lam, prior, m, n, jitter, gen):
                 FP_NAMES, ck.factorize_project_blocks(*leaves, phi, jitter, lam, prior, **kw),
                 ck.factorize_project_blocks_plain(*leaves, phi, jitter, lam, prior, **kw)),
             CS_TOL, ILL))
+        logdets_vs_per_thread(f"{tag} (prior + statistics)", nat_leaves, jitter, kw, width)
+        errs["log_base_measure_logdets"] = max(errs["log_base_measure_logdets"], check_finite(
+            f"log_base_measure_logdets {tag} (prior + statistics)", zip(
+                LD_NAMES, ck.log_base_measure_logdets(*nat_leaves, jitter, **kw),
+                ck.log_base_measure_logdets_plain(*nat_leaves, jitter, **kw)), CS_TOL, ILL))
     factor_vs_per_thread(label, st, jitter, lam, prior, width)
     errs["factorize_blocks"] = check_finite(
         f"factorize_blocks {label}", zip(FACTOR_NAMES, ck.factorize_blocks(*st, jitter, lam, prior),
@@ -2145,13 +2186,13 @@ def project_yardstick(label, chol, white, phi, flush, suffix=""):
 
 def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     """Phase 18: the unpacked kernels against their plain versions and
-    across layouts, and #10, #11 and #12 bit for bit against their
-    per-thread kernels (:func:`check_unpacked_set`), timed (cold L2)
-    beside their bounds (#10, #11 and #13 at N = 32768 also beside the
-    library call, :func:`library_yardstick`, #10 and #11 at 10240 too;
-    #10, #11 and #12 in turns with their per-thread kernels at 32768, 10240
-    and 200; #12 beside ``torch.linalg.solve_triangular`` at 32768 and
-    10240, :func:`project_yardstick`), at
+    across layouts, and all four bit for bit against their per-thread
+    kernels (:func:`check_unpacked_set`), timed (cold L2) beside their
+    bounds (#10, #11 and #13 at N = 32768 and 10240 also beside the
+    library call, :func:`library_yardstick`; all four in turns with their
+    per-thread kernels at 32768, 10240 and 200, #13 also at m = 41 on the
+    oscillator's statistics; #12 beside ``torch.linalg.solve_triangular``
+    at 32768 and 10240, :func:`project_yardstick`), at
 
     - the vehicle APF's statistics after ``UNPACKED_FILTER_STEPS``
       filtering steps (the port's own APF, front GP, m = 20, n = 1),
@@ -2160,18 +2201,20 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
       rank-1 Gibbs widths), its first 777 (ragged);
     - the oscillator APF's statistics (m = 41) after as many steps at a
       ragged N = 1000, and synthetic ones at n = 2 (m = 20, N = 777;
-      m = 41, N = 300), these also with T1 and T2 made asymmetric for #10
-      and #11 (:func:`check_asymmetric_set`).
+      m = 41, N = 300), these also with T1 and T2 made asymmetric for #10,
+      #11 and #13 (:func:`check_asymmetric_set`).
 
     Returns the APF run's result (the entry-point phase's input)."""
     m, n = M, NN
     for mode, info in warp_ptxas().items():
-        if mode.split(",")[0] in ("kFactor", "kProjectUnpacked", "kFromFactor"):
+        if mode.split(",")[0] in ("kFactor", "kProjectUnpacked", "kFromFactor",
+                                  "kLogdetsUnpacked"):
             print(f"  warp_mniw_kernel<{mode}> (ptxas): {info}", flush=True)
     for m_p, N_p in ((m, N), (m, N_GIBBS), (m, N_CS_GIBBS), (41, N)):
         for mode, what in (("factor", "factorization"),
                            ("project_unpacked", "factorization/projection"),
-                           ("from_factor", "projection from a given factor")):
+                           ("from_factor", "projection from a given factor"),
+                           ("logdets_unpacked", "log-determinants")):
             W, P, smem = ck.warp_plan(m_p, n, N_p, mode=mode)
             print(f"  warp {what} at m={m_p} n={n} N={N_p}: {W} warps, {P} particles per "
                   f"block, {smem} B of dynamic shared memory per block", flush=True)
@@ -2190,22 +2233,24 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
     bytes_, flops = unpacked_bytes(m, n, N), unpacked_flops(m, n)
     for name in UNPACKED:
         # the warp kernels' ms: in turns with their per-thread kernels, below
-        record_kernel(results, name, None if name in UNPACKED_WARP else calls[name][0],
-                      calls[name][1], bytes_[name], N * flops[name], errs[name], flush)
+        record_kernel(results, name, None, calls[name][1], bytes_[name], N * flops[name],
+                      errs[name], flush)
 
-    def warp_in_turns(calls, per_thread, width, label, suffix=""):
-        """#10, #11 and #12 in turns with their per-thread kernels at
-        ``width``, on the card's time alone (the unpacked wrappers' host
-        work, a prior concatenation and four allocations, can take as long
-        as the warp kernels at 32768): the warp and
+    def warp_in_turns(calls, per_thread, width, label, suffix="", m=m, names=UNPACKED):
+        """The unpacked kernels ``names`` in turns with their per-thread
+        kernels at ``width``, on the card's time alone (the unpacked
+        wrappers' host work, a prior concatenation and four allocations,
+        can take as long as the warp kernels at 32768): the warp and
         per-thread ms and the bound, into the results under keys ending in
         ``suffix``."""
-        for name in UNPACKED_WARP:
+        flops = unpacked_flops(m, n)
+        for name in names:
             ms_w, ms_pt = in_turns(calls[name][0], per_thread[name], flush, hide_host=True)
             bound = max(unpacked_bytes(m, n, width)[name] / PEAK_BYTES_PER_S,
                         width * flops[name] / PEAK_F32_FLOPS) * 1e3
-            print(f"  {name}<24w> {label} in turns: warp {ms_w:.4f} ms, per-thread "
-                  f"{ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound {bound:.5f} ms)", flush=True)
+            print(f"  {name}{'<24w>' if m <= 24 else '<48w>'} {label} in turns: warp "
+                  f"{ms_w:.4f} ms, per-thread {ms_pt:.4f} ms ({ms_pt / ms_w:.2f}x; bound "
+                  f"{bound:.5f} ms)", flush=True)
             results[name].update({"ms" + suffix: ms_w, "per_thread_ms" + suffix: ms_pt,
                                   **({"bound_ms" + suffix: bound} if suffix else {})})
 
@@ -2244,6 +2289,10 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
             for name, times in unpacked_yardsticks(label_w, calls_w, inputs_w["structured"],
                                                    jitter, 1.0, prior, flush, suffix).items():
                 results[name].update(times)
+            lbm_w = calls_w["log_base_measure_logdets"]
+            results["log_base_measure_logdets"].update(library_yardstick(
+                f"{label_w}, unpack(S_nat)", inputs_w["nat"], jitter, None, lbm_w[1](), lbm_w[0],
+                flush, suffix))
         bytes_w = unpacked_bytes(m, n, width)
         for name in UNPACKED:
             bound = max(bytes_w[name] / PEAK_BYTES_PER_S,
@@ -2261,8 +2310,12 @@ def unpacked_kernel_checks(dev, model, Y, U, cs, results, jitter, flush):
                                          for leaf in o_res.final_stats[0]))).contiguous()
     phi_o = o_model.gp.basis_fn_bl(o_res.states[-1].T.contiguous(), o_U[k]).contiguous()
     o_prior = tuple(o_model.gp.prior_as(torch.float32, dev)[:3])
-    check_unpacked_set(f"oscillator m={m_o} n=1 N=1000 lam={LAM}", S_o, phi_o, LAM, o_prior,
-                       m_o, 1, jitter)
+    label_o = f"oscillator m={m_o} n=1 N=1000 lam={LAM}"
+    _, calls_o, per_thread_o, _ = check_unpacked_set(label_o, S_o, phi_o, LAM, o_prior, m_o, 1,
+                                                     jitter)
+    # #13's <48w> (a warp per particle), in turns with its per-thread <48>
+    warp_in_turns(calls_o, per_thread_o, 1000, label_o, "_48w", m=m_o,
+                  names=("log_base_measure_logdets",))
     gen = torch.Generator(device=dev).manual_seed(43)
     for m_e, n_e, N_e in ((20, 2, 777), (41, 2, 300)):
         S_e, phi_e, prior_e = edge_case(gen, dev, m_e, n_e, N_e)
@@ -2335,7 +2388,7 @@ def entry_point_calls(dev, model, Y, U, res, jitter):
                   for pr, st in zip(kern.priors, stats))
     counted("mniw.log_base_measure_bl per GP", lambda kr: [
         mniw.log_base_measure_bl(post, plain=kr.reference) for post in posts],
-        "log_base_measure_logdets<24>")
+        "log_base_measure_logdets<24w>")
 
     # the plain versions of every kernel, on card tensors: no launch
     m, n = M, NN
@@ -2928,6 +2981,138 @@ def emps_apf_path_vs_plain(dev, model, Y, U, n_particles, steps, seeds):
     paired_gate("EMPS APF path-vs-plain", stats[False], stats[True], ("q", "dq", "friction"))
 
 
+# ---------------------------------------------------------------------------
+# Parallel Gibbs chains (build_gibbs(n_chains=C)) and their convergence
+# diagnostics (utils/diagnostics.py).
+# ---------------------------------------------------------------------------
+
+CHAINS = 4  # phase 24's toy chains
+CHAINS_ITERATIONS = 41  # 40 sweeps, as phase 12's toy sampler
+CHAINS_SAME = 4  # iterations of each chain held bit for bit against the single-chain sampler
+CHAINS_RHAT_GATE = 1.7  # tests/test_chains.py's bound on the split R-hat
+EMPS_CHAINS_ARGS = ("--chains", "2", "--skip-baseline", "--gibbs-iters", "3",
+                    "--max-steps", "600", "--particles", "200")
+
+
+class _Tee:
+    """Writes to the real standard output and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, []
+
+    def write(self, text):
+        self.kept.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def chains_phase(dev, cs, smi, out_dir):
+    """Phase 24: the toy Gibbs sampler at ``ToyConfig``'s width (200
+    particles, m = 40, 39 steps) as ``CHAINS`` parallel chains from phase
+    12's reference (the same seed), 40 sweeps with exact launches per
+    sweep: ``CHAINS`` times the single chain's. Each chain's first
+    ``CHAINS_SAME`` iterations (three sweeps) bit for bit against
+    ``build_gibbs`` without ``n_chains`` run on that chain's generator,
+    with the single chain's launches per sweep; the split R-hat and bulk
+    ESS of the trajectory-mean interface variable over the second half of
+    the sweeps, finite, the R-hat under ``CHAINS_RHAT_GATE``. Then the EMPS
+    entry point with ``EMPS_CHAINS_ARGS``: exact launches after every part
+    (two chains' worth per Gibbs sweep), the friction's summary line
+    printed, and its ``.mat`` file (chain 0) read back with the script's
+    keys but the baseline's four. Returns the launches of both chain
+    runs."""
+    from bipk_tpu_torch.scripts import emps as emps_script
+
+    model, X, Y, U, _ = cs["toy"]
+    g, ref_state, ref_iv = seed_reference(dev, model, Y, U, N_CS_GIBBS, seed=6)
+    g_state = g.get_state()
+    steps = Y.shape[0] - 1
+    single = {WARP_KEYS["fp"]: steps, "systematic_ancestors_blocks": steps,
+              WARP_KEYS["lbm"]: steps, WARP_KEYS["dug"]: steps}
+    print(f"  toy: {CHAINS} chains, {N_CS_GIBBS} particles, {steps} steps, "
+          f"{CHAINS_ITERATIONS - 1} sweeps", flush=True)
+    res, toy_launches, _ = counted_gibbs(
+        dev, g, model, Y, U, ref_state, ref_iv, N_CS_GIBBS, CHAINS_ITERATIONS,
+        {k: CHAINS * c for k, c in single.items()}, smi, n_chains=CHAINS)
+    g_again = torch.Generator(device=dev)
+    g_again.set_state(g_state)
+    for c, gen in enumerate(chain_generators(g_again, CHAINS)):
+        want, _, _ = counted_gibbs(dev, gen, model, Y, U, ref_state, ref_iv, N_CS_GIBBS,
+                                   CHAINS_SAME, single, smi)
+        got, K = select_chain(res, c), CHAINS_SAME
+        pairs = [("states", got.states[:, :K], want.states),
+                 ("int_vars", got.int_vars[0][:, :K], want.int_vars[0]),
+                 ("outputs", got.outputs[:, :K], want.outputs),
+                 ("log_likelihood", got.log_likelihood[:, :K], want.log_likelihood),
+                 *((f"stats.{k}", g_[:K], w_)
+                   for k, g_, w_ in zip(mniw.MNIW._fields, got.stats[0], want.stats[0]))]
+        differ = [k for k, g_, w_ in pairs if not bitwise(g_, w_)]
+        print(f"  chain {c} against the single-chain sampler on its generator, {K} "
+              f"iterations: bitwise equal {'all' if not differ else 'but ' + str(differ)}",
+              flush=True)
+        require(not differ, f"chain {c}: {differ} differ from the single-chain sampler")
+    half = CHAINS_ITERATIONS // 2
+    draws = res.int_vars[0][:, :, half:, 0].mean(1).cpu()  # (C, K - half)
+    rhat = float(diagnostics.split_rhat(draws))
+    ess = float(diagnostics.ess_mean(draws))
+    (summary,) = diagnostics.gibbs_chain_summary(res.int_vars, half)
+    print(f"  toy chains, trajectory-mean interface variable over iterations {half}.."
+          f"{CHAINS_ITERATIONS - 1}: split R-hat {rhat} (gate {CHAINS_RHAT_GATE}), bulk ESS "
+          f"{ess} of {draws.numel()} draws; rank-normalized R-hat (the larger of it and its "
+          f"folded form) {summary['rhat']}", flush=True)
+    require(math.isfinite(rhat) and math.isfinite(ess) and math.isfinite(summary["rhat"]),
+            "toy chains: non-finite diagnostics")
+    require(rhat < CHAINS_RHAT_GATE, f"toy chains: split R-hat {rhat} >= {CHAINS_RHAT_GATE}")
+
+    # the EMPS entry point with two chains
+    out = os.path.join(out_dir, "EMPS_chains.mat")
+    args = emps_script.parse_args([*EMPS_CHAINS_ARGS, "--out", out]
+                                  + (["--cpu"] if dev.type == "cpu" else []))
+    emps_launches = dict.fromkeys(ck.launch_counts(), 0)
+    expected = {}
+
+    def hook(event, **info):
+        torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        ck.reset_launch_counts()
+        expect_counts(f"EMPS --chains {args.chains} {event}", counts, expected.get(event, {}))
+        if event == "model":
+            n = info["data"].observations.shape[0] - 1
+            apf = {WARP24_KEYS["fp"]: n, "systematic_ancestors_blocks": n, WARP24_KEYS["dug"]: n}
+            expected.update({"online": apf, "reference": apf, "gibbs-sweep": {
+                k: args.chains * c for k, c in {**apf, WARP24_KEYS["lbm"]: n}.items()}})
+        elif event == "gibbs-sweep":
+            for name, c in counts.items():
+                emps_launches[name] += c
+        elif event == "gibbs":
+            r = info["result"]
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (r.states, r.log_likelihood, r.int_vars[0], *r.stats[0]))
+            require(r.states.shape[0] == args.chains and finite,
+                    f"EMPS --chains {args.chains}: result not finite or not per chain")
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        emps_script.run(args, hook=hook)
+    said = "".join(tee.kept).splitlines()
+    line = next((ln for ln in said if "friction F:" in ln), None)
+    require(line is not None, f"EMPS --chains {args.chains}: no summary line")
+    import scipy.io
+
+    keys = {k for k in scipy.io.loadmat(out) if not k.startswith("__")}
+    baseline = {"offline_Sigma_X_PGAS", "offline_log_likelihood_PGAS", "RMSE_Alg2", "RMSE_PGAS"}
+    require(keys == emps_script.MAT_KEYS - baseline,
+            f"EMPS_chains.mat keys {sorted(keys)}, expected those of scripts/emps.py but "
+            f"{sorted(baseline)}")
+    print(f"  EMPS --chains {args.chains} at {args.particles} particles x {args.max_steps} steps: "
+          f"summary {line.strip()!r}; .mat (chain 0) read back with {len(keys)} keys", flush=True)
+    return {"toy_chains": toy_launches, "emps_chains": emps_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3382,6 +3567,14 @@ def main() -> int:
         emps_counts, _ = emps_phase(dev, smi, out_dir)
     phase_done("emps", t0)
 
+    # --------------------------------------------------------------- 24
+    # parallel chains after every earlier phase, so that phases 1-23 run
+    # as the parent's do
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        chains_counts = chains_phase(dev, cs, smi, out_dir)
+    phase_done("chains", t0)
+
     # one entry per kernel: rows 1, 3, 4 and 5 are the warp kernels at
     # m <= 24 (the per-thread <24> kernels they replace timed beside them),
     # 2 the resampler, rows 6 and 7 the warp kernels at m <= 48 (the TPU's
@@ -3394,16 +3587,18 @@ def main() -> int:
     # beside them, and cholesky_ex on their augmented matrices), 12 the
     # projection from a given factor (kFromFactor, project_kernel<24> beside
     # it, and torch.linalg.solve_triangular's v alone), 13 the unpacked
-    # log-determinants' m <= 24 instantiation. launches: over the fifteen main
-    # paths' runs, each counted from zero
+    # log-determinants (kLogdetsUnpacked, unpacked_mniw_kernel<24, kLogdets>
+    # beside it, cholesky_ex on its augmented matrices, and at m = 41 the
+    # <48w> against <48>, keys ending in _48w). launches: over the
+    # seventeen main paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
              "apf_reuse": reuse_counts, "apf_dedup": dedup_counts,
              "gibbs_reuse": gibbs_reuse_counts, "entry_points": entry_counts,
-             "gibbs_rank1": gibbs_rank1_counts, **pgas_counts, **emps_counts}
+             "gibbs_rank1": gibbs_rank1_counts, **pgas_counts, **emps_counts,
+             **chains_counts}
     mniw_src, sys_src = "bipk_tpu_torch/csrc/packed_mniw.cu", "bipk_tpu_torch/csrc/systematic.cu"
     warp_src = "bipk_tpu_torch/csrc/warp_mniw.cu"
-    unpacked_src = "bipk_tpu_torch/csrc/unpacked_mniw.cu"
     pk = "bipk_tpu/ops/pallas_kernels.py"
     rows = (  # (row, name, result and count key, source, replaces)
         (1, "factorize_project_packed", WARP24_KEYS["fp"], warp_src, f"{pk}:1740"),
@@ -3424,7 +3619,7 @@ def main() -> int:
         (11, "factorize_project_blocks", "factorize_project_blocks<24w>", warp_src,
          f"{pk}:1634"),
         (12, "project_blocks", "project_blocks<24w>", warp_src, f"{pk}:1712"),
-        (13, "log_base_measure_logdets", "log_base_measure_logdets<24>", unpacked_src,
+        (13, "log_base_measure_logdets", "log_base_measure_logdets<24w>", warp_src,
          f"{pk}:2000"),
     )
     kernels = []
@@ -3443,7 +3638,7 @@ def main() -> int:
             # particles at m = 20, 200 at m = 40, 41); the log-determinants:
             # kernel and library call on the card's time alone
             **{k: v for k, v in r.items()
-               if "per_thread" in k or "gibbs" in k or "device" in k},
+               if "per_thread" in k or "gibbs" in k or "device" in k or k.endswith("_48w")},
         ))
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} seconds", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -213,8 +213,35 @@ def test_entry_point_writes_the_jax_scripts_keys(tmp_path):
     assert np.isfinite(mat["RMSE_Alg2"]).all() and np.isfinite(mat["RMSE_PGAS"]).all()
 
 
-@pytest.mark.parametrize("flag,item", [(["--chains", "4"], 5), (["--mesh", "2"], 8),
-                                       (["--checkpoint", "c.pt"], 6)])
+def test_entry_point_runs_parallel_chains(tmp_path, capsys):
+    """``--chains 2`` at the size of the test above (baseline skipped),
+    with enough sweeps for a summary (4 draws per chain after burn-in):
+    one Gibbs-sweep event per iteration for both chains, the friction's
+    R-hat and bulk ESS printed and finite, and the ``.mat`` file written
+    from chain 0 with the script's keys but the baseline's four."""
+    out = tmp_path / "EMPS.mat"
+    seen = {}
+    args = emps_script.parse_args(["--cpu", "--particles", "24", "--gibbs-iters", "8",
+                                   "--max-steps", "40", "--skip-baseline", "--chains", "2",
+                                   "--data-dir", str(tmp_path), "--out", str(out)])
+    emps_script.run(args, hook=lambda event, **info: seen.setdefault(event, []).append(info))
+    assert len(seen["gibbs-sweep"]) == 7
+    chains = seen["gibbs"][0]["result"]
+    assert chains.states.shape == (2, 40, 8, 2) and chains.int_vars[0].shape == (2, 40, 8, 1)
+    said = capsys.readouterr().out
+    line = next(ln for ln in said.splitlines() if "friction F:" in ln)
+    rhat = float(line.split("R-hat ")[1].split(",")[0])
+    ess = float(line.split("ESS ")[1].split()[0])
+    assert np.isfinite(rhat) and np.isfinite(ess) and line.endswith("of 8 draws"), line
+    assert "8 Gibbs sweeps x 2 chains" in said
+    mat = scipy.io.loadmat(out)
+    baseline = {"offline_Sigma_X_PGAS", "offline_log_likelihood_PGAS", "RMSE_Alg2", "RMSE_PGAS"}
+    assert {k for k in mat if not k.startswith("__")} == emps_script.MAT_KEYS - baseline
+    np.testing.assert_array_equal(mat["offline_Sigma_X"], chains.states[0].numpy())
+    np.testing.assert_array_equal(mat["offline_T1"], chains.stats[0].T1[0].numpy())
+
+
+@pytest.mark.parametrize("flag,item", [(["--mesh", "2"], 8), (["--checkpoint", "c.pt"], 6)])
 def test_entry_point_raises_on_what_is_not_ported(flag, item):
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         emps_script.parse_args(["--cpu", *flag])

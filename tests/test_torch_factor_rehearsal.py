@@ -116,9 +116,10 @@ def test_warp_factor_pair_plan_and_widths(host_lib):
         assert plan(mode, 25, 1, 300)[0] != 0
         assert plan(mode, 24, 3, 300)[0] != 0
     assert plan(project, 41, 1, 300)[0] == 0 and plan(logdets, 48, 2, 300)[0] == 0
-    # mode 9 is no mode of the warp kernel (kFactor, 4, is one since the
-    # unpacked factorization moved onto it: test_torch_unpacked_rehearsal.py)
-    assert plan(9, 20, 1, 300)[0] != 0
+    # mode 10 is no mode of the warp kernel (kFactor, 4, and
+    # kLogdetsUnpacked, 9, are ones since the unpacked factorization and
+    # log-determinants moved onto it: test_torch_unpacked_rehearsal.py)
+    assert plan(10, 20, 1, 300)[0] != 0
     refused = lib.bipk_draw_update_factor_gather_packed(
         None, None, 8, None, 8, None, None, None, None, ctypes.c_float(0.0), 25, 1,
         ctypes.c_float(1.0), None, None, None, None)

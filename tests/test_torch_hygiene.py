@@ -51,6 +51,7 @@ def test_port_imports_with_jax_absent():
         "import bipk_tpu_torch.algorithms.gibbs, bipk_tpu_torch.utils.matio\n"
         "import bipk_tpu_torch.models.oscillator, bipk_tpu_torch.models.toy\n"
         "import bipk_tpu_torch.ops.cholup, bipk_tpu_torch.algorithms.csmc\n"
+        "import bipk_tpu_torch.utils.diagnostics\n"
         "print('ok')"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -104,7 +105,8 @@ def test_launches_count_per_instantiation():
             ck.draw_update_gather_packed_blocks, ck.log_base_measure_packed_logdets)
     assert ck.WARP == (*warp, ck.draw_update_factor_gather_packed_blocks,
                        ck.draw_update_dedup_gather_packed_blocks, ck.project_blocks,
-                       ck.factorize_blocks, ck.factorize_project_blocks)
+                       ck.factorize_blocks, ck.factorize_project_blocks,
+                       ck.log_base_measure_logdets)
     ck.reset_launch_counts()
     try:
         for fn in warp:
@@ -154,13 +156,24 @@ def test_launches_count_per_instantiation():
 
 
 def test_gibbs_slice_unported_modes_raise():
+    """``n_chains=4`` builds the chain-parallel sampler; the mesh keywords
+    still raise, ``NotImplementedError`` naming Queue A item 8, and the
+    combinations the JAX package refuses raise ``ValueError``."""
+    from bipk_tpu_torch.algorithms.gibbs import ParallelGibbs
+
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
     for kwargs in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError):
             build_csmc(model.ssm, model.gps, 64, device="cpu", **kwargs)
-    for kwargs in (dict(n_chains=4), dict(mesh=object()), dict(shard_mesh=object()),
-                   dict(chain_mesh=object())):
-        with pytest.raises(NotImplementedError):
+    chains = build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", n_chains=4)
+    assert isinstance(chains, ParallelGibbs) and chains.n_chains == 4
+    for kwargs in (dict(mesh=object()), dict(shard_mesh=object()),
+                   dict(n_chains=4, chain_mesh=object())):
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+            build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", **kwargs)
+    for kwargs in (dict(chain_mesh=object()), dict(n_chains=4, mesh=object()),
+                   dict(n_chains=4, shard_mesh=object()), dict(n_chains=1)):
+        with pytest.raises(ValueError):
             build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", **kwargs)
 
 
@@ -317,6 +330,7 @@ def _packed_wrapper_calls(m, n=1, N=8):
     leaves = (_CardTensor(m, n, N), _CardTensor(m, m, N), _CardTensor(n, n, N))
     calls["factorize_blocks"] = lambda: ck.factorize_blocks(*leaves, 0.0)
     calls["factorize_project_blocks"] = lambda: ck.factorize_project_blocks(*leaves, phi, 0.0)
+    calls["log_base_measure_logdets"] = lambda: ck.log_base_measure_logdets(*leaves, 0.0)
     return calls
 
 
@@ -334,10 +348,10 @@ def _recording_lib(monkeypatch):
 @pytest.mark.parametrize("m", [20, 25, 41, 48])
 def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
     """On a CUDA tensor every packed wrapper, the projection from a given
-    factor and the unpacked factorization and factorization/projection
-    reach their own C entries, which launch the warp kernels for the
-    look-ahead, the draws, the log-determinants, the projection and the
-    unpacked modes at every m (counted ``<24w>`` for m <= 24, ``<48w>``
+    factor and the unpacked factorization, factorization/projection and
+    log-determinants reach their own C entries, which launch the warp
+    kernels for the look-ahead, the draws, the log-determinants, the
+    projection and the unpacked modes at every m (counted ``<24w>`` for m <= 24, ``<48w>``
     above) and for the
     factor pair and the dedup gather at m <= 24 (``[emit]<24w>``,
     ``<24w>``); none reaches the per-thread comparator's entries, and none
@@ -355,11 +369,13 @@ def test_per_thread_comparator_is_reachable_from_no_wrapper(monkeypatch, m):
     assert len(lib.called) == len(calls)
     assert not [c for c in lib.called if "per_thread" in c]
     width = "<24" if m <= 24 else "<48"
-    for fn in (*ck.WARP[:4], ck.project_blocks, ck.factorize_blocks, ck.factorize_project_blocks):
+    for fn in (*ck.WARP[:4], ck.project_blocks, ck.factorize_blocks, ck.factorize_project_blocks,
+               ck.log_base_measure_logdets):
         assert counts[f"{fn.__name__}{width}w>"] == 1
         assert counts[f"{fn.__name__}<24>"] == 0
         assert counts[f"{fn.__name__}<48>"] == 0
     assert "bipk_log_base_measure_packed" in lib.called
+    assert "bipk_log_base_measure_logdets" in lib.called
     assert "bipk_project_blocks" in lib.called
     assert "bipk_factorize_blocks" in lib.called
     assert "bipk_factorize_project_blocks" in lib.called
@@ -381,8 +397,8 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
     ``*_per_thread`` C entries and counts the per-thread instantiation
     that serves m: ``<24>`` for m <= 24, ``<48>`` above; no warp key. So
     do the projection's (``project_kernel<24 | 48>``), the unpacked
-    factorization's and factorization/projection's
-    (``unpacked_mniw_kernel<24 | 48, kFactor | kProject>``) and, at m <=
+    factorization's, factorization/projection's and log-determinants'
+    (``unpacked_mniw_kernel<24 | 48, kFactor | kProject | kLogdets>``) and, at m <=
     24, the dedup gather's (``dedup_gather_kernel``); m > 24 the dedup's
     refuses before any launch."""
     lib = _recording_lib(monkeypatch)
@@ -399,6 +415,7 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
         leaves = (_CardTensor(m, 1, N), _CardTensor(m, m, N), _CardTensor(1, 1, N))
         ck.factorize_blocks_per_thread(*leaves, 0.0)
         ck.factorize_project_blocks_per_thread(*leaves, phi, 0.0)
+        ck.log_base_measure_logdets_per_thread(*leaves, 0.0)
         if m <= 24:
             ck.draw_update_dedup_gather_packed_blocks_per_thread(S, anc, phi, u, u, 0.0, m=m,
                                                                  n=1)
@@ -416,9 +433,11 @@ def test_per_thread_comparator_counts_its_width_and_reaches_its_entry(monkeypatc
                           "bipk_project_blocks_per_thread",
                           "bipk_factorize_blocks_per_thread",
                           "bipk_factorize_project_blocks_per_thread",
+                          "bipk_log_base_measure_logdets_per_thread",
                           *(["bipk_draw_update_dedup_gather_packed_per_thread"] * (m <= 24))]
     width = "<24>" if m <= 24 else "<48>"
-    for fn in (*ck.WARP[:4], ck.project_blocks, ck.factorize_blocks, ck.factorize_project_blocks):
+    for fn in (*ck.WARP[:4], ck.project_blocks, ck.factorize_blocks, ck.factorize_project_blocks,
+               ck.log_base_measure_logdets):
         assert counts[f"{fn.__name__}{width}"] == 1
     if m <= 24:
         assert counts["draw_update_dedup_gather_packed_blocks<24>"] == 1
@@ -467,12 +486,14 @@ def test_per_thread_comparator_is_called_by_no_module_of_the_port():
              "draw_update_factor_gather_packed_blocks_per_thread",
              "draw_update_dedup_gather_packed_blocks_per_thread", "project_blocks_per_thread",
              "factorize_blocks_per_thread", "factorize_project_blocks_per_thread",
+             "log_base_measure_logdets_per_thread",
              "bipk_factorize_project_packed_per_thread", "bipk_draw_update_packed_per_thread",
              "bipk_log_base_measure_packed_per_thread", "bipk_systematic_ancestors_per_thread",
              "bipk_draw_update_factor_gather_packed_per_thread",
              "bipk_draw_update_dedup_gather_packed_per_thread",
              "bipk_project_blocks_per_thread", "bipk_factorize_blocks_per_thread",
-             "bipk_factorize_project_blocks_per_thread")
+             "bipk_factorize_project_blocks_per_thread",
+             "bipk_log_base_measure_logdets_per_thread")
     for path in sorted((REPO / "bipk_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         own = set()
@@ -548,6 +569,8 @@ def test_per_thread_comparator_needs_a_card():
         ck.factorize_blocks_per_thread(*leaves, 0.0)
     with pytest.raises(ValueError, match="CUDA tensor only"):
         ck.factorize_project_blocks_per_thread(*leaves, phi, 0.0)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        ck.log_base_measure_logdets_per_thread(*leaves, 0.0)
 
 
 def test_kernels_take_decides_by_device_dtype_and_width():
@@ -619,10 +642,10 @@ def test_project_wrapper_checks_its_bounds():
 
 def test_unpacked_launches_count_per_instantiation():
     """The unpacked wrappers count launches per width (the projection from
-    a given factor, the factorization and the factorization/projection by
-    their warp kernel's, ``<24w>`` / ``<48w>``, and their per-thread
-    comparator's, ``<24>`` / ``<48>``; the log-determinants by their
-    per-thread kernel's), and the CPU ones (plain versions) count none."""
+    a given factor, the factorization, the factorization/projection and
+    the log-determinants by their warp kernel's, ``<24w>`` / ``<48w>``,
+    and their per-thread comparator's, ``<24>`` / ``<48>``), and the CPU
+    ones (plain versions) count none."""
     ck.reset_launch_counts()
     try:
         ck._count(ck.project_blocks, 20)
@@ -633,6 +656,7 @@ def test_unpacked_launches_count_per_instantiation():
         ck._count(ck.factorize_project_blocks, 48)
         ck._count(ck.factorize_project_blocks, 20, per_thread=True)
         ck._count(ck.log_base_measure_logdets, 41)
+        ck._count(ck.log_base_measure_logdets, 20, per_thread=True)
         counts = ck.launch_counts()
         assert counts["project_blocks<24w>"] == 1 and counts["project_blocks<48w>"] == 1
         assert counts["project_blocks<24>"] == 0 and counts["project_blocks<48>"] == 1
@@ -640,9 +664,11 @@ def test_unpacked_launches_count_per_instantiation():
         assert counts["factorize_blocks<24>"] == 0 and counts["factorize_blocks<48w>"] == 0
         assert counts["factorize_project_blocks<48w>"] == 1
         assert counts["factorize_project_blocks<24>"] == 1
-        assert counts["log_base_measure_logdets<48>"] == 1
-        assert "log_base_measure_logdets<48w>" not in counts
-        assert sum(counts.values()) == 8
+        assert counts["log_base_measure_logdets<48w>"] == 1
+        assert counts["log_base_measure_logdets<24>"] == 1
+        assert counts["log_base_measure_logdets<48>"] == 0
+        assert counts["log_base_measure_logdets<24w>"] == 0
+        assert sum(counts.values()) == 9
     finally:
         ck.reset_launch_counts()
     F = torch.eye(21)[:, :, None].expand(21, 21, 4).contiguous()

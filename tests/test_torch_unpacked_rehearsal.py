@@ -1,7 +1,8 @@
 """The warp kernel's unpacked modes (``csrc/warp_mniw.cu``: kFactor, the
-factorization written whole, and kProjectUnpacked, the factorization
-projected at phi) against the per-thread kernels they replace
-(``unpacked_mniw_kernel<24 | 48, kFactor | kProject>``,
+factorization written whole, kProjectUnpacked, the factorization
+projected at phi, and kLogdetsUnpacked, the log-determinants at lam = 1
+with no prior) against the per-thread kernels they replace
+(``unpacked_mniw_kernel<24 | 48, kFactor | kProject | kLogdets>``,
 ``csrc/unpacked_mniw.cu``), bit for bit, run on the host.
 
 The kernels are built with ``g++`` against ``tests/cuda_threads_stub.h``
@@ -10,9 +11,13 @@ host thread, ``-ffp-contract=off``: equal bits say that every output takes
 the same operations in the same order), with ``unpacked_mniw.cu`` and
 ``dedup_gather.cu`` beside them. The launches go through the wrappers' own
 argument paths (``cuda_kernels._factorize`` and
-``cuda_kernels._factorize_project_unpacked``) with the C entries:
-``bipk_factorize_blocks`` / ``bipk_factorize_project_blocks`` (the warp
-kernel) and their ``*_per_thread`` comparators.
+``cuda_kernels._factorize_project_unpacked``,
+``cuda_kernels._logdets_unpacked``) with the C entries:
+``bipk_factorize_blocks`` / ``bipk_factorize_project_blocks`` /
+``bipk_log_base_measure_logdets`` (the warp kernel) and their
+``*_per_thread`` comparators. The log-determinants take the statistics
+plus the set's prior, packed (a filter's statistics alone may be
+singular; the kernel itself takes no prior).
 
 One child process per set, each with its own time limit: m = 20 at n = 1
 and 2 (the vehicle's width), m = 24 with n = 2, m = 9, m = 6 with n = 2,
@@ -25,8 +30,10 @@ T2 that are not exactly symmetric, which the kernels read as
 to the plain versions at 1e-3. On exactly symmetric statistics (the packed
 ``S`` unpacked) the sets also hold, bit for bit, the projection of
 unpack(S) against the warp look-ahead (#1) on S, the factor's row against
-#1's, and (m <= 24) chol and white against the factor-emitting look-ahead's
-``LW``; chol is exactly zero above its diagonal on every set.
+#1's, (m <= 24) chol and white against the factor-emitting look-ahead's
+``LW``, and the log-determinants of unpack(S + prior) against the warp
+kLogdets (#5) on S + prior with no prior; chol is exactly zero above its
+diagonal on every set.
 """
 
 import ctypes
@@ -131,13 +138,65 @@ def test_warp_unpacked_modes_equal_the_per_thread_kernels_bit_for_bit(host_lib, 
     _run(UNPACKED_CHILD, host_lib, _specs([spec]), "unpacked modes bitwise equal")
 
 
+LOGDETS_CHILD = COMMON + r"""
+for spec in sys.argv[2:]:
+    m, n, N, lam, with_prior, asym = spec.split(",")
+    m, n, N, asym = int(m), int(n), int(N), asym == "1"
+    label = f"m={m} n={n} N={N} asymmetric={asym}"
+    print(f"set {label}", flush=True)
+    rng = np.random.default_rng(1000 * m + 10 * n + N + 17)
+    S, prior, _, scale = stats(rng, m, n, N)
+    # the statistics plus the prior, packed: a filter's statistics alone
+    # may be singular, and the kernel itself takes no prior
+    S_nat = S + mniw.pack_stats_bl(mniw.MNIW(*(b[..., None] for b in prior), torch.zeros(1)))
+    flat = [t.contiguous() for t in mniw.unpack_stats_bl(S_nat, m, n)[:3]]
+    if asym:
+        for i in (1, 2):
+            flat[i] = (flat[i].double() * (1 + 1e-2 * rng.standard_normal(flat[i].shape))).float()
+        T1 = flat[1].reshape(m, m, N)
+        assert not torch.equal(T1, T1.transpose(0, 1))
+    structured = (flat[0].reshape(m, n, N), flat[1].reshape(m, m, N), flat[2].reshape(n, n, N))
+    ld = {}
+    for layout, leaves, kw in (("structured", structured, {}), ("flat", tuple(flat), dict(m=m, n=n))):
+        ld[layout] = {k: ck._logdets_unpacked(k, *leaves, jitter, m, n, getattr(lib, entry))[1]
+                      for k, entry in (("warp", "bipk_log_base_measure_logdets"),
+                                       ("per_thread", "bipk_log_base_measure_logdets_per_thread"))}
+        tag = f"log-determinants, {layout} leaves, {label}"
+        same(tag, LD, ld[layout]["warp"], ld[layout]["per_thread"])
+        close(tag, LD, ld[layout]["per_thread"],
+              ck.log_base_measure_logdets_plain(*leaves, jitter, **kw), 1e-3)
+    same(f"log-determinants, flat against structured, {label}", LD,
+         ld["flat"]["warp"], ld["structured"]["warp"])
+    if not asym:
+        # the same statistics packed: the warp kLogdets (#5) on S + prior
+        same(f"log-determinants of unpack(S + prior) against the warp #5 on S + prior, {label}",
+             LD, ld["structured"]["warp"],
+             logdets(S_nat, None, m, n, "bipk_log_base_measure_packed"))
+print("unpacked log-determinants bitwise equal", flush=True)
+"""
+
+
+@pytest.mark.parametrize("spec", UNPACKED_SETS, ids=lambda s: "m{}n{}_N{}{}".format(
+    *s[:3], "_asym" if s[5] else ""))
+def test_warp_unpacked_log_determinants_equal_the_per_thread_kernel_bit_for_bit(host_lib, spec):
+    """The warp kLogdetsUnpacked against ``unpacked_mniw_kernel<24 | 48,
+    kLogdets>`` (both log-determinants) on the set's statistics plus its
+    prior, structured and flat, with ``torch.equal``, in a child of its
+    own; the per-thread outputs against the plain version at 1e-3; on
+    symmetric statistics also against the warp kLogdets (#5) on the same
+    statistics packed."""
+    _run(LOGDETS_CHILD, host_lib, _specs([spec]), "unpacked log-determinants bitwise equal")
+
+
 def test_warp_unpacked_plans(host_lib):
-    """``bipk_warp_mniw_plan`` for the two unpacked modes on the stand-in
-    card (16 SMs): kProjectUnpacked stages m n rows of T0, m(m+1)/2 of T1,
-    n^2 of T2 (no T3 row) and m of phi, and keeps kProject's triangle (m +
-    n + 1 rows) and m log-diagonal slots per particle; kFactor stages no
-    phi and keeps m + n rows; both at every m <= 48, n <= 2, and refused
-    beyond, where the entries refuse too."""
+    """``bipk_warp_mniw_plan`` for the three unpacked modes on the
+    stand-in card (16 SMs): kProjectUnpacked stages m n rows of T0,
+    m(m+1)/2 of T1, n^2 of T2 (no T3 row) and m of phi, and keeps
+    kProject's triangle (m + n + 1 rows) and m log-diagonal slots per
+    particle; kFactor and kLogdetsUnpacked stage no phi and keep m + n
+    rows; all at every m <= 48, n <= 2, and refused beyond, where the
+    entries (and the log-determinants' per-thread comparator) refuse
+    too."""
     lib = ctypes.CDLL(str(host_lib))
 
     def plan(mode, m, n, N):
@@ -145,20 +204,20 @@ def test_warp_unpacked_plans(host_lib):
         rc = lib.bipk_warp_mniw_plan(mode, m, n, N, *map(ctypes.byref, out))
         return rc, tuple(o.value for o in out)
 
-    factor, project_unpacked = 4, 8
+    factor, project_unpacked, logdets_unpacked = 4, 8, 9
     for m, n, N, warps, per_warp in ((20, 1, 257, 8, 2), (20, 2, 130, 4, 2), (24, 2, 64, 2, 2),
                                      (9, 1, 33, 1, 2), (41, 1, 130, 8, 1), (41, 2, 40, 2, 1),
                                      (48, 2, 70, 4, 1)):
         P = per_warp * warps
         rows = m * n + m * (m + 1) // 2 + n * n
-        for mode, phi_rows in ((factor, 0), (project_unpacked, 1)):
+        for mode, phi_rows in ((factor, 0), (project_unpacked, 1), (logdets_unpacked, 0)):
             tile = (rows + m * phi_rows) * (P | 1)
             floats = (m + n + phi_rows) * (m | 1) + m
             if per_warp == 2:
                 floats += (48 - floats % 32) % 32
             assert plan(mode, m, n, N) == (0, (warps, P, 4 * (tile + P * floats) + 4 * P)), \
                 (mode, m, n, N)
-    for mode in (factor, project_unpacked):
+    for mode in (factor, project_unpacked, logdets_unpacked):
         assert plan(mode, 49, 1, 300)[0] != 0 and plan(mode, 20, 3, 300)[0] != 0
         assert plan(mode, 48, 2, 300)[0] == 0 and plan(mode, 1, 1, 300)[0] == 0
     f0 = ctypes.c_float(0.0)
@@ -167,3 +226,5 @@ def test_warp_unpacked_plans(host_lib):
                                          None, None) != 0
         assert lib.bipk_factorize_project_blocks(None, None, None, None, None, 8, m, n, f0, f0,
                                                  None, None, None, None, None) != 0
+        for entry in ("bipk_log_base_measure_logdets", "bipk_log_base_measure_logdets_per_thread"):
+            assert getattr(lib, entry)(None, None, None, 8, m, n, f0, None, None) != 0
