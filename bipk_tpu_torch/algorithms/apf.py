@@ -526,3 +526,35 @@ def build_apf(
     kern = APFKernel(ssm, gps, dtype, device, reference=reference,
                      reuse_factor=reuse_factor, dedup_gather=dedup_gather)
     return APF(kern, n_particles, forgetting_factor)
+
+
+# -- batch-first helpers kept for reference-style baselines and tests -------
+
+
+def init_particles(
+    generator: torch.Generator, ssm: SSM, gps: Sequence[GPNode], n_particles: int,
+    inputs0, init_state_mean, init_state_cov, dtype=torch.float32,
+    device: str | torch.device = "cuda",
+):
+    """Batch-first initial particles: ``(log_weights (N,), state (N, dx),
+    int_vars each (N, n_i), stats)``, each GP's statistics an MNIW with
+    leaves ``(N, m, n)``, ``(N, m, m)``, ``(N, n, n)``, ``(N,)``; drawn as
+    :meth:`APFKernel.init_particles` draws them."""
+    kern = APFKernel(ssm, gps, dtype, resolve_device(device))
+    inputs0 = as_tensor(inputs0, dtype, kern.device)
+    log_w, state, int_vars, Ss = kern.init_particles(
+        generator, n_particles, inputs0, init_state_mean, init_state_cov)
+    stats = tuple(
+        mniw.MNIW(*(leaf.movedim(-1, 0) for leaf in mniw.from_flat_bl(
+            mniw.unpack_stats_bl(S, kern.ms[i], kern.ns[i]), kern.ms[i], kern.ns[i])))
+        for i, S in enumerate(Ss)
+    )
+    return log_w, state.T, tuple(iv.T for iv in int_vars), stats
+
+
+def weighted_stats(stats: tuple, weights: torch.Tensor) -> tuple:
+    """Batch-first importance-weighted statistics mean: each GP's MNIW
+    leaves ``(N, ...)`` contracted with ``weights (N,)``."""
+    return tuple(
+        mniw.MNIW(*(torch.tensordot(weights, leaf, dims=1) for leaf in st)) for st in stats
+    )

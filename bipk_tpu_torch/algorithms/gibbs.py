@@ -8,14 +8,19 @@ the iterations into one ``lax.scan`` (``fused=True``) or runs them from a
 host loop with checkpoints (``fused=False``); here both are a host loop of
 sweeps with the same result layout. ``n_chains=C`` runs C independent
 chains from the same host loop, one sweep per chain in each iteration
-(the JAX package vmaps the sampler over its chains). The sharded sweeps,
-the chain mesh and checkpointing are not ported.
+(the JAX package vmaps the sampler over its chains). With
+``checkpoint_path`` the host loop saves the chain state (iteration, the
+generators' states, the draws so far) every ``checkpoint_every`` sweeps
+and resumes from an existing file, bit for bit the uninterrupted run (the
+JAX ``run_host``, ``fused=False``). The sharded sweeps and the chain mesh
+are not ported (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from bipk_tpu_torch._device import resolve_device
@@ -23,6 +28,8 @@ from bipk_tpu_torch.algorithms.apf import as_tensor
 from bipk_tpu_torch.algorithms.csmc import build_csmc
 from bipk_tpu_torch.models.ssm import GPNode, SSM
 from bipk_tpu_torch.ops import mniw
+from bipk_tpu_torch.utils import checkpoint
+from bipk_tpu_torch.utils.matio import map_leaves
 
 
 class GibbsResult(NamedTuple):
@@ -54,8 +61,16 @@ def summed_reference_stats(
 class Gibbs:
     """The Gibbs sampler. Call it as ``gibbs(generator, observations,
     inputs, init_state_mean, init_state_cov, init_ref_state,
-    init_ref_int_vars, callback=None)``; ``callback(k, ref)`` runs after
-    sweep ``k`` with the new ``(state, int_vars, stats)``."""
+    init_ref_int_vars, callback=None, checkpoint_path=None,
+    checkpoint_every=50)``; ``callback(k, ref)`` runs after sweep ``k``
+    with the new ``(state, int_vars, stats)``.
+
+    With ``checkpoint_path``, after sweep ``k`` with ``k %
+    checkpoint_every == 0`` (and after the callback) the file holds ``k``,
+    the generator's state and every reference so far (the current one
+    last); an existing file resumes the chain: the generator takes the
+    saved state, so the resumed run is bit for bit the uninterrupted one.
+    The refusals are the JAX ``run_host``'s (``gibbs.py:384-432``)."""
 
     def __init__(self, csmc, n_iterations: int):
         self.csmc = csmc
@@ -125,16 +140,62 @@ class Gibbs:
         self, generator, observations, inputs, init_state_mean,
         init_state_cov, init_ref_state, init_ref_int_vars,
         callback: Callable | None = None,
+        checkpoint_path: str | None = None, checkpoint_every: int = 50,
     ) -> GibbsResult:
         obs, inputs = self.data(observations, inputs)
-        ref = self.initial_ref(init_ref_state, init_ref_int_vars, inputs)
-        refs = [ref]
-        for k in range(1, self.n_iterations):
-            ref = self.sweep(generator, obs, inputs, init_state_mean, init_state_cov, ref)
-            refs.append(ref)
+        restored = self.restore(checkpoint_path, checkpoint_every, obs.shape[0])
+        if restored is None:
+            start, refs = 1, [self.initial_ref(init_ref_state, init_ref_int_vars, inputs)]
+        else:
+            start, rng_state, refs = restored
+            generator.set_state(rng_state)
+        for k in range(start, self.n_iterations):
+            refs.append(self.sweep(generator, obs, inputs, init_state_mean, init_state_cov,
+                                   refs[-1]))
             if callback is not None:
-                callback(k, ref)
+                callback(k, refs[-1])
+            if checkpoint_path is not None and k % checkpoint_every == 0:
+                checkpoint.save(checkpoint_path, k, generator.get_state(), {"refs": refs})
         return self.result(obs, inputs, refs)
+
+    def restore(self, path, every, n_steps, n_chains=None):
+        """The checkpoint at ``path`` as ``(next sweep, rng state, refs on
+        the device)``, or None without a path or a file. ``refs`` are the
+        references per iteration, with a leading ``(C,)`` on every leaf
+        for ``n_chains=C``. Raises as the JAX ``run_host`` does: a
+        non-positive ``every``, a checkpoint at or past ``n_iterations``,
+        trajectories of another shape or chain count."""
+        if path is None:
+            return None
+        if every <= 0:
+            raise ValueError(f"checkpoint_every must be positive, got {every}")
+        restored = checkpoint.load(path)
+        if restored is None:
+            return None
+        step, rng_state, payload = restored
+        if step >= self.n_iterations:
+            raise ValueError(
+                f"checkpoint {path!r} is at iteration {step} but this sampler runs only "
+                f"{self.n_iterations} iterations; it belongs to a different run — "
+                f"delete it or point --checkpoint elsewhere"
+            )
+        refs = payload["refs"]
+        saved0 = np.shape(refs[0][0])  # (T, dx), or (C, T, dx) with chains
+        if len(saved0) < 2 or saved0[-2] != n_steps or (
+            len(saved0) != (2 if n_chains is None else 3)
+            or (n_chains is not None and saved0[0] != n_chains)
+        ):
+            raise ValueError(
+                f"checkpoint {path!r} holds trajectories of shape {saved0}, which does not "
+                f"match this run ({n_steps} steps"
+                + (f", {n_chains} chains" if n_chains is not None else "")
+                + "); it belongs to a different run"
+            )
+        print(f"resuming Gibbs chain from {path} at sweep {step + 1}/{self.n_iterations}",
+              flush=True)
+        device = self.kern.device
+        return step + 1, rng_state, map_leaves(
+            lambda a: torch.as_tensor(a, device=device), [refs], leaf=np.ndarray)
 
 
 def chain_generators(generator: torch.Generator, n_chains: int) -> list:
@@ -148,25 +209,15 @@ def chain_generators(generator: torch.Generator, n_chains: int) -> list:
     return [torch.Generator(device=generator.device).manual_seed(s) for s in seeds]
 
 
-def _map_leaves(fn, trees):
-    """``fn`` over the tensors at the same place in ``trees`` (nested
-    tuples and NamedTuples of one structure)."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return fn(*trees)
-    out = [_map_leaves(fn, parts) for parts in zip(*trees)]
-    return type(first)(*out) if hasattr(first, "_fields") else type(first)(out)
-
-
 def stack_chains(trees):
     """The chains' results (or references) stacked along a new leading
     ``(C,)`` axis, leaf by leaf."""
-    return _map_leaves(lambda *leaves: torch.stack(leaves), trees)
+    return map_leaves(lambda *leaves: torch.stack(leaves), trees)
 
 
 def select_chain(tree, c: int):
     """Chain ``c`` of a chain-parallel result (every leaf's row ``c``)."""
-    return _map_leaves(lambda leaf: leaf[c], [tree])
+    return map_leaves(lambda leaf: leaf[c], [tree])
 
 
 class ParallelGibbs:
@@ -180,7 +231,10 @@ class ParallelGibbs:
     leading ``(C,)`` on the state and on every entry). Every
     ``GibbsResult`` field gains a leading ``(C,)`` (the stats' leaves
     ``(C, K, ...)``), and ``callback(k, ref)`` receives the chains'
-    references stacked along a leading ``C``."""
+    references stacked along a leading ``C``. A checkpoint holds every
+    chain's generator state and the references stacked along a leading
+    ``C``: the chains' generators are seeded from the caller's once, so
+    the caller's state alone could not resume them."""
 
     def __init__(self, gibbs: Gibbs, n_chains: int):
         self.gibbs = gibbs
@@ -202,18 +256,30 @@ class ParallelGibbs:
         self, generator, observations, inputs, init_state_mean,
         init_state_cov, init_ref_state, init_ref_int_vars,
         callback: Callable | None = None,
+        checkpoint_path: str | None = None, checkpoint_every: int = 50,
     ) -> GibbsResult:
-        gibbs = self.gibbs
-        gens = chain_generators(generator, self.n_chains)
+        gibbs, C = self.gibbs, self.n_chains
+        gens = chain_generators(generator, C)
         obs, inputs = gibbs.data(observations, inputs)
-        refs = [[gibbs.initial_ref(state, ivs, inputs)]
-                for state, ivs in self.chain_refs(init_ref_state, init_ref_int_vars)]
-        for k in range(1, self.n_iterations):
+        restored = gibbs.restore(checkpoint_path, checkpoint_every, obs.shape[0], C)
+        if restored is None:
+            start = 1
+            refs = [[gibbs.initial_ref(state, ivs, inputs)]
+                    for state, ivs in self.chain_refs(init_ref_state, init_ref_int_vars)]
+        else:  # the chains' own generators continue from their saved states
+            start, rng_states, stacked = restored
+            for g, rng_state in zip(gens, rng_states):
+                g.set_state(rng_state)
+            refs = [[select_chain(r, c) for r in stacked] for c in range(C)]
+        for k in range(start, self.n_iterations):
             for g, chain in zip(gens, refs):
                 chain.append(gibbs.sweep(g, obs, inputs, init_state_mean, init_state_cov,
                                          chain[-1]))
             if callback is not None:
                 callback(k, stack_chains([chain[-1] for chain in refs]))
+            if checkpoint_path is not None and k % checkpoint_every == 0:
+                checkpoint.save(checkpoint_path, k, [g.get_state() for g in gens],
+                                {"refs": [stack_chains(its) for its in zip(*refs)]})
         return stack_chains([gibbs.result(obs, inputs, chain) for chain in refs])
 
 

@@ -129,6 +129,53 @@ def posterior_mean(nat: MNIW) -> torch.Tensor:
     return solve_spd(0.5 * (nat.T1 + nat.T1.T), nat.T0).T
 
 
+class Predictive(NamedTuple):
+    """Matrix-t predictive distribution at a basis vector ``phi (m,)``, or
+    at the columns of ``phi (m, G)`` (then ``mean (n, G)`` and
+    ``col_scale (G,)``)."""
+
+    mean: torch.Tensor  # (n,)
+    col_scale: torch.Tensor  # () phi^T V_post phi + 1
+    row_scale: torch.Tensor  # (n, n)
+    df: torch.Tensor  # ()
+
+
+def factorize(nat: MNIW) -> MNIWFactor:
+    """Factor ``sym(T1)`` of unbatched natural parameters once (the
+    fields of :class:`MNIWFactor` without the batch axis): ``chol (m,
+    m)``, ``white_T0 = chol^{-1} T0``, ``row_scale = T2 - white^T white``,
+    ``df = T3``."""
+    L = chol_spd(0.5 * (nat.T1 + nat.T1.T))
+    white = torch.linalg.solve_triangular(L, nat.T0, upper=False)
+    return MNIWFactor(L, white, nat.T2 - white.T @ white, nat.T3)
+
+
+def factor_predictive(factor: MNIWFactor, phi: torch.Tensor) -> Predictive:
+    """Matrix-t predictive at ``phi`` from an unbatched factorization, one
+    triangular solve: ``v = chol^{-1} phi``, ``mean = white^T v``,
+    ``col_scale = v^T v + 1``, ``row_scale / (df + 1 - n)``."""
+    n = factor.row_scale.shape[-1]
+    v = torch.linalg.solve_triangular(factor.chol, phi.reshape(phi.shape[0], -1),
+                                      upper=False)
+    mean = factor.white_T0.T @ v
+    col_scale = (v * v).sum(0) + 1.0
+    df = factor.df + 1.0 - n
+    if phi.dim() == 1:
+        mean, col_scale = mean[:, 0], col_scale[0]
+    return Predictive(mean, col_scale, factor.row_scale / df, df)
+
+
+def predictive(mean, col_cov, row_scale, df, phi) -> Predictive:
+    """Matrix-t predictive from standard parameters: ``mean (n, m)`` (or
+    ``(m,)`` for n = 1), ``col_cov (m, m)``, ``row_scale (n, n)`` (or a
+    scalar), ``df``, at ``phi (m,)`` or ``(m, G)``."""
+    mean = torch.atleast_2d(mean)
+    row_scale = torch.atleast_2d(row_scale)
+    df_pred = df + 1.0 - row_scale.shape[0]
+    col_scale = (phi * (col_cov @ phi)).sum(0) + 1.0
+    return Predictive(mean @ phi, col_scale, row_scale / df_pred, df_pred)
+
+
 class ParameterDraws(NamedTuple):
     """The random numbers one :func:`sample_parameters` draw consumes."""
 

@@ -4,6 +4,7 @@ surrogate) data, the port of ``scripts/emps.py``'s default configuration.
     python -m bipk_tpu_torch.scripts.emps                 # 200 particles, 800 sweeps
     python -m bipk_tpu_torch.scripts.emps --quick --cpu   # a small run on the CPU
     python -m bipk_tpu_torch.scripts.emps --chains 4      # four Gibbs chains, R-hat and ESS
+    python -m bipk_tpu_torch.scripts.emps --checkpoint plots/emps.ckpt   # resumes if it exists
 
 The online APF, the offline Gibbs sampler seeded by an APF reference, the
 posterior mean over its sweeps, the classic-PGAS baseline with the
@@ -13,7 +14,9 @@ running sums), the validation RMSE of both on the pulse dataset, and a
 sampler runs C chains, each from its own reference trajectory of the one
 reference APF run; the friction's split R-hat and bulk ESS over the
 second half of the sweeps are printed, and chain 0 goes into the ``.mat``
-file. Runs on CUDA unless ``--cpu`` is given; one ``torch.Generator``
+file. ``--checkpoint PATH`` saves the Gibbs chain every
+``--checkpoint-every`` sweeps and resumes it from an existing file, bit
+for bit. Runs on CUDA unless ``--cpu`` is given; one ``torch.Generator``
 seeded with the configuration's seed draws every random number.
 """
 
@@ -29,12 +32,12 @@ import torch
 
 from bipk_tpu_torch._device import resolve_device
 from bipk_tpu_torch.algorithms import build_apf, build_gibbs, build_pgas
-from bipk_tpu_torch.algorithms.gibbs import select_chain
 from bipk_tpu_torch.algorithms.pgas import PGAS
 from bipk_tpu_torch.models import emps
 from bipk_tpu_torch.ops import mniw
 from bipk_tpu_torch.ops.gaussian import mvn_logpdf_chol
-from bipk_tpu_torch.utils import diagnostics, matio
+from bipk_tpu_torch.scripts import common
+from bipk_tpu_torch.utils import matio
 
 # the keys of the .mat file that run() writes, as the JAX package's
 # scripts/emps.py writes them (:180-189, :261-275); --skip-baseline leaves
@@ -60,16 +63,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--data-dir", default="data")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--skip-baseline", action="store_true")
-    p.add_argument("--chains", type=int, default=1, metavar="C",
-                   help="independent Gibbs chains (C > 1: R-hat and bulk ESS printed)")
-    p.add_argument("--checkpoint", default=None, metavar="PATH")
-    p.add_argument("--mesh", type=int, default=0, metavar="N")
+    common.add_gibbs_flags(p)
     p.add_argument("--out", default="plots/EMPS_torch.mat")
     args = p.parse_args(argv)
-    for given, what, item in ((args.mesh, "--mesh (multi-device)", 8),
-                              (args.checkpoint, "--checkpoint", 6)):
-        if given:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP Queue A item {item}")
+    common.check_gibbs_flags(args)
     if args.quick:
         args.particles, args.gibbs_iters, args.max_steps = 50, 10, 150
         args.pgas_iters = 10
@@ -145,38 +142,14 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
     print("=== Offline Algorithm ===")
     ref_run = apf(g, Y, inputs, model.x0, model.p0)
     n_chains = max(1, args.chains)
-    u = torch.rand((n_chains,), generator=g, dtype=dtype, device=device)
-    refs = [matio.sample_reference_trajectory(u[c:c + 1], ref_run) for c in range(n_chains)]
-    ref_state, ref_iv = refs[0]
-    if n_chains > 1:  # one reference trajectory per chain
-        ref_state = torch.stack([r[0] for r in refs])
-        ref_iv = tuple(torch.stack(ivs) for ivs in zip(*(r[1] for r in refs)))
-    del ref_run, refs
+    ref_state, ref_iv = common.reference_trajectories(g, ref_run, n_chains)
+    del ref_run
     hook("reference")
     gibbs = build_gibbs(model.ssm, model.gps, cfg.n_particles, cfg.n_gibbs, dtype=dtype,
                         fused=False, device=device,
                         n_chains=n_chains if n_chains > 1 else None)
-    t0 = timelib.perf_counter()
-
-    def progress(k, ref):
-        hook("gibbs-sweep", k=k)
-        if k % 100 == 0:
-            print(f"  sweep {k}/{cfg.n_gibbs} ({timelib.perf_counter() - t0:.1f}s)", flush=True)
-
-    offline = gibbs(g, Y, inputs, model.x0, model.p0, ref_state, ref_iv, callback=progress)
-    hook("gibbs", result=offline)
-    print(f"{cfg.n_gibbs} Gibbs sweeps" + (f" x {n_chains} chains" if n_chains > 1 else "")
-          + f": {timelib.perf_counter() - t0:.2f}s")
-    if n_chains > 1:
-        d = diagnostics.gibbs_chain_summary(offline.int_vars, cfg.n_gibbs // 2)[0]
-        if d["stuck"]:
-            print("  friction F: chains never moved; the conditional SMC is degenerate at "
-                  "this configuration; increase --particles")
-        else:
-            print(f"  friction F: R-hat {d['rhat']:.4f}, bulk ESS {d['ess']:.0f} of "
-                  f"{d['n_draws']} draws")
-        # the .mat file holds chain 0; the chains' draws are identically distributed
-        offline = select_chain(offline, 0)
+    offline = common.offline_gibbs(gibbs, g, Y, inputs, model, ref_state, ref_iv, args,
+                                   ("friction F",), hook)
 
     # posterior mean over the Gibbs iterations
     prior = model.gp.prior_as(dtype, device)

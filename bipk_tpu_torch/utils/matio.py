@@ -37,6 +37,16 @@ def to_host(tree):
     return np.asarray(tree)
 
 
+def map_leaves(fn, trees, leaf=torch.Tensor):
+    """``fn`` over the leaves (of type ``leaf``) at the same place in
+    ``trees`` (nested lists, tuples and NamedTuples of one structure)."""
+    first = trees[0]
+    if isinstance(first, leaf):
+        return fn(*trees)
+    out = [map_leaves(fn, parts, leaf) for parts in zip(*trees)]
+    return type(first)(*out) if hasattr(first, "_fields") else type(first)(out)
+
+
 def save_mat(path: str, mdict: dict) -> None:
     """Write ``mdict`` (tensors or arrays) with ``scipy.io.savemat``,
     creating the directory."""

@@ -42,7 +42,7 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
    particles x 1500 steps, seeded by a 256-particle APF and a reference
    draw, with launch counts per sweep, seconds per sweep and the drawn
    trajectory's RMSE;
-7. Gibbs profile: 100 cSMC steps at 10240 particles with CUDA's sync
+7. Gibbs profile: 50 cSMC steps at 10240 particles with CUDA's sync
    debug mode set to "error" (no step may wait for the device), the same
    steps timed, then under ``torch.profiler``: device time and launches
    per step, the largest kernels, the device's idle share;
@@ -92,13 +92,13 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     CUDA's device-side assertion;
 15. reuse/dedup path-vs-plain: phase 3 with ``reuse_factor=True`` and
     with ``dedup_gather=True``;
-16. reuse/dedup main path: the vehicle APF at 32768 x 1499 in the
+16. reuse/dedup main path: the vehicle APF at 32768 x 750 in the
     default, reuse and dedup configurations, interleaved, with exact
     launch counts, the phase-4 checks and throughput;
 17. reuse Gibbs: the vehicle cSMC path-vs-plain (10240 x 50, 10 seeds)
-    and Gibbs sampler (10240 x 1499, 2 sweeps) with ``reuse_factor=True``,
-    with exact launches per sweep and phase 6's gate; 100 profiled reuse
-    cSMC steps beside 100 default ones; a few oscillator APF steps with
+    and Gibbs sampler (10240 x 750, 2 sweeps) with ``reuse_factor=True``,
+    with exact launches per sweep and phase 6's gate; 50 profiled reuse
+    cSMC steps beside 50 default ones; a few oscillator APF steps with
     reuse (m = 41: only the m <= 48 kernels);
 18. unpacked kernels: the four unpacked kernels (factorize, factorize +
     project, project from a given factor, log-determinants) against their
@@ -124,11 +124,11 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     True)``) through the kernels and through their plain versions, 10240
     x 50 over 10 seeds, paired; then the rank-1 and the direct steps on
     the same draws in f32, to the first step where their ancestors differ;
-20. rank-1 Gibbs: the Gibbs host loop on the rank-1 cSMC at 10240 x 1499
-    (a warm-up and one timed sweep) with exact launches per sweep (4 x 1499 of
-    the projection, 1499 resamplings, nothing else), no non-finite
+20. rank-1 Gibbs: the Gibbs host loop on the rank-1 cSMC at 10240 x 750
+    (a warm-up and one timed sweep) with exact launches per sweep (4 x 750 of
+    the projection, 750 resamplings, nothing else), no non-finite
     ancestor weight and phase 6's trajectory gate; 50 rank-1 cSMC steps
-    under the sync check and profiled beside 100 direct ones;
+    under the sync check and profiled beside 50 direct ones;
 21. APF profile: phase 7 for 50 steps of the vehicle online APF at 32768
     particles (its step's device time, launches and idle share);
 22. classic PGAS: ``tests/test_invariance.py``'s AR(1) cSMC (64
@@ -149,9 +149,9 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     published linear friction, and ``EMPS.mat`` read back with
     ``scripts/emps.py``'s keys; the path's kernels on the online APF's
     final statistics (bit for bit against the per-thread kernels, and
-    against the plain versions), the EMPS APF (300 steps) and cSMC (200
+    against the plain versions), the EMPS APF (150 steps) and cSMC (100
     steps) through the kernels and through the plain versions on 10
-    paired seeds at 200 particles; then phase 7 for 100 steps each of
+    paired seeds at 200 particles; then phase 7 for 50 steps each of
     the EMPS cSMC and the classic-PGAS cSMC (m = 729);
 24. chains: the toy Gibbs sampler at 200 particles as four parallel
     chains (``build_gibbs(n_chains=4)``) from phase 12's reference, 40
@@ -161,11 +161,28 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     ``tests/test_chains.py``'s 1.7) and bulk ESS of the trajectory-mean
     interface variable over the second half; then the EMPS entry point
     with ``--chains 2`` (600 steps, two sweeps): exact launches, the
-    friction's R-hat / ESS line, and its ``.mat`` file read back.
+    friction's R-hat / ESS line, and its ``.mat`` file read back;
+25. scripts: the toy, oscillator and vehicle entry scripts
+    (``bipk_tpu_torch.scripts.*``) through ``run()`` at 200 particles
+    (m = 40, 41, and two GPs at m = 20), 3 Gibbs iterations, the vehicle
+    over 50 steps: exact launches after every part, each ``.mat`` file
+    read back with its script's keys, all finite; the toy with
+    ``--no-plot`` and again with ``--chains 2``; the vehicle with
+    ``--profile``, whose trace must name the warp kernels of #1 and #4;
+    then the toy Gibbs sampler (200 x 39, six sweeps, a checkpoint every
+    two) interrupted after sweep 3 and resumed, bit for bit the
+    uninterrupted run, for one chain and for two;
+26. 2**20: the vehicle online APF at ``benchmarks/bench_1m.py``'s 2**20
+    particles over 200 steps, unchunked, in chunks of 32768, in windows
+    of 100 steps, and both: ms per step, peak device memory, exact
+    launches per step (chunks x #1 and #4 per GP, one #2), chunked against
+    unchunked (which leaves are bitwise, the rest within 1e-5 of each
+    leaf's largest value), windowed against unwindowed bit for bit; then
+    5 profiled steps of the unchunked and the chunked sweep.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the
-seventeen main paths, error against the plain version, times and bound; for
+twenty-four main paths, error against the plain version, times and bound; for
 the warp kernels (rows 1, 3-7, the factor pair, rows 1e and 8, the dedup
 gather, row 9, and the unpacked rows 10-13) also the per-thread kernels'
 times from the same turns, and both at the Gibbs paths' widths, 10240
@@ -1799,7 +1816,7 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
 
 
 def apf_configs_main_path(dev, model, X, Y, U, smi):
-    """Phase 16: the vehicle online APF at 32768 x 1499 in the default,
+    """Phase 16: the vehicle online APF at 32768 particles in the default,
     factor-reuse and dedup configurations, interleaved in one call
     (default, reuse, dedup, dedup, reuse, default), each run from the same
     seed with exact launch counts, finite moments and the phase-4 RMSE,
@@ -1850,20 +1867,30 @@ def apf_configs_main_path(dev, model, X, Y, U, smi):
     return counts["reuse"], counts["dedup"]
 
 
+# depths cut for the script's time limit: phase 16's APF runs and phases
+# 17's and 20's Gibbs samplers over the first half of the vehicle's 1499
+# steps; the profiled cSMC steps of phases 7, 13 and 17
+CUT_STEPS = 750
+CSMC_PROFILE_STEPS = 50
+
+
 def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi):
     """Phase 17: the vehicle cSMC and Gibbs sampler with factor reuse (the
     look-ahead emits the factor of the prior plus the statistics at
     lambda = 1, the draw reads it): cSMC path-vs-plain, 10240 x 50 over
-    10 seeds, paired; the Gibbs sampler at 10240 x 1499 seeded as in
-    phase 6, two sweeps with exact launches per sweep and phase 6's
-    trajectory gate; 100 profiled reuse cSMC steps beside 100 default
-    ones; and a few oscillator APF steps with reuse (m = 41: no factor
-    pair, only the warp kernels). Returns the Gibbs launches."""
+    10 seeds, paired; the Gibbs sampler at 10240 particles seeded as in
+    phase 6 over the first ``CUT_STEPS`` steps, two sweeps with
+    exact launches per sweep and phase 6's trajectory gate;
+    ``CSMC_PROFILE_STEPS`` profiled reuse cSMC steps beside as many
+    default ones; and a few oscillator APF steps with reuse (m = 41: no
+    factor pair, only the warp kernels). Returns the Gibbs launches."""
     csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=50, seeds=10,
                        label="reuse cSMC", reuse_factor=True)
-    counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=3,
-                        smi=smi, reuse_factor=True)
-    prof = {name: profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=100, **opts)
+    cut = CUT_STEPS + 1
+    counts = gibbs_path(dev, model, X[:cut], Y[:cut], U[:cut], MU_F[:cut], N_GIBBS, n_apf=256,
+                        n_iterations=3, smi=smi, reuse_factor=True)
+    prof = {name: profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS,
+                                     steps=CSMC_PROFILE_STEPS, **opts)
             for name, opts in (("default", {}), ("reuse", dict(reuse_factor=True)))}
     if all(prof.values()):
         print("  cSMC step, default against reuse: " + "; ".join(
@@ -2557,12 +2584,12 @@ def rank1_against_direct(dev, model, Y, U, X, ref_ivs, n_particles, steps):
 
 def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
     """Phase 20: the rank-1 Gibbs main path at full width, the vehicle
-    (two GPs, m = 20), 10240 x 1499, seeded as phase 6; a warm-up sweep
-    and one more (cut from two for the run's time). Launches per
-    sweep exactly 4 x 1499 of #12 and 1499 of
-    #2 and nothing else; every weight an ancestor (or the trajectory) is
-    drawn from finite (the hyperbolic downdate's sqrt in f32 for 1499
-    steps); phase 6's trajectory gate. Then ``RANK1_PROFILE_STEPS``
+    (two GPs, m = 20), 10240 particles over the first ``CUT_STEPS``
+    steps, seeded as phase 6; a warm-up sweep and one more. Launches per
+    sweep exactly 4 x steps of #12 and one #2 per step and nothing else;
+    every weight an ancestor (or the trajectory) is drawn from finite (the
+    hyperbolic downdate's sqrt in f32 over every step); phase 6's
+    trajectory gate. Then ``RANK1_PROFILE_STEPS``
     rank-1 cSMC steps under CUDA's sync debug mode "error" and profiled,
     beside the direct step's profile of the same call (``direct_prof``,
     phase 17's default steps). Returns the Gibbs launches."""
@@ -2576,9 +2603,10 @@ def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
         return real(weights, u)
 
     resampling.categorical_from_weights = counting
+    cut = CUT_STEPS + 1
     try:
-        counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=3,
-                            smi=smi, rank1=True)
+        counts = gibbs_path(dev, model, X[:cut], Y[:cut], U[:cut], MU_F[:cut], N_GIBBS,
+                            n_apf=256, n_iterations=3, smi=smi, rank1=True)
     finally:
         resampling.categorical_from_weights = real
     bad = int(nonfinite)
@@ -2616,8 +2644,11 @@ EMPS_GATE_FROM = 0.25
 EMPS_FRICTION_GATE = 0.45
 # phase 23's path-vs-plain runs at the EMPS width (200 particles, m = 9)
 EMPS_PV_SEEDS = 10
-EMPS_APF_PV_STEPS = 300
-EMPS_CSMC_PV_STEPS = 200
+# phase 23's paired path-vs-plain depths and profiled steps, cut for the
+# script's time limit
+EMPS_APF_PV_STEPS = 150
+EMPS_CSMC_PV_STEPS = 100
+EMPS_PROFILE_STEPS = 50
 
 
 def rts_moments(y, a, q2, r2, p0):
@@ -2856,14 +2887,15 @@ def emps_phase(dev, smi, out_dir):
                        args.particles, EMPS_CSMC_PV_STEPS, EMPS_PV_SEEDS,
                        names=("q", "dq", "friction", "mean ESS"), label="EMPS cSMC")
 
-    # where the steps' time goes: 100 steps each of the Gibbs sampler's
+    # where the steps' time goes: 50 steps each of the Gibbs sampler's
     # cSMC, conditioned on its last draw, and of the classic-PGAS cSMC
     # with its last parameter draw, under the sync check and the profiler
     profile_csmc_steps(dev, model, Y, U, gibbs.states[:, -1], (gibbs.int_vars[0][:, -1],),
-                       args.particles, steps=100)
+                       args.particles, steps=EMPS_PROFILE_STEPS)
     profile_pgas_steps(dev, emps_script.baseline_pgas(model, args.particles, 1, torch.float32,
                                                       dev),
-                       Y, U, base.states[:, -1], base.coeffs[-1], base.covs[-1], steps=100)
+                       Y, U, base.states[:, -1], base.coeffs[-1], base.covs[-1],
+                       steps=EMPS_PROFILE_STEPS)
     return launches, seconds
 
 
@@ -3111,6 +3143,287 @@ def chains_phase(dev, cs, smi, out_dir):
     print(f"  EMPS --chains {args.chains} at {args.particles} particles x {args.max_steps} steps: "
           f"summary {line.strip()!r}; .mat (chain 0) read back with {len(keys)} keys", flush=True)
     return {"toy_chains": toy_launches, "emps_chains": emps_launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the toy, oscillator and vehicle entry scripts on the card, and
+# the checkpointed Gibbs host loop; phase 26: the vehicle online APF at
+# 2**20 particles, unchunked, chunked and windowed.
+# ---------------------------------------------------------------------------
+
+SCRIPT_GIBBS_ITERS = 3  # phase 25: a warm-up sweep and one more per script
+# phase 25: 50 of the vehicle script's 1500 steps (its profile's Chrome trace
+# grows by ~2 MB per step)
+VEHICLE_SCRIPT_T_END = 1.0
+CKPT_ITERATIONS = 7  # phase 25's resume check: six sweeps, checkpoints every 2
+CKPT_EVERY, CKPT_CUT = 2, 3  # the interruption after sweep 3
+
+
+def counted_script(label, script, argv, keys, n_gp, online_runs=1, chains=1):
+    """An entry script's ``run()`` as a user calls it (``argv`` its flags),
+    with exact launches after every part (the ``hook``): each APF run
+    ``n_gp`` look-aheads and gather/draws (``keys`` the warp kernels of
+    its m) and one resampling per step (``online_runs`` runs before the
+    online part: the vehicle's ``--profile`` warms up first), each Gibbs
+    sweep also ``n_gp`` log-determinants per step (``chains`` times), each
+    classic-PGAS sweep one resampling per step. Then the ``.mat`` file read
+    back: exactly ``MAT_KEYS``, every array finite. Returns the launches
+    over the run, the seconds of each part and what the hook saw."""
+    import scipy.io
+
+    args = script.parse_args(argv)
+    expected, seconds, seen = {}, {}, {}
+    totals = dict.fromkeys(ck.launch_counts(), 0)
+    marks = []
+
+    def hook(event, **info):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds.setdefault(event, []).append(now - marks[-1])
+        marks.append(now)
+        counts = ck.launch_counts()
+        ck.reset_launch_counts()
+        expect_counts(f"{label} {event}", counts, expected.get(event, {}))
+        for name, c in counts.items():
+            totals[name] += c
+        seen.setdefault(event, info)
+        if event == "model":
+            steps = seen["steps"] = info["data"][1].shape[0] - 1
+            apf = {keys["fp"]: n_gp * steps, "systematic_ancestors_blocks": steps,
+                   keys["dug"]: n_gp * steps}
+            expected.update({
+                "online": {k: online_runs * c for k, c in apf.items()}, "reference": apf,
+                "gibbs-sweep": {k: chains * c for k, c in {**apf, keys["lbm"]: n_gp * steps}
+                                .items()},
+                "pgas-sweep": {"systematic_ancestors_blocks": steps},
+            })
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    marks.append(time.perf_counter())
+    mdict = script.run(args, hook=hook)
+    out = args.out if args.out.endswith(".mat") else args.out + ".mat"
+    mat = {k: v for k, v in scipy.io.loadmat(out).items() if not k.startswith("__")}
+    require(set(mat) == set(script.MAT_KEYS),
+            f"{label}: .mat keys {sorted(mat)}, expected {sorted(script.MAT_KEYS)}")
+    bad = [k for k, v in mat.items() if not np.isfinite(v).all()]
+    require(not bad, f"{label}: non-finite .mat entries {bad}")
+    print(f"  {label}: {args.particles} particles x {seen['steps']} steps, "
+          f"{args.gibbs_iters} Gibbs iterations: "
+          + ", ".join(f"{e} {[round(x, 3) for x in v]} s" for e, v in seconds.items())
+          + f"; launches per part exact; {os.path.basename(out)} read back with its "
+          f"{len(mat)} keys, all finite", flush=True)
+    return totals, seconds, seen, mdict
+
+
+def checkpoint_resume(dev, cs, out_dir):
+    """The toy Gibbs sampler at 200 particles x 39 steps, six sweeps with a
+    checkpoint every two, interrupted by a callback that raises after
+    sweep 3 and resumed from its file: bit for bit the uninterrupted run,
+    for one chain and for two."""
+    model, X, Y, U, _ = cs["toy"]
+    g, ref_state, ref_iv = seed_reference(dev, model, Y, U, N_CS_GIBBS, seed=6)
+    g_state = g.get_state()
+
+    class Interrupted(RuntimeError):
+        pass
+
+    def interrupt(k, ref):
+        if k == CKPT_CUT:
+            raise Interrupted()
+
+    for n_chains in (None, 2):
+        gibbs = build_gibbs(model.ssm, model.gps, N_CS_GIBBS, CKPT_ITERATIONS,
+                            dtype=torch.float32, device=dev, n_chains=n_chains)
+
+        def run(**kwargs):
+            gen = torch.Generator(device=dev)
+            gen.set_state(g_state)
+            return gibbs(gen, Y, U, model.x0, model.p0, ref_state, ref_iv, **kwargs)
+
+        path = os.path.join(out_dir, f"toy_gibbs_{n_chains}.ckpt")
+        full = run()
+        try:
+            run(callback=interrupt, checkpoint_path=path, checkpoint_every=CKPT_EVERY)
+            require(False, "the interrupting callback did not raise")
+        except Interrupted:
+            pass
+        resumed = run(checkpoint_path=path, checkpoint_every=CKPT_EVERY)
+        torch.cuda.synchronize()
+        pairs = [("states", resumed.states, full.states),
+                 ("int_vars", resumed.int_vars[0], full.int_vars[0]),
+                 ("outputs", resumed.outputs, full.outputs),
+                 ("log_likelihood", resumed.log_likelihood, full.log_likelihood),
+                 *((f"stats.{k}", a, b)
+                   for k, a, b in zip(mniw.MNIW._fields, resumed.stats[0], full.stats[0]))]
+        differ = [k for k, a, b in pairs if not bitwise(a, b)]
+        label = "one chain" if n_chains is None else f"{n_chains} chains"
+        print(f"  checkpoint resume, toy Gibbs {N_CS_GIBBS} x {Y.shape[0] - 1}, "
+              f"{CKPT_ITERATIONS - 1} sweeps, {label}: interrupted after sweep {CKPT_CUT}, "
+              f"resumed from sweep {CKPT_EVERY + 1}: bitwise equal to the uninterrupted run "
+              f"{'all' if not differ else 'but ' + str(differ)}", flush=True)
+        require(not differ, f"checkpoint resume ({label}): {differ} differ")
+
+
+def scripts_phase(dev, cs, smi, out_dir):
+    """Phase 25: the toy, oscillator and vehicle entry scripts through
+    ``run()`` at their default widths (200 particles; m = 40, 41, and two
+    GPs at m = 20), depth cut to ``SCRIPT_GIBBS_ITERS`` Gibbs iterations
+    (the toy's baseline 3x that) and the vehicle to ``VEHICLE_SCRIPT_T_END``
+    seconds, with exact launches after every part (:func:`counted_script`);
+    the toy with ``--no-plot`` (the card's machine has no matplotlib), once more with
+    ``--chains 2``; the vehicle with ``--profile``, whose Chrome trace must
+    name the warp kernels of #1 (``warp_mniw_kernel<0, 16>``) and #4
+    (``<1, 16>``); then :func:`checkpoint_resume`. Returns the launches
+    per script."""
+    from bipk_tpu_torch.scripts import single_mass_oscillator as osc_script
+    from bipk_tpu_torch.scripts import toy_example as toy_script
+    from bipk_tpu_torch.scripts import vehicle as veh_script
+    from bipk_tpu_torch.utils.profiling import TRACE_FILE
+
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    common = ["--gibbs-iters", str(SCRIPT_GIBBS_ITERS), *cpu]
+    trace_dir = os.path.join(out_dir, "vehicle_trace")
+    launches = {}
+    launches["toy_script"], _, _, _ = counted_script(
+        "toy_example", toy_script, ["--no-plot", "--out", os.path.join(out_dir, "Toy"), *common],
+        WARP_KEYS, 1)
+    launches["osc_script"], _, _, _ = counted_script(
+        "single_mass_oscillator", osc_script,
+        ["--out", os.path.join(out_dir, "SMO.mat"), *common], WARP_KEYS, 1)
+    launches["vehicle_script"], _, _, _ = counted_script(
+        "vehicle", veh_script, ["--t-end", str(VEHICLE_SCRIPT_T_END), "--profile", trace_dir,
+                                "--out", os.path.join(out_dir, "Vehicle.mat"), *common],
+        WARP24_KEYS, 2, online_runs=2)
+    trace = os.path.join(trace_dir, TRACE_FILE)
+    require(os.path.exists(trace), f"vehicle --profile wrote no {trace}")
+    with open(trace) as fh:
+        text = fh.read()
+    wanted = ("warp_mniw_kernel<0, 16>", "warp_mniw_kernel<1, 16>")
+    named = {k: text.count(k) for k in wanted}
+    print(f"  vehicle --profile: {TRACE_FILE} {len(text) / 1e6:.1f} MB, names "
+          f"{named} (the look-ahead #1 and the gather/draw #4)", flush=True)
+    require(dev.type == "cpu" or all(named.values()),
+            f"vehicle --profile trace does not name the warp kernels: {named}")
+    del text
+    _, _, seen, _ = counted_script(
+        "toy_example --chains 2", toy_script,
+        ["--no-plot", "--chains", "2", "--out", os.path.join(out_dir, "Toy2"), *common],
+        WARP_KEYS, 1, chains=2)
+    require(seen["gibbs"]["result"].states.shape[0] == 2, "toy --chains 2: not two chains")
+    checkpoint_resume(dev, cs, out_dir)
+    return launches
+
+
+N_1M = 1 << 20  # particles, as benchmarks/bench_1m.py
+STEPS_1M = 200  # of its 1499 steps
+CHUNK_1M = 32768
+WINDOW_1M = 100  # bench_1m.py's window
+PROFILE_1M_STEPS = 5
+# chunked against unchunked: max |difference| <= TOL_1M x max |unchunked|
+# per leaf, f32 rounding; the chunked step computes each particle's column
+# with the same operations as the unchunked one, so the expected
+# difference is zero
+TOL_1M = 1e-5
+
+
+def _result_leaves(res):
+    return {
+        "state_mean": res.state_mean, "ess": res.ess, "final_state": res.final_state,
+        "final_log_weights": res.final_log_weights,
+        **{f"int_var_mean{i}": v for i, v in enumerate(res.int_var_mean)},
+        **{f"stats_mean{i}.{k}": leaf for i, st in enumerate(res.stats_mean)
+           for k, leaf in zip(mniw.MNIW._fields, st)},
+        **{f"final_stats{i}.{k}": leaf for i, st in enumerate(res.final_stats)
+           for k, leaf in zip(mniw.MNIW._fields, st)},
+    }
+
+
+def compare_1m(label, res, ref, ref_label):
+    """Every moment and the final carry of ``res`` against ``ref``: which
+    leaves are bitwise equal, and the largest difference relative to the
+    leaf's largest value (gate ``TOL_1M``). True if all are bitwise."""
+    got, want = _result_leaves(res), _result_leaves(ref)
+    equal, worst = [], 0.0
+    for k, w in want.items():
+        g = torch.as_tensor(got[k]).to(w.device)
+        if bitwise(g, w):
+            equal.append(k)
+            continue
+        scale = w.double().abs().max().clamp_min(1e-30)
+        rel = float((g.double() - w.double()).abs().max() / scale)
+        worst = max(worst, rel)
+        print(f"    {label} {k}: max |difference| {rel:.3e} of max |value|", flush=True)
+    print(f"  {label} against {ref_label}: {len(equal)} of {len(want)} leaves "
+          f"bitwise equal; largest relative difference {worst:.3e} (gate {TOL_1M})", flush=True)
+    require(worst <= TOL_1M, f"{label}: relative difference {worst} > {TOL_1M}")
+    return len(equal) == len(want)
+
+
+def apf_1m_phase(dev, model, Y, U, smi):
+    """Phase 26: the vehicle online APF at ``benchmarks/bench_1m.py``'s
+    width, 2**20 particles, depth cut to ``STEPS_1M`` steps, in four
+    configurations on one seed: unchunked, ``chunk_size=CHUNK_1M``,
+    ``window=WINDOW_1M``, both. Each run: ms per step on the host's clock
+    (synchronised), the peak device memory the run allocated above what
+    was held before it, and exact launches per step (chunks x #1 and
+    chunks x #4 per GP, one #2). Chunked against unchunked within
+    ``TOL_1M`` (and which leaves are bitwise equal); windowed against
+    unwindowed bit for bit. Then ``PROFILE_1M_STEPS`` profiled steps of
+    the unchunked and the chunked sweep (device busy, launches, idle
+    share). Returns the launches per configuration."""
+    Y, U = Y[:STEPS_1M + 1], U[:STEPS_1M + 1]
+    steps = STEPS_1M
+    configs = (("apf_1m", {}), ("apf_1m_chunked", dict(chunk_size=CHUNK_1M)),
+               ("apf_1m_windowed", dict(window=WINDOW_1M)),
+               ("apf_1m_chunked_windowed", dict(chunk_size=CHUNK_1M, window=WINDOW_1M)))
+    launches, kept, summary = {}, {}, []
+    for name, opts in configs:
+        apf = build_sharded_apf(model.ssm, model.gps, N_1M, forgetting_factor=LAM,
+                                dtype=torch.float32, device=dev, **opts)
+        chunks = N_1M // apf.chunk_size if apf.chunk_size else 1
+        if name in ("apf_1m", "apf_1m_chunked"):  # warm-up: allocator, launch state
+            apf(torch.Generator(device=dev).manual_seed(1), Y[:3], U[:3], model.x0, model.p0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        ts = time.perf_counter()
+        res = apf(torch.Generator(device=dev).manual_seed(9), Y, U, model.x0, model.p0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - ts) / steps * 1e3
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        launches[name] = counts = ck.launch_counts()
+        expect_counts(name, counts, {WARP24_KEYS["fp"]: 2 * chunks * steps,
+                                     "systematic_ancestors_blocks": steps,
+                                     WARP24_KEYS["dug"]: 2 * chunks * steps})
+        ess = torch.as_tensor(res.ess)
+        require(bool(torch.isfinite(torch.as_tensor(res.state_mean)).all())
+                and bool(torch.isfinite(ess).all()), f"{name}: non-finite moments")
+        print(f"  {name} ({opts or 'default'}): {N_1M} particles x {steps} steps, "
+              f"{ms:.3f} ms per step, {N_1M * steps / (ms * steps / 1e3):.4g} particle-steps/s, "
+              f"peak device memory {peak_gb:.3f} GB above the {held / 1e9:.3f} GB held; "
+              f"launches per step: #1 {2 * chunks}, #2 1, #4 {2 * chunks} (exact); ESS median "
+              f"{float(ess[1:].median()):.1f}, on {smi}", flush=True)
+        summary.append((name, ms, peak_gb))
+        if name == "apf_1m_chunked":
+            compare_1m(name, res, kept["apf_1m"], "apf_1m")
+        elif "windowed" in name:  # against the same run without the window
+            base = name.replace("_windowed", "")
+            require(compare_1m(name, res, kept[base], base),
+                    f"{name}: not bit for bit the run without the window")
+        if name in ("apf_1m", "apf_1m_chunked"):
+            kept[name] = res
+        del res
+    print("  2**20 summary (ms per step, peak GB): " + "; ".join(
+        f"{n} {ms:.3f} ms, {gb:.3f} GB" for n, ms, gb in summary) + f", on {smi}", flush=True)
+    kept.clear()
+    torch.cuda.empty_cache()
+    for name, opts in configs[:2]:
+        print(f"  profile, {name}:", flush=True)
+        profile_apf_steps(dev, model, Y, U, N_1M, PROFILE_1M_STEPS, **opts)
+    return launches
 
 
 def main() -> int:
@@ -3455,7 +3768,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 7
     t0 = time.perf_counter()
-    profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=100)
+    profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=CSMC_PROFILE_STEPS)
     phase_done("gibbs-profile", t0)
 
     # ---------------------------------------------------------------- 8
@@ -3495,7 +3808,8 @@ def main() -> int:
 
     # --------------------------------------------------------------- 13
     t0 = time.perf_counter()
-    profile_csmc_steps(dev, o_model, o_Y, o_U, o_X, (o_F,), N_CS_GIBBS, steps=100)
+    profile_csmc_steps(dev, o_model, o_Y, o_U, o_X, (o_F,), N_CS_GIBBS,
+                       steps=CSMC_PROFILE_STEPS)
     phase_done("cs-gibbs-profile", t0)
 
     # --------------------------------------------------------------- 14
@@ -3516,7 +3830,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- 16
     t0 = time.perf_counter()
-    reuse_counts, dedup_counts = apf_configs_main_path(dev, model, X, Y, U, smi)
+    cut = CUT_STEPS + 1
+    reuse_counts, dedup_counts = apf_configs_main_path(dev, model, X[:cut], Y[:cut], U[:cut],
+                                                       smi)
     phase_done("reuse-dedup-main-path", t0)
 
     # --------------------------------------------------------------- 17
@@ -3575,6 +3891,19 @@ def main() -> int:
         chains_counts = chains_phase(dev, cs, smi, out_dir)
     phase_done("chains", t0)
 
+    # --------------------------------------------------------------- 25
+    # the entry scripts and the 2**20 APF after every earlier phase, so
+    # that phases 1-24 run as the parent's do
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        script_counts = scripts_phase(dev, cs, smi, out_dir)
+    phase_done("scripts", t0)
+
+    # --------------------------------------------------------------- 26
+    t0 = time.perf_counter()
+    apf_1m_counts = apf_1m_phase(dev, model, Y, U, smi)
+    phase_done("apf-1m", t0)
+
     # one entry per kernel: rows 1, 3, 4 and 5 are the warp kernels at
     # m <= 24 (the per-thread <24> kernels they replace timed beside them),
     # 2 the resampler, rows 6 and 7 the warp kernels at m <= 48 (the TPU's
@@ -3590,13 +3919,13 @@ def main() -> int:
     # log-determinants (kLogdetsUnpacked, unpacked_mniw_kernel<24, kLogdets>
     # beside it, cholesky_ex on its augmented matrices, and at m = 41 the
     # <48w> against <48>, keys ending in _48w). launches: over the
-    # seventeen main paths' runs, each counted from zero
+    # twenty-four main paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
              "apf_reuse": reuse_counts, "apf_dedup": dedup_counts,
              "gibbs_reuse": gibbs_reuse_counts, "entry_points": entry_counts,
              "gibbs_rank1": gibbs_rank1_counts, **pgas_counts, **emps_counts,
-             **chains_counts}
+             **chains_counts, **script_counts, **apf_1m_counts}
     mniw_src, sys_src = "bipk_tpu_torch/csrc/packed_mniw.cu", "bipk_tpu_torch/csrc/systematic.cu"
     warp_src = "bipk_tpu_torch/csrc/warp_mniw.cu"
     pk = "bipk_tpu/ops/pallas_kernels.py"

@@ -241,7 +241,7 @@ def test_entry_point_runs_parallel_chains(tmp_path, capsys):
     np.testing.assert_array_equal(mat["offline_T1"], chains.stats[0].T1[0].numpy())
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh", "2"], 8), (["--checkpoint", "c.pt"], 6)])
-def test_entry_point_raises_on_what_is_not_ported(flag, item):
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        emps_script.parse_args(["--cpu", *flag])
+def test_entry_point_raises_on_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        emps_script.parse_args(["--cpu", "--mesh", "2"])
+

@@ -51,7 +51,11 @@ def test_port_imports_with_jax_absent():
         "import bipk_tpu_torch.algorithms.gibbs, bipk_tpu_torch.utils.matio\n"
         "import bipk_tpu_torch.models.oscillator, bipk_tpu_torch.models.toy\n"
         "import bipk_tpu_torch.ops.cholup, bipk_tpu_torch.algorithms.csmc\n"
-        "import bipk_tpu_torch.utils.diagnostics\n"
+        "import bipk_tpu_torch.utils.diagnostics, bipk_tpu_torch.utils.checkpoint\n"
+        "import bipk_tpu_torch.utils.profiling, bipk_tpu_torch.utils.plotting\n"
+        "import bipk_tpu_torch.scripts.toy_example, bipk_tpu_torch.scripts.vehicle\n"
+        "import bipk_tpu_torch.scripts.single_mass_oscillator, bipk_tpu_torch.scripts.emps\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported at import time'\n"
         "print('ok')"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -91,6 +95,20 @@ def test_cs_models_run_on_the_card_unless_asked(monkeypatch):
     model = ttoy.make_model(ttoy.ToyConfig(n_steps=5))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_gibbs(model.ssm, model.gps, 64, 3)
+
+
+@pytest.mark.parametrize("name", ["toy_example", "single_mass_oscillator", "vehicle", "emps"])
+def test_entry_scripts_run_on_the_card_unless_asked(monkeypatch, tmp_path, name):
+    """Without ``--cpu`` every entry script asks for CUDA and raises when
+    there is no card, before it writes anything."""
+    import importlib
+
+    script = importlib.import_module(f"bipk_tpu_torch.scripts.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--out", str(tmp_path / "out.mat")] + (["--no-plot"] if name == "toy_example" else [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        script.run(script.parse_args(argv))
+    assert not any(tmp_path.iterdir())
 
 
 def test_launches_count_per_instantiation():
@@ -678,11 +696,14 @@ def test_unpacked_launches_count_per_instantiation():
 
 
 def test_unported_modes_raise():
+    """More devices and the exact scheme raise; the chunked and windowed
+    modes are ported (``tests/test_torch_chunked_apf.py``) and build."""
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
-    for kwargs in (dict(n_devices=4), dict(resampling_scheme="exact"),
-                   dict(chunk_size=32), dict(window=8)):
-        with pytest.raises(NotImplementedError):
+    for kwargs in (dict(n_devices=4), dict(resampling_scheme="exact")):
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
             build_sharded_apf(model.ssm, model.gps, 64, device="cpu", **kwargs)
+    for kwargs in (dict(chunk_size=32), dict(window=8)):
+        build_sharded_apf(model.ssm, model.gps, 64, device="cpu", **kwargs)
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
