@@ -143,7 +143,9 @@ class Gibbs:
         checkpoint_path: str | None = None, checkpoint_every: int = 50,
     ) -> GibbsResult:
         obs, inputs = self.data(observations, inputs)
-        restored = self.restore(checkpoint_path, checkpoint_every, obs.shape[0])
+        saver = (None if checkpoint_path is None
+                 else checkpoint.PeriodicCheckpointer(checkpoint_path, checkpoint_every))
+        restored = self.restore(checkpoint_path, obs.shape[0])
         if restored is None:
             start, refs = 1, [self.initial_ref(init_ref_state, init_ref_int_vars, inputs)]
         else:
@@ -154,21 +156,20 @@ class Gibbs:
                                    refs[-1]))
             if callback is not None:
                 callback(k, refs[-1])
-            if checkpoint_path is not None and k % checkpoint_every == 0:
-                checkpoint.save(checkpoint_path, k, generator.get_state(), {"refs": refs})
+            if saver is not None:
+                saver(k, generator.get_state, {"refs": refs})
         return self.result(obs, inputs, refs)
 
-    def restore(self, path, every, n_steps, n_chains=None):
+    def restore(self, path, n_steps, n_chains=None):
         """The checkpoint at ``path`` as ``(next sweep, rng state, refs on
         the device)``, or None without a path or a file. ``refs`` are the
         references per iteration, with a leading ``(C,)`` on every leaf
         for ``n_chains=C``. Raises as the JAX ``run_host`` does: a
-        non-positive ``every``, a checkpoint at or past ``n_iterations``,
-        trajectories of another shape or chain count."""
+        checkpoint at or past ``n_iterations``, trajectories of another
+        shape or chain count (a non-positive period is refused by
+        :class:`~bipk_tpu_torch.utils.checkpoint.PeriodicCheckpointer`)."""
         if path is None:
             return None
-        if every <= 0:
-            raise ValueError(f"checkpoint_every must be positive, got {every}")
         restored = checkpoint.load(path)
         if restored is None:
             return None
@@ -261,7 +262,9 @@ class ParallelGibbs:
         gibbs, C = self.gibbs, self.n_chains
         gens = chain_generators(generator, C)
         obs, inputs = gibbs.data(observations, inputs)
-        restored = gibbs.restore(checkpoint_path, checkpoint_every, obs.shape[0], C)
+        saver = (None if checkpoint_path is None
+                 else checkpoint.PeriodicCheckpointer(checkpoint_path, checkpoint_every))
+        restored = gibbs.restore(checkpoint_path, obs.shape[0], C)
         if restored is None:
             start = 1
             refs = [[gibbs.initial_ref(state, ivs, inputs)]
@@ -277,9 +280,9 @@ class ParallelGibbs:
                                          chain[-1]))
             if callback is not None:
                 callback(k, stack_chains([chain[-1] for chain in refs]))
-            if checkpoint_path is not None and k % checkpoint_every == 0:
-                checkpoint.save(checkpoint_path, k, [g.get_state() for g in gens],
-                                {"refs": [stack_chains(its) for its in zip(*refs)]})
+            if saver is not None:
+                saver(k, lambda: [g.get_state() for g in gens],
+                      lambda: {"refs": [stack_chains(its) for its in zip(*refs)]})
         return stack_chains([gibbs.result(obs, inputs, chain) for chain in refs])
 
 

@@ -242,8 +242,12 @@ def build_sharded_apf(
     per-chunk temporaries are one chunk. The sweep does not chunk by
     itself as the JAX package does above 262144 particles: on the 80 GB
     card chunking never decides whether a sweep fits (the arithmetic is
-    at the top of this module). A ``chunk_size`` of N or more runs
-    unchunked. As in the JAX chunked step, ``reuse_factor`` and
+    at the top of this module). On the H100 it is there for parity with
+    the JAX API and for no workload: it never lowers the sweep's peak
+    memory, and its step is host-bound (at 2**20 particles in chunks of
+    32768, about 31 times the launches of an unchunked step;
+    ``chip_smoke.py`` phase 26 prints both). A ``chunk_size`` of N or
+    more runs unchunked. As in the JAX chunked step, ``reuse_factor`` and
     ``dedup_gather`` do not apply there: it threads no factor and runs the
     gather/draw kernel (#4). ``window`` brings the moments to the host
     every ``window`` steps (the JAX windowed dispatch); it composes with

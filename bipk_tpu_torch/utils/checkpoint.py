@@ -59,12 +59,18 @@ class PeriodicCheckpointer:
 
     The current generator state must be passed on every call: a state
     taken once at construction would make a resumed run replay the random
-    stream from the start of the chain instead of continuing it."""
+    stream from the start of the chain instead of continuing it. Either
+    argument may be a function of no arguments instead, called only on an
+    iteration that saves, so that a loop does not build what it does not
+    write."""
 
     def __init__(self, path: str, every: int = 50):
+        if every <= 0:
+            raise ValueError(f"checkpoint_every must be positive, got {every}")
         self.path = path
         self.every = every
 
     def __call__(self, step: int, rng_state, payload: Any) -> None:
         if step % self.every == 0:
-            save(self.path, step, rng_state, payload)
+            save(self.path, step, rng_state() if callable(rng_state) else rng_state,
+                 payload() if callable(payload) else payload)

@@ -42,7 +42,7 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
    particles x 1500 steps, seeded by a 256-particle APF and a reference
    draw, with launch counts per sweep, seconds per sweep and the drawn
    trajectory's RMSE;
-7. Gibbs profile: 50 cSMC steps at 10240 particles with CUDA's sync
+7. Gibbs profile: 100 cSMC steps at 10240 particles with CUDA's sync
    debug mode set to "error" (no step may wait for the device), the same
    steps timed, then under ``torch.profiler``: device time and launches
    per step, the largest kernels, the device's idle share;
@@ -92,7 +92,7 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     CUDA's device-side assertion;
 15. reuse/dedup path-vs-plain: phase 3 with ``reuse_factor=True`` and
     with ``dedup_gather=True``;
-16. reuse/dedup main path: the vehicle APF at 32768 x 750 in the
+16. reuse/dedup main path: the vehicle APF at 32768 x 1499 in the
     default, reuse and dedup configurations, interleaved, with exact
     launch counts, the phase-4 checks and throughput;
 17. reuse Gibbs: the vehicle cSMC path-vs-plain (10240 x 50, 10 seeds)
@@ -124,11 +124,11 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     True)``) through the kernels and through their plain versions, 10240
     x 50 over 10 seeds, paired; then the rank-1 and the direct steps on
     the same draws in f32, to the first step where their ancestors differ;
-20. rank-1 Gibbs: the Gibbs host loop on the rank-1 cSMC at 10240 x 750
-    (a warm-up and one timed sweep) with exact launches per sweep (4 x 750 of
-    the projection, 750 resamplings, nothing else), no non-finite
+20. rank-1 Gibbs: the Gibbs host loop on the rank-1 cSMC at 10240 x 1499
+    (a warm-up and one timed sweep) with exact launches per sweep (4 x 1499 of
+    the projection, 1499 resamplings, nothing else), no non-finite
     ancestor weight and phase 6's trajectory gate; 50 rank-1 cSMC steps
-    under the sync check and profiled beside 50 direct ones;
+    under the sync check and profiled beside phase 17's 50 direct ones;
 21. APF profile: phase 7 for 50 steps of the vehicle online APF at 32768
     particles (its step's device time, launches and idle share);
 22. classic PGAS: ``tests/test_invariance.py``'s AR(1) cSMC (64
@@ -173,12 +173,14 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     two) interrupted after sweep 3 and resumed, bit for bit the
     uninterrupted run, for one chain and for two;
 26. 2**20: the vehicle online APF at ``benchmarks/bench_1m.py``'s 2**20
-    particles over 200 steps, unchunked, in chunks of 32768, in windows
-    of 100 steps, and both: ms per step, peak device memory, exact
+    particles, unchunked and in windows of 100 steps over 200 steps, then
+    in chunks of 32768 and chunks in windows of 25 over 50 steps (the
+    chunked step is host-bound): ms per step, peak device memory, exact
     launches per step (chunks x #1 and #4 per GP, one #2), chunked against
-    unchunked (which leaves are bitwise, the rest within 1e-5 of each
-    leaf's largest value), windowed against unwindowed bit for bit; then
-    5 profiled steps of the unchunked and the chunked sweep.
+    an unchunked run of 50 steps (which leaves are bitwise, the rest
+    within 1e-5 of each leaf's largest value), windowed against
+    unwindowed bit for bit; then 5 profiled steps of the unchunked and the
+    chunked sweep.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the
@@ -1816,7 +1818,7 @@ def reuse_kernel_checks(dev, model, Y, U, results, jitter, flush):
 
 
 def apf_configs_main_path(dev, model, X, Y, U, smi):
-    """Phase 16: the vehicle online APF at 32768 particles in the default,
+    """Phase 16: the vehicle online APF at 32768 x 1499 in the default,
     factor-reuse and dedup configurations, interleaved in one call
     (default, reuse, dedup, dedup, reuse, default), each run from the same
     seed with exact launch counts, finite moments and the phase-4 RMSE,
@@ -1867,11 +1869,11 @@ def apf_configs_main_path(dev, model, X, Y, U, smi):
     return counts["reuse"], counts["dedup"]
 
 
-# depths cut for the script's time limit: phase 16's APF runs and phases
-# 17's and 20's Gibbs samplers over the first half of the vehicle's 1499
-# steps; the profiled cSMC steps of phases 7, 13 and 17
-CUT_STEPS = 750
-CSMC_PROFILE_STEPS = 50
+# phase 17's depths, cut for the script's time limit: its Gibbs sampler
+# over the first half of the vehicle's 1499 steps, and its profiled cSMC
+# steps (phase 20 profiles beside the direct ones)
+REUSE_GIBBS_STEPS = 750
+REUSE_PROFILE_STEPS = 50
 
 
 def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi):
@@ -1879,18 +1881,18 @@ def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi)
     look-ahead emits the factor of the prior plus the statistics at
     lambda = 1, the draw reads it): cSMC path-vs-plain, 10240 x 50 over
     10 seeds, paired; the Gibbs sampler at 10240 particles seeded as in
-    phase 6 over the first ``CUT_STEPS`` steps, two sweeps with
+    phase 6 over the first ``REUSE_GIBBS_STEPS`` steps, two sweeps with
     exact launches per sweep and phase 6's trajectory gate;
-    ``CSMC_PROFILE_STEPS`` profiled reuse cSMC steps beside as many
+    ``REUSE_PROFILE_STEPS`` profiled reuse cSMC steps beside as many
     default ones; and a few oscillator APF steps with reuse (m = 41: no
     factor pair, only the warp kernels). Returns the Gibbs launches."""
     csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=50, seeds=10,
                        label="reuse cSMC", reuse_factor=True)
-    cut = CUT_STEPS + 1
+    cut = REUSE_GIBBS_STEPS + 1
     counts = gibbs_path(dev, model, X[:cut], Y[:cut], U[:cut], MU_F[:cut], N_GIBBS, n_apf=256,
                         n_iterations=3, smi=smi, reuse_factor=True)
     prof = {name: profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS,
-                                     steps=CSMC_PROFILE_STEPS, **opts)
+                                     steps=REUSE_PROFILE_STEPS, **opts)
             for name, opts in (("default", {}), ("reuse", dict(reuse_factor=True)))}
     if all(prof.values()):
         print("  cSMC step, default against reuse: " + "; ".join(
@@ -2584,12 +2586,12 @@ def rank1_against_direct(dev, model, Y, U, X, ref_ivs, n_particles, steps):
 
 def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
     """Phase 20: the rank-1 Gibbs main path at full width, the vehicle
-    (two GPs, m = 20), 10240 particles over the first ``CUT_STEPS``
-    steps, seeded as phase 6; a warm-up sweep and one more. Launches per
-    sweep exactly 4 x steps of #12 and one #2 per step and nothing else;
-    every weight an ancestor (or the trajectory) is drawn from finite (the
-    hyperbolic downdate's sqrt in f32 over every step); phase 6's
-    trajectory gate. Then ``RANK1_PROFILE_STEPS``
+    (two GPs, m = 20), 10240 x 1499, seeded as phase 6; a warm-up sweep
+    and one more (cut from two for the run's time). Launches per
+    sweep exactly 4 x 1499 of #12 and 1499 of
+    #2 and nothing else; every weight an ancestor (or the trajectory) is
+    drawn from finite (the hyperbolic downdate's sqrt in f32 for 1499
+    steps); phase 6's trajectory gate. Then ``RANK1_PROFILE_STEPS``
     rank-1 cSMC steps under CUDA's sync debug mode "error" and profiled,
     beside the direct step's profile of the same call (``direct_prof``,
     phase 17's default steps). Returns the Gibbs launches."""
@@ -2603,10 +2605,9 @@ def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
         return real(weights, u)
 
     resampling.categorical_from_weights = counting
-    cut = CUT_STEPS + 1
     try:
-        counts = gibbs_path(dev, model, X[:cut], Y[:cut], U[:cut], MU_F[:cut], N_GIBBS,
-                            n_apf=256, n_iterations=3, smi=smi, rank1=True)
+        counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=3,
+                            smi=smi, rank1=True)
     finally:
         resampling.categorical_from_weights = real
     bad = int(nonfinite)
@@ -3319,6 +3320,10 @@ N_1M = 1 << 20  # particles, as benchmarks/bench_1m.py
 STEPS_1M = 200  # of its 1499 steps
 CHUNK_1M = 32768
 WINDOW_1M = 100  # bench_1m.py's window
+# the chunked runs are host-bound (~0.2 s per step): fewer steps, and
+# windows short enough that their run still splits into two pieces
+CHUNKED_STEPS_1M = 50
+CHUNKED_WINDOW_1M = 25
 PROFILE_1M_STEPS = 5
 # chunked against unchunked: max |difference| <= TOL_1M x max |unchunked|
 # per leaf, f32 rounding; the chunked step computes each particle's column
@@ -3362,23 +3367,30 @@ def compare_1m(label, res, ref, ref_label):
 
 def apf_1m_phase(dev, model, Y, U, smi):
     """Phase 26: the vehicle online APF at ``benchmarks/bench_1m.py``'s
-    width, 2**20 particles, depth cut to ``STEPS_1M`` steps, in four
-    configurations on one seed: unchunked, ``chunk_size=CHUNK_1M``,
-    ``window=WINDOW_1M``, both. Each run: ms per step on the host's clock
-    (synchronised), the peak device memory the run allocated above what
-    was held before it, and exact launches per step (chunks x #1 and
-    chunks x #4 per GP, one #2). Chunked against unchunked within
-    ``TOL_1M`` (and which leaves are bitwise equal); windowed against
-    unwindowed bit for bit. Then ``PROFILE_1M_STEPS`` profiled steps of
-    the unchunked and the chunked sweep (device busy, launches, idle
-    share). Returns the launches per configuration."""
-    Y, U = Y[:STEPS_1M + 1], U[:STEPS_1M + 1]
-    steps = STEPS_1M
-    configs = (("apf_1m", {}), ("apf_1m_chunked", dict(chunk_size=CHUNK_1M)),
-               ("apf_1m_windowed", dict(window=WINDOW_1M)),
-               ("apf_1m_chunked_windowed", dict(chunk_size=CHUNK_1M, window=WINDOW_1M)))
+    width, 2**20 particles, in four configurations on one seed:
+    unchunked and ``window=WINDOW_1M`` over ``STEPS_1M`` steps, then
+    ``chunk_size=CHUNK_1M`` and the chunks in ``window=CHUNKED_WINDOW_1M``
+    over ``CHUNKED_STEPS_1M`` steps. Each run: ms per step on the host's
+    clock (synchronised), the peak device memory the run allocated above
+    what was held before it, and exact launches per step (chunks x #1 and
+    chunks x #4 per GP, one #2). Windowed against the same run without the
+    window bit for bit; chunked against an unchunked run of its depth
+    (a reference, not a path) within ``TOL_1M``, and which leaves are
+    bitwise equal. Then ``PROFILE_1M_STEPS`` profiled steps of the
+    unchunked and the chunked sweep (device busy, launches, idle share).
+    Returns the launches of the four configurations."""
+    runs = (  # (name, options, steps, held against, bit for bit)
+        ("apf_1m", {}, STEPS_1M, None, False),
+        ("apf_1m_windowed", dict(window=WINDOW_1M), STEPS_1M, "apf_1m", True),
+        ("apf_1m_unchunked_ref", {}, CHUNKED_STEPS_1M, None, False),
+        ("apf_1m_chunked", dict(chunk_size=CHUNK_1M), CHUNKED_STEPS_1M,
+         "apf_1m_unchunked_ref", False),
+        ("apf_1m_chunked_windowed", dict(chunk_size=CHUNK_1M, window=CHUNKED_WINDOW_1M),
+         CHUNKED_STEPS_1M, "apf_1m_chunked", True),
+    )
+    last_use = {ref: name for name, _, _, ref, _ in runs if ref}
     launches, kept, summary = {}, {}, []
-    for name, opts in configs:
+    for name, opts, steps, ref, exact in runs:
         apf = build_sharded_apf(model.ssm, model.gps, N_1M, forgetting_factor=LAM,
                                 dtype=torch.float32, device=dev, **opts)
         chunks = N_1M // apf.chunk_size if apf.chunk_size else 1
@@ -3390,37 +3402,40 @@ def apf_1m_phase(dev, model, Y, U, smi):
         torch.cuda.reset_peak_memory_stats()
         ck.reset_launch_counts()
         ts = time.perf_counter()
-        res = apf(torch.Generator(device=dev).manual_seed(9), Y, U, model.x0, model.p0)
+        res = apf(torch.Generator(device=dev).manual_seed(9), Y[:steps + 1], U[:steps + 1],
+                  model.x0, model.p0)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - ts) / steps * 1e3
         peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
-        launches[name] = counts = ck.launch_counts()
+        counts = ck.launch_counts()
         expect_counts(name, counts, {WARP24_KEYS["fp"]: 2 * chunks * steps,
                                      "systematic_ancestors_blocks": steps,
                                      WARP24_KEYS["dug"]: 2 * chunks * steps})
+        if name != "apf_1m_unchunked_ref":
+            launches[name] = counts
         ess = torch.as_tensor(res.ess)
         require(bool(torch.isfinite(torch.as_tensor(res.state_mean)).all())
                 and bool(torch.isfinite(ess).all()), f"{name}: non-finite moments")
         print(f"  {name} ({opts or 'default'}): {N_1M} particles x {steps} steps, "
-              f"{ms:.3f} ms per step, {N_1M * steps / (ms * steps / 1e3):.4g} particle-steps/s, "
+              f"{ms:.3f} ms per step, {N_1M / (ms / 1e3):.4g} particle-steps/s, "
               f"peak device memory {peak_gb:.3f} GB above the {held / 1e9:.3f} GB held; "
               f"launches per step: #1 {2 * chunks}, #2 1, #4 {2 * chunks} (exact); ESS median "
               f"{float(ess[1:].median()):.1f}, on {smi}", flush=True)
-        summary.append((name, ms, peak_gb))
-        if name == "apf_1m_chunked":
-            compare_1m(name, res, kept["apf_1m"], "apf_1m")
-        elif "windowed" in name:  # against the same run without the window
-            base = name.replace("_windowed", "")
-            require(compare_1m(name, res, kept[base], base),
-                    f"{name}: not bit for bit the run without the window")
-        if name in ("apf_1m", "apf_1m_chunked"):
+        summary.append((name, steps, ms, peak_gb))
+        if ref is not None:
+            bitwise_all = compare_1m(name, res, kept[ref], ref)
+            require(bitwise_all or not exact, f"{name}: not bit for bit {ref}")
+            if last_use[ref] == name:
+                del kept[ref]
+        if name in last_use:
             kept[name] = res
         del res
-    print("  2**20 summary (ms per step, peak GB): " + "; ".join(
-        f"{n} {ms:.3f} ms, {gb:.3f} GB" for n, ms, gb in summary) + f", on {smi}", flush=True)
+    print("  2**20 summary (steps, ms per step, peak GB): " + "; ".join(
+        f"{n} {steps}, {ms:.3f} ms, {gb:.3f} GB" for n, steps, ms, gb in summary)
+        + f", on {smi}", flush=True)
     kept.clear()
     torch.cuda.empty_cache()
-    for name, opts in configs[:2]:
+    for name, opts in (("apf_1m", {}), ("apf_1m_chunked", dict(chunk_size=CHUNK_1M))):
         print(f"  profile, {name}:", flush=True)
         profile_apf_steps(dev, model, Y, U, N_1M, PROFILE_1M_STEPS, **opts)
     return launches
@@ -3768,7 +3783,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 7
     t0 = time.perf_counter()
-    profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=CSMC_PROFILE_STEPS)
+    profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=100)
     phase_done("gibbs-profile", t0)
 
     # ---------------------------------------------------------------- 8
@@ -3808,8 +3823,7 @@ def main() -> int:
 
     # --------------------------------------------------------------- 13
     t0 = time.perf_counter()
-    profile_csmc_steps(dev, o_model, o_Y, o_U, o_X, (o_F,), N_CS_GIBBS,
-                       steps=CSMC_PROFILE_STEPS)
+    profile_csmc_steps(dev, o_model, o_Y, o_U, o_X, (o_F,), N_CS_GIBBS, steps=100)
     phase_done("cs-gibbs-profile", t0)
 
     # --------------------------------------------------------------- 14
@@ -3830,9 +3844,7 @@ def main() -> int:
 
     # --------------------------------------------------------------- 16
     t0 = time.perf_counter()
-    cut = CUT_STEPS + 1
-    reuse_counts, dedup_counts = apf_configs_main_path(dev, model, X[:cut], Y[:cut], U[:cut],
-                                                       smi)
+    reuse_counts, dedup_counts = apf_configs_main_path(dev, model, X, Y, U, smi)
     phase_done("reuse-dedup-main-path", t0)
 
     # --------------------------------------------------------------- 17

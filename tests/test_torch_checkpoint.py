@@ -72,6 +72,27 @@ def test_periodic_checkpointer(tmp_path):
     assert torch.equal(saved, states[6]) and not torch.equal(saved, states[1])
 
 
+def test_periodic_checkpointer_builds_only_what_it_saves(tmp_path):
+    """Given functions, the checkpointer calls them on the iterations it
+    saves and on no other; a non-positive period is refused."""
+    path = str(tmp_path / "lazy.pkl")
+    cb = checkpoint.PeriodicCheckpointer(path, every=2)
+    g = torch.Generator().manual_seed(0)
+    built = []
+
+    def payload(k):
+        built.append(k)
+        return {"k": torch.tensor(k)}
+
+    for k in range(1, 6):
+        cb(k, g.get_state, lambda k=k: payload(k))
+    assert built == [2, 4]
+    step, saved, loaded = checkpoint.load(path)
+    assert step == 4 and int(loaded["k"]) == 4 and torch.equal(saved, g.get_state())
+    with pytest.raises(ValueError, match="checkpoint_every must be positive, got 0"):
+        checkpoint.PeriodicCheckpointer(path, every=0)
+
+
 @pytest.fixture(scope="module")
 def toy_setup():
     cfg = toy.ToyConfig(n_particles=N_PARTICLES, n_steps=N_STEPS)
