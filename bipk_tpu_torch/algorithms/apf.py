@@ -148,12 +148,13 @@ class APFKernel:
 
     # -- draws and init --------------------------------------------------
 
-    def step_draws(self, generator, n_particles) -> StepDraws:
+    def step_draws(self, generator, n_particles, u_generator=None) -> StepDraws:
         """One filter step's draws from ``generator``: the resampling
-        offset, the process noise (none for a deterministic transition),
-        each GP's matrix-t uniforms."""
+        offset (from ``u_generator`` if given), the process noise (none for
+        a deterministic transition), each GP's matrix-t uniforms."""
+        u_res = torch.rand((1,), generator=u_generator or generator, dtype=self.dtype,
+                           device=self.device)
         opts = dict(generator=generator, dtype=self.dtype, device=self.device)
-        u_res = torch.rand((1,), **opts)
         z = None if self.process_chol is None else torch.randn(
             (self.ssm.state_dim, n_particles), **opts)
         uvs = tuple(

@@ -32,7 +32,7 @@ the same :class:`CSMCDraws`.
 Each step keeps every value on the device: the reference's ancestor is a
 0-d device tensor, never read back. Random draws are inputs
 (:class:`CSMCDraws`), so the tests can feed the JAX package's draws.
-The GSPMD ``mesh=`` is not ported.
+The GSPMD ``mesh=`` is not ported (ROADMAP Queue A item 8b).
 """
 
 from __future__ import annotations
@@ -412,7 +412,8 @@ def build_csmc(
     ported.
     """
     if mesh is not None:
-        raise NotImplementedError("the port's cSMC runs on one device")
+        raise NotImplementedError(
+            "mesh= (multi-device) is not ported yet: ROADMAP Queue A item 8b")
     if rank1 and (reuse_factor or dedup_gather):
         raise ValueError("rank1=True carries augmented factors, not packed statistics: "
                          "reuse_factor and dedup_gather select kernels it never launches")

@@ -13,7 +13,7 @@ chains from the same host loop, one sweep per chain in each iteration
 generators' states, the draws so far) every ``checkpoint_every`` sweeps
 and resumes from an existing file, bit for bit the uninterrupted run (the
 JAX ``run_host``, ``fused=False``). The sharded sweeps and the chain mesh
-are not ported (ROADMAP Queue A item 8).
+are not ported (ROADMAP Queue A item 8b).
 """
 
 from __future__ import annotations
@@ -310,7 +310,7 @@ def build_gibbs(
     and ``dedup_gather`` go to the cSMC sweep (:func:`~bipk_tpu_torch.
     algorithms.csmc.build_csmc`). ``n_chains=C`` (C >= 2) runs C
     independent chains (:class:`ParallelGibbs`). ``mesh``, ``shard_mesh``
-    and ``chain_mesh`` are not ported (ROADMAP Queue A item 8); the
+    and ``chain_mesh`` are not ported (ROADMAP Queue A item 8b); the
     combinations the JAX package refuses raise ``ValueError`` first.
     """
     if chain_mesh is not None and n_chains is None:
@@ -324,7 +324,7 @@ def build_gibbs(
     if any(a is not None for a in (mesh, shard_mesh, chain_mesh)):
         raise NotImplementedError(
             "mesh=, shard_mesh= and chain_mesh= (multi-device) are not ported yet: "
-            "ROADMAP Queue A item 8"
+            "ROADMAP Queue A item 8b"
         )
     del fused
     device = resolve_device(device)

@@ -1,20 +1,38 @@
-"""The online APF sweep on one device (port of the single-device, local-
-scheme body of ``bipk_tpu/parallel/sharded.py`` ``build_sharded_apf``).
+"""The particle-sharded online APF sweep over a particle mesh (port of
+``bipk_tpu/parallel/sharded.py`` ``build_sharded_apf``).
 
 Per step: the auxiliary look-ahead (one factorize+project kernel per GP,
-which with ``reuse_factor`` also emits the factor), systematic resampling
-on the first-stage weights (one kernel), a gather of the small
-per-particle payloads and the RK4 propagation, the fused
-resampling-gather + matrix-t draw + rank-1 statistics update (one kernel
-per GP: the gather/draw, the factor-reusing or the dedup kernel), the
-log-likelihood, and the weighted moments. Traces reduce to
+which with ``reuse_factor`` also emits the factor), resampling on the
+first-stage weights, a gather of the small per-particle payloads and the
+RK4 propagation, the matrix-t draw + rank-1 statistics update (one kernel
+per GP), the log-likelihood, and the weighted moments. Traces reduce to
 weighted moments on the fly, as in the JAX package.
 
-One device and the local scheme, as one full-width step per observation
-(the default), in chunks of the particle axis (``chunk_size``: the JAX
-``step_chunked``), and with the moments brought to the host every
-``window`` steps (the JAX windowed dispatch); more devices and the exact
-scheme raise (ROADMAP Queue A item 8).
+The particle axis is split over the ranks of a :class:`~bipk_tpu_torch.
+parallel.mesh.ParticleMesh`, ``n_loc = N / W`` particles per rank. Its
+collectives, as in the JAX body: the global softmax (``pmax`` + ``psum``),
+the weighted moments and the ESS (one ``psum`` of the local partials),
+and, per resampling scheme:
+
+- ``"local"`` (default): each rank resamples its slice with the
+  systematic kernel from its locally renormalized weights, draws with the
+  gather/draw kernel (or an opt-in one), and carries its share of the
+  global mass as the log-weight offset ``log(max(mass W, 1e-30))``: no
+  particle crosses ranks.
+- ``"exact"``: the single-device global systematic scheme on the mesh
+  (:mod:`~bipk_tpu_torch.parallel.global_resampling`): the rank's slice of
+  the global sorted ancestors, the payloads ``(state, int_vars, Ss,
+  ll_aux)`` moved over the ring, then the draw/update kernel on the
+  redistributed statistics, without a gather and without the look-ahead's
+  factor; offset 0.
+
+A one-rank mesh with the local scheme is the single-device sweep, the
+JAX package's one-device fast path (``sharded.py:152-184``): no
+collective, no mass renormalization, no offset. It runs as one full-width
+step per observation (the default), in chunks of the particle axis
+(``chunk_size``: the JAX ``step_chunked``; local scheme only), and with
+the moments brought to the host every ``window`` steps (the JAX windowed
+dispatch); both compose with W ranks.
 """
 
 from __future__ import annotations
@@ -25,9 +43,11 @@ import numpy as np
 import torch
 
 from bipk_tpu_torch._device import resolve_device
-from bipk_tpu_torch.algorithms.apf import APF, APFKernel, StepDraws, as_tensor
+from bipk_tpu_torch.algorithms.apf import APFKernel, StepDraws, as_tensor
 from bipk_tpu_torch.models.ssm import GPNode, SSM
 from bipk_tpu_torch.ops import mniw
+from bipk_tpu_torch.parallel import global_resampling
+from bipk_tpu_torch.parallel.mesh import ParticleMesh
 from bipk_tpu_torch.utils.matio import map_leaves, to_host
 
 
@@ -42,20 +62,29 @@ from bipk_tpu_torch.utils.matio import map_leaves, to_host
 # carries). Chunking never decides whether a sweep fits (both stop near
 # 80 GB / 5.2 KB ~ 15 M particles), so the port chunks only when asked.
 class ShardedAPFResult(NamedTuple):
-    state_mean: torch.Tensor  # (T, dx) weighted posterior mean
+    state_mean: torch.Tensor  # (T, dx) weighted posterior mean, equal on every rank
     int_var_mean: tuple  # each (T, n_i)
     stats_mean: tuple  # each MNIW with leading (T, ...)
     ess: torch.Tensor  # (T,)
-    final_state: torch.Tensor  # (N, dx)
-    final_log_weights: torch.Tensor  # (N,)
-    final_stats: tuple  # each MNIW batch-last (..., N)
+    final_state: torch.Tensor  # (n_loc, dx): this rank's slice
+    final_log_weights: torch.Tensor  # (n_loc,)
+    final_stats: tuple  # each MNIW batch-last (..., n_loc)
 
 
 class ShardedAPF:
-    """The single-device online APF sweep, reducing its traces to weighted
-    moments on the fly. Call it as ``apf(generator, observations, inputs,
-    init_state_mean, init_state_cov)``; :meth:`init`, :meth:`draws` and
-    :meth:`step` expose one step with injected draws.
+    """One rank's part of the sharded online APF sweep, reducing its traces
+    to weighted moments on the fly. Call it as ``apf(generator,
+    observations, inputs, init_state_mean, init_state_cov)``; :meth:`init`,
+    :meth:`draws` and :meth:`step` expose one step with injected draws.
+
+    Generators: ``generator`` is seeded alike on every rank. On one rank it
+    draws everything, in the order of the single-device sweep. On W ranks
+    each rank draws its particles' randomness (the initial particles, the
+    process noise, the matrix-t uniforms) from its own generator
+    (:meth:`rank_generator`), the counterpart of JAX's ``fold_in(key,
+    shard)``; the resampling uniform ``u_res`` comes from ``generator``
+    in the exact scheme (so it is the same on every rank) and from the
+    rank's generator in the local one (JAX's ``fold_in(key_res, shard)``).
 
     ``chunk_size`` runs each step chunk by chunk over the particle axis
     (:meth:`step_chunked`); ``window`` brings the moments to the host as
@@ -64,64 +93,154 @@ class ShardedAPF:
     arrays, bit for bit those of the sweep without ``window``."""
 
     def __init__(self, kern: APFKernel, n_particles: int, forgetting_factor: float,
-                 chunk_size: int | None = None, window: int | None = None):
+                 mesh: ParticleMesh, chunk_size: int | None = None,
+                 window: int | None = None, resampling_scheme: str = "local"):
         self.kern = kern
         self.n_particles = n_particles
         self.lam = forgetting_factor
         self.chunk_size = chunk_size
         self.window = window
-        self._filter = APF(kern, n_particles, forgetting_factor)
+        self.mesh = mesh
+        self.exact = resampling_scheme == "exact"
+        self.n_loc = n_particles // mesh.size
+        # the single-device sweep: one rank, local scheme
+        self.single = mesh.size == 1 and not self.exact
 
-    def draws(self, generator: torch.Generator) -> StepDraws:
-        return self.kern.step_draws(generator, self.n_particles)
+    def rank_generator(self, generator: torch.Generator) -> torch.Generator:
+        """This rank's generator: ``generator`` itself on one rank; on W
+        ranks a new generator on its device, seeded by this rank's entry
+        of W seeds drawn from ``generator``."""
+        if self.mesh.size == 1:
+            return generator
+        seeds = torch.randint(1 << 62, (self.mesh.size,), generator=generator,
+                              device=generator.device)
+        g = torch.Generator(device=generator.device)
+        return g.manual_seed(int(seeds[self.mesh.rank]))
+
+    def draws(self, generator: torch.Generator,
+              rank_generator: torch.Generator | None = None) -> StepDraws:
+        """One step's draws for this rank's particles (the class docstring's
+        rules; ``rank_generator`` defaults to ``generator``)."""
+        rank_generator = rank_generator or generator
+        return self.kern.step_draws(rank_generator, self.n_loc,
+                                    u_generator=generator if self.exact else None)
 
     def init(self, generator, inputs0, init_mean, init_cov):
-        """Initial carry ``(log_weights, state, int_vars, Ss)``."""
-        return self._filter.init(generator, inputs0, init_mean, init_cov)
+        """Initial carry ``(log_weights, state, int_vars, Ss)`` of this
+        rank's particles (``generator``: the rank's)."""
+        return self.kern.init_particles(generator, self.n_loc, inputs0, init_mean, init_cov)
+
+    def softmax(self, log_weights):
+        """This rank's slice of the globally normalized weights."""
+        if self.single:
+            return torch.softmax(log_weights, 0)
+        e = torch.exp(log_weights - self.mesh.pmax(log_weights.max()))
+        return e / self.mesh.psum(e.sum())
 
     def moments(self, w, state, int_vars, Ss):
         """Weighted moments ``(state_mean, int_var_means, reduced packed
-        statistics per GP, ess)``."""
-        return (
-            state @ w,
-            tuple(iv @ w for iv in int_vars),
-            self.kern.weighted_stats_packed(Ss, w),
-            1.0 / (w * w).sum(),
-        )
+        statistics per GP, ess)`` for the global weights' slice ``w``: the
+        local partials, summed over the ranks in one ``psum``."""
+        parts = [state @ w, *(iv @ w for iv in int_vars),
+                 *self.kern.weighted_stats_packed(Ss, w)]
+        sumsq = (w * w).sum()
+        if not self.single:
+            flat = self.mesh.psum(torch.cat([*parts, sumsq.reshape(1)]))
+            parts = torch.split(flat[:-1], [p.shape[0] for p in parts])
+            sumsq = flat[-1]
+        n_gp = self.kern.n_gp
+        return parts[0], tuple(parts[1:1 + n_gp]), tuple(parts[1 + n_gp:]), 1.0 / sumsq
+
+    def local_ancestors(self, w, u):
+        """The local scheme's resampling of this rank's slice ``w`` of the
+        global weights: ``(ancestors, log-weight offset)``. On one rank the
+        kernel takes ``w`` as it is (the systematic kernel normalizes), and
+        the offset log(mass), the same for every particle, is None."""
+        if self.single:
+            return self.kern.resample(w, u), None
+        mass = w.sum()
+        w_local = w / mass.clamp_min(1e-30)
+        return (self.kern.resample(w_local, u),
+                torch.log((mass * self.mesh.size).clamp_min(1e-30)))
 
     def step(self, carry, obs, inp_prev, inp_cur, draws: StepDraws, out=None):
-        """One filter step (:meth:`APF.step`, or :meth:`step_chunked` with
-        ``chunk_size``, which writes into ``out`` if given); returns
-        ``(carry, moments)``. With one shard the local scheme's shard mass
-        is the global softmax's sum, 1 up to rounding: the systematic
-        kernel takes unnormalized weights, and the log-weight offset
-        log(mass) shifts every weight alike, so neither is applied."""
-        if self.chunk_size is None:
-            carry, _ = self._filter.step(carry, obs, inp_prev, inp_cur, draws)
-        else:
+        """One filter step, :meth:`step_chunked` with ``chunk_size`` (which
+        writes into ``out`` if given); returns ``(carry, moments)``."""
+        if self.chunk_size is not None:
             carry = self.step_chunked(carry, obs, inp_prev, inp_cur, draws, out)
-        return carry, self.moments(torch.softmax(carry[0], 0), *carry[1:])
+        elif self.exact:
+            carry, _ = self.step_exact(carry, obs, inp_prev, inp_cur, draws)
+        else:
+            carry, _ = self.step_local(carry, obs, inp_prev, inp_cur, draws)
+        return carry, self.moments(self.softmax(carry[0]), *carry[1:])
+
+    def step_local(self, carry, obs, inp_prev, inp_cur, draws: StepDraws):
+        """The local scheme (``sharded.py:242-313``): the look-ahead (#1,
+        or 1e with ``reuse_factor``), the systematic kernel (#2) on the
+        rank's renormalized slice, the gather/draw (#4 or an opt-in) on the
+        rank's statistics, the mass offset; on one rank the single-device
+        step (:meth:`local_ancestors`). Returns ``(carry, ancestors)``."""
+        kern, lam = self.kern, self.lam
+        log_weights, state, int_vars, Ss = carry
+        _, _, lw_aux, ll_aux, _, lws = kern.auxiliary_fused_packed_f(
+            Ss, lam, state, int_vars, inp_prev, inp_cur, obs, log_weights,
+            emit_factor=kern.reuse_factor,
+        )
+        ancestors, offset = self.local_ancestors(self.softmax(lw_aux), draws.u_res)
+        state_g, *iv_g, ll_aux_g = kern.packed_gather([state, *int_vars, ll_aux], ancestors)
+        new_state = kern.propagate_all(draws.z, state_g, inp_prev, iv_g)
+        Ss_new, new_iv, _, _ = kern.draw_update_gather_all_packed(
+            draws.uvs, Ss, ancestors, lam, new_state, inp_cur, factors=lws,
+        )
+        new_lw = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_g
+        if offset is not None:
+            new_lw = new_lw + offset
+        return (new_lw, new_state, new_iv, Ss_new), ancestors
+
+    def step_exact(self, carry, obs, inp_prev, inp_cur, draws: StepDraws):
+        """The exact scheme (``sharded.py:242-313``): the look-ahead (#1, no
+        factor: the draw refactors the moved statistics, cheaper than
+        moving the factor too), the rank's slice of the global systematic
+        ancestors, the payloads over the ring, the draw/update (#3) on the
+        redistributed statistics, offset 0. Returns ``(carry, this rank's
+        global ancestors)``."""
+        kern, lam, n_gp = self.kern, self.lam, self.kern.n_gp
+        log_weights, state, int_vars, Ss = carry
+        _, _, lw_aux, ll_aux, _, _ = kern.auxiliary_fused_packed_f(
+            Ss, lam, state, int_vars, inp_prev, inp_cur, obs, log_weights,
+            emit_factor=False,
+        )
+        anc = global_resampling.global_systematic_slice(
+            draws.u_res, self.softmax(lw_aux), self.mesh)
+        state_r, *rest = global_resampling.ring_redistribute(
+            [state, *int_vars, *Ss, ll_aux], anc, self.mesh)
+        iv_r, Ss_r, ll_aux_r = rest[:n_gp], rest[n_gp:2 * n_gp], rest[-1]
+        new_state = kern.propagate_all(draws.z, state_r, inp_prev, iv_r)
+        Ss_new, new_iv, _, _ = kern.draw_update_all_packed(
+            draws.uvs, Ss_r, lam, new_state, inp_cur)
+        new_lw = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_r
+        return (new_lw, new_state, new_iv, Ss_new), anc
 
     def step_chunked(self, carry, obs, inp_prev, inp_cur, draws: StepDraws, out=None):
         """One filter step chunk by chunk (the JAX ``step_chunked``,
-        ``sharded.py:315-426``): the look-ahead (#1) per chunk; the
-        softmax and the systematic resampler (#2) over all N; then per
-        chunk the gather and propagation, the gather/draw (#4) of the
-        chunk's ``N_out = chunk`` particles from the full statistics, and
-        the log-likelihood. The step's draws are those of the unchunked
-        step, sliced per chunk, so on one generator the chunked sweep
-        computes what the unchunked sweep computes. The new carry streams
-        into ``out`` (a carry of the same shapes, not ``carry`` itself;
-        allocated here if None). The look-ahead kernel takes contiguous
-        statistics, so each chunk's columns of S are copied first (at
-        m = 20 and a chunk of 32768, 30 MB per GP); the draw kernel's
-        chunk of the new statistics is copied into ``out``."""
+        ``sharded.py:315-426``; local scheme): the look-ahead (#1) per
+        chunk; the softmax and the systematic resampler (#2) over the
+        rank's ``n_loc``; then per chunk the gather and propagation, the
+        gather/draw (#4) of the chunk's ``N_out = chunk`` particles from the
+        rank's statistics, and the log-likelihood. The step's draws are
+        those of the unchunked step, sliced per chunk, so on one generator
+        the chunked sweep computes what the unchunked sweep computes. The
+        new carry streams into ``out`` (a carry of the same shapes, not
+        ``carry`` itself; allocated here if None). The look-ahead kernel
+        takes contiguous statistics, so each chunk's columns of S are
+        copied first (at m = 20 and a chunk of 32768, 30 MB per GP); the
+        draw kernel's chunk of the new statistics is copied into ``out``."""
         kern, lam, C = self.kern, self.lam, self.chunk_size
         log_weights, state, int_vars, Ss = carry
         if out is None:
             out = map_leaves(torch.empty_like, [carry])
         new_lw, new_state, new_iv, new_Ss = out
-        chunks = [slice(c, c + C) for c in range(0, self.n_particles, C)]
+        chunks = [slice(c, c + C) for c in range(0, self.n_loc, C)]
         ll_aux = torch.empty_like(log_weights)
         for sl in chunks:
             ll_aux[sl] = kern.auxiliary_fused_packed_f(
@@ -129,7 +248,8 @@ class ShardedAPF:
                 tuple(iv[:, sl] for iv in int_vars), inp_prev, inp_cur, obs,
                 log_weights[sl], emit_factor=False,
             )[3]
-        ancestors = kern.resample(torch.softmax(ll_aux + log_weights, 0), draws.u_res)
+        ancestors, offset = self.local_ancestors(self.softmax(ll_aux + log_weights),
+                                                 draws.u_res)
         for sl in chunks:
             idx = ancestors[sl]
             state_g, *iv_g, ll_aux_g = kern.packed_gather([state, *int_vars, ll_aux], idx)
@@ -138,7 +258,8 @@ class ShardedAPF:
             uvs = tuple((u[:, sl].contiguous(), v[:, sl].contiguous()) for u, v in draws.uvs)
             Ss_c, iv_c, _, _ = kern.draw_update_gather_all_packed(
                 uvs, Ss, idx, lam, new_state_c, inp_cur)
-            new_lw[sl] = kern.log_lik_all(obs, new_state_c, inp_cur, iv_c) - ll_aux_g
+            lw_c = kern.log_lik_all(obs, new_state_c, inp_cur, iv_c) - ll_aux_g
+            new_lw[sl] = lw_c if offset is None else lw_c + offset
             new_state[:, sl] = new_state_c
             for i in range(kern.n_gp):
                 new_iv[i][:, sl] = iv_c[i]
@@ -184,8 +305,9 @@ class ShardedAPF:
         obs = as_tensor(observations, k.dtype, k.device)
         obs = obs.reshape(obs.shape[0], -1)
         inputs = as_tensor(inputs, k.dtype, k.device)
-        carry = self.init(generator, inputs[0], init_state_mean, init_state_cov)
-        moments = [self.moments(torch.softmax(carry[0], 0), *carry[1:])]
+        rank_gen = self.rank_generator(generator)
+        carry = self.init(rank_gen, inputs[0], init_state_mean, init_state_cov)
+        moments = [self.moments(self.softmax(carry[0]), *carry[1:])]
         # the chunked step's two carries, allocated once per sweep
         spare = None if self.chunk_size is None else map_leaves(torch.empty_like, [carry])
         n_steps = obs.shape[0] - 1
@@ -194,7 +316,7 @@ class ShardedAPF:
         for s in range(0, n_steps, win):
             for t in range(s, min(s + win, n_steps)):
                 new, mom = self.step(carry, obs[t + 1], inputs[t], inputs[t + 1],
-                                     self.draws(generator), out=spare)
+                                     self.draws(generator, rank_gen), out=spare)
                 if spare is not None:
                     spare = carry
                 carry = new
@@ -212,24 +334,40 @@ class ShardedAPF:
                            carry)
 
 
+def gather_final(result: ShardedAPFResult, mesh: ParticleMesh) -> ShardedAPFResult:
+    """``result`` with the full-N final carry on every rank, rank slices in
+    rank order (the moments are already equal on every rank)."""
+    final_state = mesh.all_gather_last(result.final_state.T.contiguous()).T
+    return result._replace(
+        final_state=final_state,
+        final_log_weights=mesh.all_gather_last(result.final_log_weights),
+        final_stats=tuple(type(st)(*(mesh.all_gather_last(leaf.contiguous()) for leaf in st))
+                          for st in result.final_stats),
+    )
+
+
 def build_sharded_apf(
     ssm: SSM,
     gps: Sequence[GPNode],
     n_particles: int,
-    n_devices: int = 1,
+    mesh: ParticleMesh | None = None,
     forgetting_factor: float = 1.0,
     dtype=torch.float32,
     resampling_scheme: str = "local",
     chunk_size: int | None = None,
     window: int | None = None,
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
     reference: bool = False,
     reuse_factor: bool = False,
     dedup_gather: bool = False,
 ) -> ShardedAPF:
-    """Build the online APF sweep on one device (local scheme).
+    """Build this rank's part of the sharded online APF sweep.
 
-    ``device`` defaults to CUDA and raises if no card is present.
+    ``mesh`` (:func:`~bipk_tpu_torch.parallel.mesh.particle_mesh`, or
+    :func:`~bipk_tpu_torch.parallel.distributed.global_particle_mesh` on a
+    process group) splits the ``n_particles`` over its ranks; None is a
+    one-rank mesh on ``device``. ``device`` defaults to the mesh's, else
+    CUDA, and raises if no card is present; it must be the mesh's.
     ``reference=True`` runs the kernels' plain PyTorch versions in their
     place (on any device), to hold a sweep against the kernels.
     ``reuse_factor`` (the look-ahead's factor goes to the draw, as the JAX
@@ -237,31 +375,38 @@ def build_sharded_apf(
     ``dedup_gather`` select the opt-in gather/draw kernels
     (:class:`~bipk_tpu_torch.algorithms.apf.APFKernel`).
 
-    ``chunk_size`` runs each step in chunks of the particle axis
-    (:meth:`ShardedAPF.step_chunked`): the carries stay full-width, the
-    per-chunk temporaries are one chunk. The sweep does not chunk by
-    itself as the JAX package does above 262144 particles: on the 80 GB
-    card chunking never decides whether a sweep fits (the arithmetic is
-    at the top of this module). On the H100 it is there for parity with
-    the JAX API and for no workload: it never lowers the sweep's peak
-    memory, and its step is host-bound (at 2**20 particles in chunks of
-    32768, about 31 times the launches of an unchunked step;
-    ``chip_smoke.py`` phase 26 prints both). A ``chunk_size`` of N or
-    more runs unchunked. As in the JAX chunked step, ``reuse_factor`` and
-    ``dedup_gather`` do not apply there: it threads no factor and runs the
-    gather/draw kernel (#4). ``window`` brings the moments to the host
+    ``chunk_size`` runs each step in chunks of the rank's particle axis
+    (:meth:`ShardedAPF.step_chunked`; the local scheme only, as in JAX):
+    the carries stay full-width, the per-chunk temporaries are one chunk.
+    The sweep does not chunk by itself as the JAX package does above
+    262144 particles: on the 80 GB card chunking never decides whether a
+    sweep fits (the arithmetic is at the top of this module). On the H100
+    it is there for parity with the JAX API and for no workload: it never
+    lowers the sweep's peak memory, and its step is host-bound (at 2**20
+    particles in chunks of 32768, about 31 times the launches of an
+    unchunked step; ``chip_smoke.py`` phase 26 prints both). A
+    ``chunk_size`` of ``n_loc`` or more runs unchunked. As in the JAX
+    chunked step, ``reuse_factor`` and ``dedup_gather`` do not apply
+    there: it threads no factor and runs the gather/draw kernel (#4); nor
+    in the exact scheme, whose draw (#3) gathers nothing and whose
+    look-ahead emits no factor. ``window`` brings the moments to the host
     every ``window`` steps (the JAX windowed dispatch); it composes with
-    ``chunk_size``. More devices and the exact scheme are not ported
-    (ROADMAP Queue A item 8); the argument checks the JAX package makes
-    first (``sharded.py:79-131``) raise ``ValueError`` as there.
+    ``chunk_size`` and with W ranks. The argument checks the JAX package
+    makes first (``sharded.py:79-131``) raise ``ValueError`` as there.
     """
     if resampling_scheme not in ("local", "exact"):
         raise ValueError(
             f"resampling_scheme must be 'local' or 'exact', got {resampling_scheme!r}"
         )
-    if n_particles % n_devices:
-        raise ValueError(f"n_particles={n_particles} not divisible by mesh size {n_devices}")
-    n_loc = n_particles // n_devices
+    if mesh is None:  # one rank, whatever process group there is
+        mesh = ParticleMesh(None, 0, 1, resolve_device("cuda" if device is None else device))
+    elif device is not None:
+        d = resolve_device(device)
+        if d.type != mesh.device.type or d.index not in (None, mesh.device.index):
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    if n_particles % mesh.size:
+        raise ValueError(f"n_particles={n_particles} not divisible by mesh size {mesh.size}")
+    n_loc = n_particles // mesh.size
     if chunk_size is not None and chunk_size >= n_loc:
         chunk_size = None
     if chunk_size is not None:
@@ -274,15 +419,11 @@ def build_sharded_apf(
             raise ValueError(
                 f"per-shard particle count {n_loc} not divisible by chunk_size {chunk_size}"
             )
-        reuse_factor = dedup_gather = False
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    if n_devices != 1 or resampling_scheme != "local":
-        raise NotImplementedError(
-            "the port runs one device with the local resampling scheme; more devices and "
-            "the exact scheme are ROADMAP Queue A item 8"
-        )
-    device = resolve_device(device)
-    kern = APFKernel(ssm, gps, dtype, device, reference=reference,
+    if chunk_size is not None or resampling_scheme == "exact":
+        reuse_factor = dedup_gather = False
+    kern = APFKernel(ssm, gps, dtype, mesh.device, reference=reference,
                      reuse_factor=reuse_factor, dedup_gather=dedup_gather)
-    return ShardedAPF(kern, n_particles, forgetting_factor, chunk_size, window)
+    return ShardedAPF(kern, n_particles, forgetting_factor, mesh, chunk_size, window,
+                      resampling_scheme)

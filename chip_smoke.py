@@ -122,8 +122,9 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     card tensors launching nothing;
 19. rank-1 path-vs-plain: the rank-1 cSMC sweep (``build_csmc(rank1=
     True)``) through the kernels and through their plain versions, 10240
-    x 50 over 10 seeds, paired; then the rank-1 and the direct steps on
-    the same draws in f32, to the first step where their ancestors differ;
+    x 25 over 10 seeds, paired; then the rank-1 and the direct steps on
+    the same draws in f32 over 100 steps, to the first step where their
+    ancestors differ (both halved for phase 27's time);
 20. rank-1 Gibbs: the Gibbs host loop on the rank-1 cSMC at 10240 x 1499
     (a warm-up and one timed sweep) with exact launches per sweep (4 x 1499 of
     the projection, 1499 resamplings, nothing else), no non-finite
@@ -174,17 +175,36 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     uninterrupted run, for one chain and for two;
 26. 2**20: the vehicle online APF at ``benchmarks/bench_1m.py``'s 2**20
     particles, unchunked and in windows of 100 steps over 200 steps, then
-    in chunks of 32768 and chunks in windows of 25 over 50 steps (the
+    in chunks of 32768 and chunks in windows of 25 over 30 steps (the
     chunked step is host-bound): ms per step, peak device memory, exact
     launches per step (chunks x #1 and #4 per GP, one #2), chunked against
-    an unchunked run of 50 steps (which leaves are bitwise, the rest
+    an unchunked run of 30 steps (which leaves are bitwise, the rest
     within 1e-5 of each leaf's largest value), windowed against
     unwindowed bit for bit; then 5 profiled steps of the unchunked and the
-    chunked sweep.
+    chunked sweep;
+27. apf-mesh: ``build_sharded_apf(..., mesh=...)`` on one rank of an
+    NCCL process group (``init_distributed`` through a file store, world
+    size 1: NCCL refuses two ranks on one card, so the collectives are
+    real NCCL calls and the ring has nothing to rotate). The vehicle APF's
+    exact scheme at 32768 x 1499: exact launches per step (#1 x 2, #3 x 2,
+    no #2 or #4), finite moments, the ESS within [1, N] and its median at
+    least half that of phase 4's single-device sweep on the same
+    generator, ms per step, 50 profiled steps (device busy, idle share),
+    and #3 against its plain version on the path's redistributed
+    statistics; the exact
+    sweep against its plain version over 10 paired seeds of 25 steps; the
+    exact scheme against the local one, step by step from one carry on
+    the same draws over 100 steps (the slots whose ancestors differ,
+    rounding ties, counted and at most 1% of them; the other particles
+    equal; each moment within the weight the two populations do not
+    share); the local
+    scheme through the mesh bit for bit the sweep without it (100 steps);
+    then the oscillator's exact sweep at 32768 x 749 (row 6 fp and du)
+    and row 6 du against its plain version.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the
-twenty-four main paths, error against the plain version, times and bound; for
+twenty-six main paths, error against the plain version, times and bound; for
 the warp kernels (rows 1, 3-7, the factor pair, rows 1e and 8, the dedup
 gather, row 9, and the unpacked rows 10-13) also the per-thread kernels'
 times from the same turns, and both at the Gibbs paths' widths, 10240
@@ -201,6 +221,7 @@ raises, so the script exits non-zero and prints neither. Needs one CUDA
 card.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -1403,7 +1424,7 @@ def osc_main_path(dev, model, X, Y, F, U, smi):
     """The oscillator online APF at the JAX bench_cs.py size, 32768
     particles x 749 steps, through the kernels: exact launch counts, the
     throughput, the ESS, and the filtered state's and force's RMSE against
-    the simulated ones. Returns the launches."""
+    the simulated ones. Returns the launches and the median ESS."""
     apf = build_sharded_apf(model.ssm, model.gps, N, forgetting_factor=LAM,
                             dtype=torch.float32, device=dev)
     apf(torch.Generator(device=dev).manual_seed(2), Y[:11], U[:11], model.x0, model.p0)
@@ -1442,7 +1463,7 @@ def osc_main_path(dev, model, X, Y, F, U, smi):
     # the data would sit at the RMS.
     require(rmse[0].item() <= 0.5 * rms[0].item() and rmse_f <= 0.5 * rms_f,
             f"oscillator APF RMSE {rmse.tolist()} / force {rmse_f} above half the RMS")
-    return counts
+    return counts, ess.median().item()
 
 
 def cs_gibbs_paths(dev, cs, toy_iterations, osc_iterations, smi):
@@ -1920,7 +1941,8 @@ def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi)
 # ---------------------------------------------------------------------------
 
 UNPACKED_FILTER_STEPS = 100  # vehicle filtering steps before phase 18's statistics
-RANK1_DIVERGENCE_STEPS = 200  # phase 19: rank-1 against direct, same draws, f32
+RANK1_DIVERGENCE_STEPS = 100  # phase 19: rank-1 against direct, same draws, f32
+RANK1_PAIRED_STEPS = 25  # phase 19: the rank-1 cSMC path-vs-plain
 RANK1_PROFILE_STEPS = 50  # phase 20: profiled rank-1 cSMC steps
 
 
@@ -3322,7 +3344,7 @@ CHUNK_1M = 32768
 WINDOW_1M = 100  # bench_1m.py's window
 # the chunked runs are host-bound (~0.2 s per step): fewer steps, and
 # windows short enough that their run still splits into two pieces
-CHUNKED_STEPS_1M = 50
+CHUNKED_STEPS_1M = 30
 CHUNKED_WINDOW_1M = 25
 PROFILE_1M_STEPS = 5
 # chunked against unchunked: max |difference| <= TOL_1M x max |unchunked|
@@ -3439,6 +3461,242 @@ def apf_1m_phase(dev, model, Y, U, smi):
         print(f"  profile, {name}:", flush=True)
         profile_apf_steps(dev, model, Y, U, N_1M, PROFILE_1M_STEPS, **opts)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the particle mesh over torch.distributed. One card: the mesh is
+# one rank of a real NCCL process group (NCCL refuses two ranks on one
+# device, and torch a send to a rank's own number), so its all_reduce and
+# all_gather are NCCL calls and the ring has nothing to rotate.
+# ---------------------------------------------------------------------------
+
+MESH_PAIRED_STEPS = 25  # (b): the exact sweep against its plain version
+MESH_PAIRED_SEEDS = 10
+MESH_SAME_STEPS = 100  # (c) and (d)
+# (c): at most this share of the slots may take another ancestor in the
+# exact scheme than in the systematic kernel on the same weights: grid
+# points that the slice's f64 CDF and #2's f32 one put on different
+# sides (ROADMAP Queue C records 50 of 32768 between #2 and an f32
+# cumsum on phase 2's input)
+MESH_TIE_SHARE = 0.01
+
+
+def du_recorder(kern):
+    """Wrap ``kern``'s draw/update (#3 / row 6 du) so that the arguments
+    of its last ``kern.n_gp`` calls (one step's) are kept; returns the
+    deque they go to."""
+    calls, inner = collections.deque(maxlen=kern.n_gp), kern._draw_update
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return inner(*args, **kw)
+
+    kern._draw_update = record
+    return calls
+
+
+def du_on_path_inputs(label, calls, key):
+    """#3 (m <= 24) or row 6 du (m <= 48) against its plain version on
+    the inputs a path gave it (each GP's last call), with phase 2's
+    tolerances."""
+    seen = {}
+    for args, kw in calls:
+        seen[kw["m"]] = (args, kw)
+    worst = 0.0
+    for m, (args, kw) in seen.items():
+        before = ck.launch_counts()[key]
+        out_k = ck.draw_update_packed_blocks(*args, **kw)
+        out_p = ck.draw_update_packed_blocks_plain(*args, **kw)
+        torch.cuda.synchronize()
+        require(ck.launch_counts()[key] == before + 1, f"{label}: {key} did not launch")
+        S = args[0]
+        print(f"  {label} m={m}: S {tuple(S.shape)} on the path's redistributed statistics",
+              flush=True)
+        worst = max(worst, check(f"{label} m={m}", [("S_new", out_k[0], out_p[0])], 1e-4,
+                                 "f32 rounding of lam*S + suff"))
+        worst = max(worst, check(f"{label} m={m}", zip(DU_NAMES[1:], out_k[1:], out_p[1:]),
+                                 1e-3, ILL))
+    return worst
+
+
+def exact_main_path(label, dev, mesh, model, X, Y, U, keys, n_gp, single_ess, smi):
+    """The exact scheme on ``mesh`` at full width and depth (N particles,
+    every observation): exact launches per step (the look-ahead and the
+    draw/update per GP, no resampler, no gathering draw), finite moments,
+    the ESS within [1, N] and its median at least half ``single_ess``, the
+    single-device sweep's on the same generator (seed 3, as phases 4 and
+    10), the filtered state's RMSE; ms per step.
+    Then the draw/update against its plain version on the inputs the
+    sweep's last step gave it. Returns the counts."""
+    apf = build_sharded_apf(model.ssm, model.gps, N, mesh, forgetting_factor=LAM,
+                            dtype=torch.float32, resampling_scheme="exact")
+    apf(torch.Generator(device=dev).manual_seed(2), Y[:11], U[:11], model.x0, model.p0)
+    torch.cuda.synchronize()
+    steps = Y.shape[0] - 1
+    calls = du_recorder(apf.kern)  # keeps the last step's inputs; launches nothing
+    ck.reset_launch_counts()
+    ts = time.perf_counter()
+    res = apf(torch.Generator(device=dev).manual_seed(3), Y, U, model.x0, model.p0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - ts
+    counts = ck.launch_counts()
+    print(f"  launches { {k: c for k, c in counts.items() if c} }", flush=True)
+    expect_counts(label, counts, {keys["fp"]: n_gp * steps, keys["du"]: n_gp * steps})
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        res.state_mean, res.ess, *res.int_var_mean,
+        *(leaf for st in res.stats_mean for leaf in st)))
+    require(finite, f"{label}: non-finite moments")
+    ess = res.ess[1:]
+    require(bool((ess >= 1.0 - 1e-5).all()) and bool((ess <= N * (1 + 1e-5)).all()),
+            f"{label}: ESS outside [1, N]: {ess.min().item()} {ess.max().item()}")
+    rmse = ((res.state_mean - X) ** 2).mean(0).sqrt()
+    rms = (X ** 2).mean(0).sqrt()
+    require(bool(torch.isfinite(rmse).all()), f"{label}: filtered-state RMSE {rmse.tolist()}")
+    print(f"  {label}: {N} particles x {steps} steps in {elapsed:.3f} s, "
+          f"{elapsed / steps * 1e3:.4f} ms per step, {N * steps / elapsed:.1f} particle-steps/s "
+          f"on {smi}; launches per step: look-ahead {n_gp}, draw/update {n_gp}, resampler 0, "
+          f"gathering draw 0 (exact)", flush=True)
+    print(f"  ESS min {ess.min().item():.2f} median {ess.median().item():.2f} max "
+          f"{ess.max().item():.2f}; filtered-state RMSE {rmse.tolist()} (RMS of the true "
+          f"state {rms.tolist()})", flush=True)
+    # healthy: the single-device sweep (the local scheme, the same
+    # algorithm but for f32 ties) on the same generator and data, the main
+    # path of phase 4 / 10, keeps an ESS of the same size; at most a
+    # factor of 2 below its median
+    med = ess.median().item()
+    print(f"  the single-device sweep on the same generator: ESS median {single_ess:.2f}",
+          flush=True)
+    require(med >= 0.5 * single_ess, f"{label}: ESS median {med} below half the "
+            f"single-device sweep's {single_ess}")
+    du_on_path_inputs(f"{label} draw/update", calls, keys["du"])
+    return counts
+
+
+def exact_against_local(dev, mesh, model, Y, U):
+    """(c): from one carry, each of ``MESH_SAME_STEPS`` steps of the exact
+    sweep on the mesh is taken again by the local scheme's single-device
+    step on the same draws. The exact scheme's ancestors (the slice, an
+    f64 CDF) and the systematic kernel's (#2, f32) on the same first-stage
+    weights may differ only at rounding ties: at most ``MESH_TIE_SHARE``
+    of the slots. Where they agree the two steps' particles must be equal
+    (states and log weights, within 1e-6 of their scale; bitwise
+    reported), and each weighted moment may differ by no more than the
+    weight the two populations do not share (the tie slots' weights of
+    both, and the rest's weight differences) times the largest value it
+    weighs, plus 1e-5 of it."""
+    kw = dict(forgetting_factor=LAM, dtype=torch.float32)
+    exact = build_sharded_apf(model.ssm, model.gps, N, mesh, resampling_scheme="exact", **kw)
+    local = build_sharded_apf(model.ssm, model.gps, N, device=dev, **kw)
+    g = torch.Generator(device=dev).manual_seed(5)
+    obs = Y.reshape(Y.shape[0], -1)
+    carry = exact.init(g, U[0], model.x0, model.p0)
+    ties, bitwise_steps, worst_share = [], 0, 0.0
+    for t in range(MESH_SAME_STEPS):
+        draws = exact.draws(g)
+        new_e, anc_e = exact.step_exact(carry, obs[t + 1], U[t], U[t + 1], draws)
+        new_l, anc_l = local.step_local(carry, obs[t + 1], U[t], U[t + 1], draws)
+        tie = anc_e != anc_l
+        n_tie = int(tie.sum())
+        ties.append(n_tie)
+        require(n_tie <= MESH_TIE_SHARE * N, f"exact against local, step {t + 1}: "
+                f"{n_tie} of {N} slots take another ancestor")
+        same = ~tie
+        w_e, w_l = exact.softmax(new_e[0]), local.softmax(new_l[0])
+        share = float(w_e[tie].sum() + w_l[tie].sum() + (w_e - w_l)[same].abs().sum())
+        worst_share = max(worst_share, share)
+        pairs = [(new_e[0], new_l[0]), (new_e[1], new_l[1]),
+                 *zip(new_e[2], new_l[2]), *zip(new_e[3], new_l[3])]
+        all_bitwise = True
+        for a, b in pairs:
+            a_s, b_s = a[..., same], b[..., same]
+            all_bitwise &= bitwise(a_s, b_s)
+            scale = float(b_s.abs().max().clamp_min(1e-30))
+            require(float((a_s - b_s).abs().max()) <= 1e-6 * scale,
+                    f"exact against local, step {t + 1}: particles differ off the ties")
+        bitwise_steps += all_bitwise
+        m_e = exact.moments(w_e, *new_e[1:])
+        m_l = local.moments(w_l, *new_l[1:])
+        vals = zip([new_e[1], *new_e[2], *new_e[3]], [new_l[1], *new_l[2], *new_l[3]])
+        for a, b, (v_e, v_l) in zip([m_e[0], *m_e[1], *m_e[2]], [m_l[0], *m_l[1], *m_l[2]],
+                                    vals):
+            vmax = torch.maximum(v_e.abs().amax(-1), v_l.abs().amax(-1))
+            require(bool(((a - b).abs() <= (share + 1e-5) * vmax).all()),
+                    f"exact against local, step {t + 1}: a moment differs by "
+                    f"{float((a - b).abs().max())} beyond the unshared weight {share}")
+        carry = new_e
+    ts = torch.tensor(ties, dtype=torch.float64)
+    print(f"  exact against local on the same draws, {MESH_SAME_STEPS} steps from one carry: "
+          f"slots at rounding ties per step min {int(ts.min())} median {ts.median().item():.0f} max "
+          f"{int(ts.max())} of {N} (total {int(ts.sum())}); particles off the ties bit for bit "
+          f"in {bitwise_steps} of {MESH_SAME_STEPS} steps; largest unshared weight {worst_share:.3e}"
+          f" (the moments' bound)", flush=True)
+
+
+def apf_mesh_phase(dev, model, X, Y, U, osc, single_ess, smi):
+    """Phase 27: ``build_sharded_apf(..., mesh=...)`` on one rank of an
+    NCCL process group (``init_distributed`` through a file store, world
+    size 1; ``global_particle_mesh``), destroyed at the end. The vehicle
+    at the main path's width: (a) the exact scheme's full sweep with exact
+    launches per step (#1 x 2, #3 x 2, #2 and #4 none), its ESS and RMSE,
+    ms per step, and 50 profiled steps (device busy, idle share), then #3
+    against its plain version on the path's redistributed statistics; (b)
+    the exact sweep against its plain version over paired seeds; (c) the
+    exact scheme against the local one on the same draws
+    (:func:`exact_against_local`); (d) the local scheme through the mesh
+    bit for bit the sweep without ``mesh=``. Then the oscillator's exact
+    sweep at 32768 x 749 (row 6 fp and du) and row 6 du against its
+    plain version. A failed NCCL init fails the phase: nothing falls back
+    to gloo or to the CPU. ``single_ess``: the median ESS of phases 4
+    and 10, the single-device sweeps on the exact sweeps' generators.
+    Returns the two exact paths' launches."""
+    import torch.distributed as dist
+
+    from bipk_tpu_torch.parallel.distributed import global_particle_mesh, init_distributed
+
+    with tempfile.TemporaryDirectory() as store:
+        init_distributed(init_method=f"file://{store}/store", world_size=1, rank=0,
+                         device=dev)
+        try:
+            want = "nccl" if dev.type == "cuda" else "gloo"
+            require(dist.get_backend() == want, f"process group {dist.get_backend()}, not {want}")
+            mesh = global_particle_mesh()
+            require(mesh.size == 1 and mesh.group is not None and mesh.device.type == dev.type,
+                    f"mesh {mesh}")
+            print(f"  process group: {dist.get_backend()}, world size {mesh.size}, rank "
+                  f"{mesh.rank} on {mesh.device}", flush=True)
+
+            # (a)
+            counts = exact_main_path("vehicle APF, exact scheme", dev, mesh, model, X, Y, U,
+                                     WARP24_KEYS, 2, single_ess[0], smi)
+            print("  profile, vehicle APF, exact scheme:", flush=True)
+            profile_apf_steps(dev, model, Y, U, N, steps=50, mesh=mesh,
+                              resampling_scheme="exact")
+            # (b)
+            apf_path_vs_plain(dev, model, Y, U, steps=MESH_PAIRED_STEPS,
+                              seeds=MESH_PAIRED_SEEDS, label="path-vs-plain, exact scheme",
+                              mesh=mesh, resampling_scheme="exact")
+            # (c)
+            exact_against_local(dev, mesh, model, Y, U)
+            # (d)
+            runs = {}
+            for name, kw in (("mesh", dict(mesh=mesh)), ("no mesh", dict(device=dev))):
+                apf = build_sharded_apf(model.ssm, model.gps, N, forgetting_factor=LAM,
+                                        dtype=torch.float32, **kw)
+                runs[name] = _result_leaves(apf(torch.Generator(device=dev).manual_seed(6),
+                                                Y[:MESH_SAME_STEPS + 1], U[:MESH_SAME_STEPS + 1],
+                                                model.x0, model.p0))
+            equal = [k for k, v in runs["no mesh"].items() if bitwise(runs["mesh"][k], v)]
+            print(f"  local scheme through the mesh against no mesh, {MESH_SAME_STEPS} steps: "
+                  f"{len(equal)} of {len(runs['no mesh'])} leaves bit for bit", flush=True)
+            require(len(equal) == len(runs["no mesh"]), "the one-rank local mesh is not the "
+                    "sweep without a mesh, bit for bit")
+            # the oscillator, exact: row 6 fp and du
+            o_model, o_X, o_Y, o_U, _ = osc
+            osc_counts = exact_main_path("oscillator APF, exact scheme", dev, mesh, o_model,
+                                         o_X, o_Y, o_U, WARP_KEYS, 1, single_ess[1], smi)
+        finally:
+            dist.destroy_process_group()
+    return {"apf_exact": counts, "osc_apf_exact": osc_counts}
 
 
 def main() -> int:
@@ -3761,6 +4019,7 @@ def main() -> int:
     rmse = ((res.state_mean - X) ** 2).mean(0).sqrt()
     rms_truth = (X ** 2).mean(0).sqrt()
     ess = res.ess[1:]
+    apf_ess = ess.median().item()  # phase 27's exact scheme is held to it
     psps = N * steps / elapsed
     print(f"  {N} particles x {steps} steps in {elapsed:.3f} s: "
           f"{psps:.1f} particle-steps/s on {smi}", flush=True)
@@ -3804,7 +4063,7 @@ def main() -> int:
 
     # --------------------------------------------------------------- 10
     t0 = time.perf_counter()
-    osc_counts = osc_main_path(dev, o_model, o_X, o_Y, o_F, o_U, smi)
+    osc_counts, osc_ess = osc_main_path(dev, o_model, o_X, o_Y, o_F, o_U, smi)
     phase_done("osc-main-path", t0)
 
     # --------------------------------------------------------------- 11
@@ -3866,8 +4125,10 @@ def main() -> int:
 
     # --------------------------------------------------------------- 19
     t0 = time.perf_counter()
-    csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=50, seeds=10,
-                       label="rank-1 cSMC", rank1=True)
+    # depth cut from 50 to 25 steps (and the divergence run from 200 to
+    # 100) for phase 27's time
+    csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=RANK1_PAIRED_STEPS,
+                       seeds=10, label="rank-1 cSMC", rank1=True)
     rank1_against_direct(dev, model, Y, U, X, ref_ivs, N_GIBBS, RANK1_DIVERGENCE_STEPS)
     phase_done("rank1-path-vs-plain", t0)
 
@@ -3916,6 +4177,13 @@ def main() -> int:
     apf_1m_counts = apf_1m_phase(dev, model, Y, U, smi)
     phase_done("apf-1m", t0)
 
+    # --------------------------------------------------------------- 27
+    # the particle mesh after every earlier phase, so that phases 1-26 run
+    # as the parent's do
+    t0 = time.perf_counter()
+    mesh_counts = apf_mesh_phase(dev, model, X, Y, U, cs["osc"], (apf_ess, osc_ess), smi)
+    phase_done("apf-mesh", t0)
+
     # one entry per kernel: rows 1, 3, 4 and 5 are the warp kernels at
     # m <= 24 (the per-thread <24> kernels they replace timed beside them),
     # 2 the resampler, rows 6 and 7 the warp kernels at m <= 48 (the TPU's
@@ -3931,13 +4199,13 @@ def main() -> int:
     # log-determinants (kLogdetsUnpacked, unpacked_mniw_kernel<24, kLogdets>
     # beside it, cholesky_ex on its augmented matrices, and at m = 41 the
     # <48w> against <48>, keys ending in _48w). launches: over the
-    # twenty-four main paths' runs, each counted from zero
+    # twenty-six main paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
              "apf_reuse": reuse_counts, "apf_dedup": dedup_counts,
              "gibbs_reuse": gibbs_reuse_counts, "entry_points": entry_counts,
              "gibbs_rank1": gibbs_rank1_counts, **pgas_counts, **emps_counts,
-             **chains_counts, **script_counts, **apf_1m_counts}
+             **chains_counts, **script_counts, **apf_1m_counts, **mesh_counts}
     mniw_src, sys_src = "bipk_tpu_torch/csrc/packed_mniw.cu", "bipk_tpu_torch/csrc/systematic.cu"
     warp_src = "bipk_tpu_torch/csrc/warp_mniw.cu"
     pk = "bipk_tpu/ops/pallas_kernels.py"

@@ -31,6 +31,7 @@ from bipk_tpu_torch import convert
 from bipk_tpu_torch.models import toy as ttoy
 from bipk_tpu_torch.models import vehicle as tveh
 from bipk_tpu_torch.ops import cuda_kernels as ck
+from bipk_tpu_torch.parallel.mesh import ParticleMesh
 from bipk_tpu_torch.parallel.sharded import StepDraws, build_sharded_apf
 
 F64 = torch.float64
@@ -132,12 +133,14 @@ def test_argument_checks():
     with pytest.raises(ValueError, match="resampling_scheme must be"):
         build(64, resampling_scheme="global")
     with pytest.raises(ValueError, match="not divisible by mesh size 3"):
-        build(64, n_devices=3)
+        build(64, mesh=ParticleMesh(None, 0, 3, torch.device("cpu")))
     with pytest.raises(ValueError, match="window must be positive"):
         build(64, window=0)
-    for kw in (dict(n_devices=2), dict(resampling_scheme="exact")):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            build(64, **kw)
+    # the exact scheme builds (tests/test_torch_sharded_apf.py runs it, and
+    # W ranks); its draw gathers nothing and its look-ahead emits no
+    # factor, so the opt-ins do not apply there
+    exact = build(64, resampling_scheme="exact", reuse_factor=True, dedup_gather=True)
+    assert exact.exact and not exact.kern.reuse_factor and not exact.kern.dedup_gather
     assert build(64, chunk_size=64).chunk_size is None  # a chunk of N or more: unchunked
     assert build(64, chunk_size=100).chunk_size is None
     chunked = build(64, chunk_size=16, reuse_factor=True, dedup_gather=True)

@@ -48,6 +48,8 @@ def test_port_imports_with_jax_absent():
         "import sys; sys.modules['jax'] = None; sys.modules['bipk_tpu'] = None\n"
         "import bipk_tpu_torch, bipk_tpu_torch.convert\n"
         "import bipk_tpu_torch.parallel.sharded, bipk_tpu_torch.ops.cuda_kernels\n"
+        "import bipk_tpu_torch.parallel.mesh, bipk_tpu_torch.parallel.distributed\n"
+        "import bipk_tpu_torch.parallel.global_resampling\n"
         "import bipk_tpu_torch.algorithms.gibbs, bipk_tpu_torch.utils.matio\n"
         "import bipk_tpu_torch.models.oscillator, bipk_tpu_torch.models.toy\n"
         "import bipk_tpu_torch.ops.cholup, bipk_tpu_torch.algorithms.csmc\n"
@@ -696,14 +698,35 @@ def test_unpacked_launches_count_per_instantiation():
 
 
 def test_unported_modes_raise():
-    """More devices and the exact scheme raise; the chunked and windowed
-    modes are ported (``tests/test_torch_chunked_apf.py``) and build."""
+    """The chain mesh raises, naming ROADMAP Queue A item 8b; W ranks, the
+    exact scheme, the chunked and the windowed modes are ported
+    (``tests/test_torch_sharded_apf.py``, ``tests/test_torch_chunked_apf.py``)
+    and build."""
+    from bipk_tpu_torch.parallel.mesh import ParticleMesh, chain_mesh, chain_sharding
+
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
-    for kwargs in (dict(n_devices=4), dict(resampling_scheme="exact")):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            build_sharded_apf(model.ssm, model.gps, 64, device="cpu", **kwargs)
-    for kwargs in (dict(chunk_size=32), dict(window=8)):
+    for fn in (chain_mesh, chain_sharding):
+        with pytest.raises(NotImplementedError, match="Queue A item 8b"):
+            fn()
+    four = ParticleMesh(None, 0, 4, torch.device("cpu"))
+    for kwargs in (dict(mesh=four), dict(resampling_scheme="exact"), dict(chunk_size=32),
+                   dict(window=8)):
         build_sharded_apf(model.ssm, model.gps, 64, device="cpu", **kwargs)
+
+
+def test_cuda_process_group_raises_without_a_card(monkeypatch):
+    """``init_distributed`` on CUDA raises without a card, before it makes
+    any group: it never hands back a gloo or CPU group in its place."""
+    import torch.distributed as dist
+
+    from bipk_tpu_torch.parallel.distributed import init_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kwargs in (dict(), dict(backend="nccl"), dict(backend="gloo"),
+                   dict(init_method="file:///nonexistent/store", world_size=1, rank=0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_distributed(**kwargs)  # default device: cuda
+        assert not dist.is_initialized()
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
