@@ -427,15 +427,21 @@ class APF:
             generator, self.n_particles, inputs0, init_mean, init_cov
         )
 
-    def step(self, carry, obs, inp_prev, inp_cur, draws: StepDraws):
-        """One filter step; returns ``(carry, ancestors)``."""
+    def step(self, carry, obs, inp_prev, inp_cur, draws: StepDraws, resample=None):
+        """One filter step; returns ``(carry, ancestors)``. ``resample``
+        maps the first-stage log-weights to ``(ancestors, log-weight offset
+        or None)``; by default the systematic kernel on their softmax, no
+        offset (the sharded sweep's local scheme passes its own)."""
         kern, lam = self.kern, self.lam
         log_weights, state, int_vars, Ss = carry
         _, _, lw_aux, ll_aux, _, lws = kern.auxiliary_fused_packed_f(
             Ss, lam, state, int_vars, inp_prev, inp_cur, obs, log_weights,
             emit_factor=kern.reuse_factor,
         )
-        ancestors = kern.resample(torch.softmax(lw_aux, 0), draws.u_res)
+        if resample is None:
+            ancestors, offset = kern.resample(torch.softmax(lw_aux, 0), draws.u_res), None
+        else:
+            ancestors, offset = resample(lw_aux)
         state_g, *iv_g, ll_aux_g = kern.packed_gather(
             [state, *int_vars, ll_aux], ancestors
         )
@@ -444,6 +450,8 @@ class APF:
             draws.uvs, Ss, ancestors, lam, new_state, inp_cur, factors=lws,
         )
         new_log_weights = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_g
+        if offset is not None:
+            new_log_weights = new_log_weights + offset
         return (new_log_weights, new_state, new_iv, Ss_new), ancestors
 
     def __call__(

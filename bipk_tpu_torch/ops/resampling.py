@@ -19,6 +19,16 @@ def normalize_weights(weights: torch.Tensor) -> torch.Tensor:
     return torch.where(total > 0, w / total, torch.full_like(w, 1.0 / n))
 
 
+def _cdf(w: torch.Tensor) -> torch.Tensor:
+    """The float64 prefix sums of ``w``. On a card ``torch.cumsum`` is a
+    parallel scan, and its prefix sums are not monotone: two neighbours'
+    prefixes round through different additions, so a particle of zero
+    weight can take a one-ulp step of the CDF, and with it a draw, with
+    probability N ulp (~2e-3 per particle at N = 32768 in float32, ~4e-12
+    in float64)."""
+    return torch.cumsum(w, -1, dtype=torch.float64)
+
+
 def systematic(weights: torch.Tensor, u) -> torch.Tensor:
     """Sorted systematic-resampling ancestors ``(N,)`` int32.
 
@@ -26,13 +36,14 @@ def systematic(weights: torch.Tensor, u) -> torch.Tensor:
     offset in ``[0, 1)`` (a float or a one-element tensor). Input ``i``
     owns the grid points ``(u + k)/n < cdf_i``, so its cumulative
     offspring count is ``cc_i = clip(ceil(n cdf_i - u), 0, n)`` and
-    ``anc[k] = #{i < n-1 : cc_i <= k}``.
+    ``anc[k] = #{i < n-1 : cc_i <= k}``. The CDF is summed in float64
+    (:func:`_cdf`).
     """
     n = weights.shape[-1]
     w = normalize_weights(weights)
     if isinstance(u, torch.Tensor):
         u = u.reshape(())
-    cdf = torch.cumsum(w, -1)
+    cdf = _cdf(w)
     counts_cum = torch.clamp(torch.ceil(n * cdf - u), 0, n).long()
     starts = torch.cat([counts_cum.new_zeros(1), counts_cum[:-1]])
     # starts == n (inputs after the mass is exhausted) fall off the end
@@ -46,9 +57,10 @@ def systematic(weights: torch.Tensor, u) -> torch.Tensor:
 def categorical_from_weights(weights: torch.Tensor, u) -> torch.Tensor:
     """One inverse-cdf categorical draw from normalized ``weights (N,)``
     with the uniform ``u`` (a one-element tensor): a 0-d int64 index on
-    the weights' device, never read back to the host."""
-    cdf = torch.cumsum(weights, -1)
-    u = torch.as_tensor(u, dtype=weights.dtype, device=weights.device)
+    the weights' device, never read back to the host. The CDF is summed
+    in float64 (:func:`_cdf`)."""
+    cdf = _cdf(weights)
+    u = torch.as_tensor(u, device=weights.device).to(torch.float64)
     idx = torch.searchsorted(cdf, u.reshape(1))
     return torch.clamp(idx, 0, weights.shape[-1] - 1).reshape(())
 

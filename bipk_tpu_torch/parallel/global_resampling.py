@@ -39,13 +39,10 @@ from bipk_tpu_torch.parallel.mesh import ParticleMesh
 
 def _global_cdf(w_local: torch.Tensor, mesh: ParticleMesh):
     """This rank's slice of the global CDF and the mass of the ranks
-    before it, in float64. A parallel scan's prefix sums are not monotone:
-    two neighbours' prefixes round through different additions, so a
-    particle of zero weight can take a one-ulp step of the CDF, and with
-    it a grid point with probability N ulp per particle (~2e-3 at N =
-    32768 in float32, ~4e-12 in float64). In the APF such an ancestor's
-    second-stage weight ``ll_new - ll_aux`` is huge and takes the whole
-    population's weight."""
+    before it, in float64, as the single-device resamplers sum theirs
+    (``ops/resampling.py`` ``_cdf`` says why). In the APF a zero-weight
+    ancestor's second-stage weight ``ll_new - ll_aux`` is huge and takes
+    the whole population's weight."""
     w = w_local.double()
     masses = mesh.all_gather_scalar(w.sum())
     before = torch.arange(mesh.size, device=masses.device) < mesh.rank

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from bipk_tpu_torch._device import resolve_device
-from bipk_tpu_torch.algorithms.apf import APFKernel, StepDraws, as_tensor
+from bipk_tpu_torch.algorithms.apf import APF, APFKernel, StepDraws, as_tensor
 from bipk_tpu_torch.models.ssm import GPNode, SSM
 from bipk_tpu_torch.ops import mniw
 from bipk_tpu_torch.parallel import global_resampling
@@ -105,6 +105,7 @@ class ShardedAPF:
         self.n_loc = n_particles // mesh.size
         # the single-device sweep: one rank, local scheme
         self.single = mesh.size == 1 and not self.exact
+        self._filter = APF(kern, self.n_loc, forgetting_factor)
 
     def rank_generator(self, generator: torch.Generator) -> torch.Generator:
         """This rank's generator: ``generator`` itself on one rank; on W
@@ -175,27 +176,16 @@ class ShardedAPF:
         return carry, self.moments(self.softmax(carry[0]), *carry[1:])
 
     def step_local(self, carry, obs, inp_prev, inp_cur, draws: StepDraws):
-        """The local scheme (``sharded.py:242-313``): the look-ahead (#1,
-        or 1e with ``reuse_factor``), the systematic kernel (#2) on the
-        rank's renormalized slice, the gather/draw (#4 or an opt-in) on the
-        rank's statistics, the mass offset; on one rank the single-device
-        step (:meth:`local_ancestors`). Returns ``(carry, ancestors)``."""
-        kern, lam = self.kern, self.lam
-        log_weights, state, int_vars, Ss = carry
-        _, _, lw_aux, ll_aux, _, lws = kern.auxiliary_fused_packed_f(
-            Ss, lam, state, int_vars, inp_prev, inp_cur, obs, log_weights,
-            emit_factor=kern.reuse_factor,
-        )
-        ancestors, offset = self.local_ancestors(self.softmax(lw_aux), draws.u_res)
-        state_g, *iv_g, ll_aux_g = kern.packed_gather([state, *int_vars, ll_aux], ancestors)
-        new_state = kern.propagate_all(draws.z, state_g, inp_prev, iv_g)
-        Ss_new, new_iv, _, _ = kern.draw_update_gather_all_packed(
-            draws.uvs, Ss, ancestors, lam, new_state, inp_cur, factors=lws,
-        )
-        new_lw = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_g
-        if offset is not None:
-            new_lw = new_lw + offset
-        return (new_lw, new_state, new_iv, Ss_new), ancestors
+        """The local scheme (``sharded.py:242-313``): the single-device
+        step (:meth:`APF.step <bipk_tpu_torch.algorithms.apf.APF.step>`:
+        the look-ahead, #1 or 1e with ``reuse_factor``; the gather/draw, #4
+        or an opt-in) on the rank's particles, resampled by
+        :meth:`local_ancestors` (the systematic kernel, #2, on the rank's
+        renormalized slice, and the mass offset). Returns ``(carry,
+        ancestors)``."""
+        return self._filter.step(
+            carry, obs, inp_prev, inp_cur, draws,
+            resample=lambda lw_aux: self.local_ancestors(self.softmax(lw_aux), draws.u_res))
 
     def step_exact(self, carry, obs, inp_prev, inp_cur, draws: StepDraws):
         """The exact scheme (``sharded.py:242-313``): the look-ahead (#1, no

@@ -161,7 +161,7 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     sampler on that chain's generator; the split R-hat (under
     ``tests/test_chains.py``'s 1.7) and bulk ESS of the trajectory-mean
     interface variable over the second half; then the EMPS entry point
-    with ``--chains 2`` (600 steps, two sweeps): exact launches, the
+    with ``--chains 2`` (300 steps, two sweeps): exact launches, the
     friction's R-hat / ESS line, and its ``.mat`` file read back;
 25. scripts: the toy, oscillator and vehicle entry scripts
     (``bipk_tpu_torch.scripts.*``) through ``run()`` at 200 particles
@@ -175,10 +175,10 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     uninterrupted run, for one chain and for two;
 26. 2**20: the vehicle online APF at ``benchmarks/bench_1m.py``'s 2**20
     particles, unchunked and in windows of 100 steps over 200 steps, then
-    in chunks of 32768 and chunks in windows of 25 over 30 steps (the
+    in chunks of 32768 and chunks in windows of 15 over 20 steps (the
     chunked step is host-bound): ms per step, peak device memory, exact
     launches per step (chunks x #1 and #4 per GP, one #2), chunked against
-    an unchunked run of 30 steps (which leaves are bitwise, the rest
+    an unchunked run of 20 steps (which leaves are bitwise, the rest
     within 1e-5 of each leaf's largest value), windowed against
     unwindowed bit for bit; then 5 profiled steps of the unchunked and the
     chunked sweep;
@@ -189,16 +189,18 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     exact scheme at 32768 x 1499: exact launches per step (#1 x 2, #3 x 2,
     no #2 or #4), finite moments, the ESS within [1, N] and its median at
     least half that of phase 4's single-device sweep on the same
-    generator, ms per step, 50 profiled steps (device busy, idle share),
+    generator, ms per step, 20 profiled steps (device busy, idle share),
     and #3 against its plain version on the path's redistributed
-    statistics; the exact
-    sweep against its plain version over 10 paired seeds of 25 steps; the
-    exact scheme against the local one, step by step from one carry on
-    the same draws over 100 steps (the slots whose ancestors differ,
-    rounding ties, counted and at most 1% of them; the other particles
-    equal; each moment within the weight the two populations do not
-    share); the local
-    scheme through the mesh bit for bit the sweep without it (100 steps);
+    statistics; the host time per call of the collectives, the slice and
+    the ring, and the exact step against the single-device one in turns;
+    the exact sweep against its plain version over 10 paired seeds of 15
+    steps; the exact scheme against the local one, step by step from one
+    carry on the same draws over 50 steps (the slots whose ancestors
+    differ, rounding ties, counted and at most 1% of them; the other
+    particles equal; each moment, less the tie slots' terms, equal after
+    the ratio of the two softmaxes' normalizers; the decreasing neighbour
+    pairs of an f32 ``torch.cumsum`` of the weights counted); the local
+    scheme through the mesh bit for bit the sweep without it (20 steps);
     then the oscillator's exact sweep at 32768 x 749 (row 6 fp and du)
     and row 6 du against its plain version.
 
@@ -248,6 +250,7 @@ from bipk_tpu_torch.ops import _build
 from bipk_tpu_torch.ops import cuda_kernels as ck
 from bipk_tpu_torch.ops import cholup, mniw, resampling
 from bipk_tpu_torch.ops.gaussian import mvn_logpdf_chol
+from bipk_tpu_torch.parallel import global_resampling
 from bipk_tpu_torch.parallel.sharded import build_sharded_apf
 from bipk_tpu_torch.utils import diagnostics
 from bipk_tpu_torch.utils.matio import sample_reference_trajectory
@@ -3045,8 +3048,9 @@ CHAINS = 4  # phase 24's toy chains
 CHAINS_ITERATIONS = 41  # 40 sweeps, as phase 12's toy sampler
 CHAINS_SAME = 4  # iterations of each chain held bit for bit against the single-chain sampler
 CHAINS_RHAT_GATE = 1.7  # tests/test_chains.py's bound on the split R-hat
+# the EMPS chains' depth, cut from 600 steps for the script's time limit
 EMPS_CHAINS_ARGS = ("--chains", "2", "--skip-baseline", "--gibbs-iters", "3",
-                    "--max-steps", "600", "--particles", "200")
+                    "--max-steps", "300", "--particles", "200")
 
 
 class _Tee:
@@ -3344,8 +3348,8 @@ CHUNK_1M = 32768
 WINDOW_1M = 100  # bench_1m.py's window
 # the chunked runs are host-bound (~0.2 s per step): fewer steps, and
 # windows short enough that their run still splits into two pieces
-CHUNKED_STEPS_1M = 30
-CHUNKED_WINDOW_1M = 25
+CHUNKED_STEPS_1M = 20
+CHUNKED_WINDOW_1M = 15
 PROFILE_1M_STEPS = 5
 # chunked against unchunked: max |difference| <= TOL_1M x max |unchunked|
 # per leaf, f32 rounding; the chunked step computes each particle's column
@@ -3470,15 +3474,25 @@ def apf_1m_phase(dev, model, Y, U, smi):
 # all_gather are NCCL calls and the ring has nothing to rotate.
 # ---------------------------------------------------------------------------
 
-MESH_PAIRED_STEPS = 25  # (b): the exact sweep against its plain version
+# phase 27's depths, cut for the script's time limit: the full-depth exact
+# sweeps of (a) and of the oscillator stay; the rest is short
+MESH_PAIRED_STEPS = 15  # (b): the exact sweep against its plain version
 MESH_PAIRED_SEEDS = 10
-MESH_SAME_STEPS = 100  # (c) and (d)
+MESH_PROFILE_STEPS = 20  # (a)'s profiled steps
+MESH_SAME_STEPS = 50  # (c): exact against local, step by step
+MESH_BITWISE_STEPS = 20  # (d): the local scheme through the mesh; tier-1 holds it on the CPU
 # (c): at most this share of the slots may take another ancestor in the
 # exact scheme than in the systematic kernel on the same weights: grid
 # points that the slice's f64 CDF and #2's f32 one put on different
-# sides (ROADMAP Queue C records 50 of 32768 between #2 and an f32
-# cumsum on phase 2's input)
+# sides (the phase's runs so far: at most 93 of 32768)
 MESH_TIE_SHARE = 0.01
+# (c): off the ties each weighted moment, less the tie slots' terms, within
+# this share of its absolute weighted sum: f32 sums of 32768 terms in two
+# orders (the moments' gemv, the tie slots' f64 sums)
+MESH_MOMENT_TOL = 1e-4
+MESH_TIMED_CALLS = 100  # host time per collective, the slice and the ring
+MESH_TURNS = 2  # exact against single-device steps in turns, MESH_TURN_STEPS each
+MESH_TURN_STEPS = 20
 
 
 def du_recorder(kern):
@@ -3580,17 +3594,21 @@ def exact_against_local(dev, mesh, model, Y, U):
     weights may differ only at rounding ties: at most ``MESH_TIE_SHARE``
     of the slots. Where they agree the two steps' particles must be equal
     (states and log weights, within 1e-6 of their scale; bitwise
-    reported), and each weighted moment may differ by no more than the
-    weight the two populations do not share (the tie slots' weights of
-    both, and the rest's weight differences) times the largest value it
-    weighs, plus 1e-5 of it."""
+    reported). There the two weights differ only by the two softmaxes'
+    normalizers, so each weighted moment ``m`` less the tie slots' own
+    terms ``T`` must agree after their ratio ``r`` (the weight off the
+    ties, exact over local): ``|(m_e - T_e) - r (m_l - T_l)|`` within
+    ``MESH_MOMENT_TOL`` of the moment's absolute weighted sum over both
+    populations. Also counts the neighbour pairs at which an f32
+    ``torch.cumsum`` of the exact scheme's weights decreases, the
+    parallel scan's fault that the resamplers' f64 CDFs avoid."""
     kw = dict(forgetting_factor=LAM, dtype=torch.float32)
     exact = build_sharded_apf(model.ssm, model.gps, N, mesh, resampling_scheme="exact", **kw)
     local = build_sharded_apf(model.ssm, model.gps, N, device=dev, **kw)
     g = torch.Generator(device=dev).manual_seed(5)
     obs = Y.reshape(Y.shape[0], -1)
     carry = exact.init(g, U[0], model.x0, model.p0)
-    ties, bitwise_steps, worst_share = [], 0, 0.0
+    ties, bitwise_steps, worst, decreasing = [], 0, 0.0, 0
     for t in range(MESH_SAME_STEPS):
         draws = exact.draws(g)
         new_e, anc_e = exact.step_exact(carry, obs[t + 1], U[t], U[t + 1], draws)
@@ -3602,8 +3620,7 @@ def exact_against_local(dev, mesh, model, Y, U):
                 f"{n_tie} of {N} slots take another ancestor")
         same = ~tie
         w_e, w_l = exact.softmax(new_e[0]), local.softmax(new_l[0])
-        share = float(w_e[tie].sum() + w_l[tie].sum() + (w_e - w_l)[same].abs().sum())
-        worst_share = max(worst_share, share)
+        decreasing += int((torch.cumsum(w_e, 0).diff() < 0).sum())
         pairs = [(new_e[0], new_l[0]), (new_e[1], new_l[1]),
                  *zip(new_e[2], new_l[2]), *zip(new_e[3], new_l[3])]
         all_bitwise = True
@@ -3616,20 +3633,100 @@ def exact_against_local(dev, mesh, model, Y, U):
         bitwise_steps += all_bitwise
         m_e = exact.moments(w_e, *new_e[1:])
         m_l = local.moments(w_l, *new_l[1:])
+        we, wl = w_e.double(), w_l.double()
+        r = we[same].sum() / wl[same].sum()
         vals = zip([new_e[1], *new_e[2], *new_e[3]], [new_l[1], *new_l[2], *new_l[3]])
         for a, b, (v_e, v_l) in zip([m_e[0], *m_e[1], *m_e[2]], [m_l[0], *m_l[1], *m_l[2]],
                                     vals):
-            vmax = torch.maximum(v_e.abs().amax(-1), v_l.abs().amax(-1))
-            require(bool(((a - b).abs() <= (share + 1e-5) * vmax).all()),
-                    f"exact against local, step {t + 1}: a moment differs by "
-                    f"{float((a - b).abs().max())} beyond the unshared weight {share}")
+            v_e, v_l = v_e.double(), v_l.double()
+            t_e, t_l = v_e[..., tie] @ we[tie], v_l[..., tie] @ wl[tie]
+            gap = ((a.double() - t_e) - r * (b.double() - t_l)).abs()
+            scale = (v_e.abs() @ we + v_l.abs() @ wl).clamp_min(1e-300)
+            share = float((gap / scale).max())
+            worst = max(worst, share)
+            require(share <= MESH_MOMENT_TOL, f"exact against local, step {t + 1}: a "
+                    f"moment off the ties differs by {share:.3e} of its absolute weighted "
+                    f"sum (bound {MESH_MOMENT_TOL})")
         carry = new_e
     ts = torch.tensor(ties, dtype=torch.float64)
     print(f"  exact against local on the same draws, {MESH_SAME_STEPS} steps from one carry: "
           f"slots at rounding ties per step min {int(ts.min())} median {ts.median().item():.0f} max "
           f"{int(ts.max())} of {N} (total {int(ts.sum())}); particles off the ties bit for bit "
-          f"in {bitwise_steps} of {MESH_SAME_STEPS} steps; largest unshared weight {worst_share:.3e}"
-          f" (the moments' bound)", flush=True)
+          f"in {bitwise_steps} of {MESH_SAME_STEPS} steps; moments off the ties within "
+          f"{worst:.3e} of their absolute weighted sums (bound {MESH_MOMENT_TOL}); f32 "
+          f"torch.cumsum of the weights decreasing at {decreasing} neighbour pairs over the "
+          f"{MESH_SAME_STEPS} steps", flush=True)
+
+
+def host_us(fn, calls):
+    """Wall time per call of ``fn()`` in us: ``calls`` calls after one,
+    each closed by a synchronisation."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e6
+
+
+def mesh_host_times(dev, mesh, model, Y, U, smi):
+    """The exact step's host costs on ``mesh``, after 10 steps of the
+    vehicle's exact sweep: wall time per call (``MESH_TIMED_CALLS`` calls)
+    of each collective (a scalar ``psum`` / ``pmax``, ``all_gather_scalar``,
+    the moments' ``psum``), of the slice and of the ring on the step's
+    weights and payloads, and of one eager op for scale; then the exact
+    sweep's step against the single-device one (both with their moments)
+    from that carry, ``MESH_TURNS`` turns of ``MESH_TURN_STEPS`` steps."""
+    import torch.distributed as dist
+
+    kw = dict(forgetting_factor=LAM, dtype=torch.float32)
+    exact = build_sharded_apf(model.ssm, model.gps, N, mesh, resampling_scheme="exact", **kw)
+    local = build_sharded_apf(model.ssm, model.gps, N, device=dev, **kw)
+    g = torch.Generator(device=dev).manual_seed(7)
+    obs = Y.reshape(Y.shape[0], -1)
+    carry = exact.init(g, U[0], model.x0, model.p0)
+    for t in range(10):
+        carry, _ = exact.step(carry, obs[t + 1], U[t], U[t + 1], exact.draws(g))
+    w, u = exact.softmax(carry[0]), exact.draws(g).u_res
+    anc = global_resampling.global_systematic_slice(u, w, mesh)
+    payload = [carry[1], *carry[2], *carry[3], carry[0]]
+    scalar = w.sum()
+    moments = torch.cat([carry[1] @ w, *(S @ w for S in carry[3])])
+    calls = {
+        "psum": lambda: mesh.psum(scalar),
+        "pmax": lambda: mesh.pmax(scalar),
+        "all_gather_scalar": lambda: mesh.all_gather_scalar(scalar),
+        f"psum of the moments ({moments.numel()} floats)": lambda: mesh.psum(moments),
+        "the slice": lambda: global_resampling.global_systematic_slice(u, w, mesh),
+        "the ring": lambda: global_resampling.ring_redistribute(payload, anc, mesh),
+        "an eager add": lambda: scalar + 1.0,
+    }
+    us = {name: host_us(fn, MESH_TIMED_CALLS) for name, fn in calls.items()}
+    print(f"  wall us per call on a world-size-1 {dist.get_backend()} group, {MESH_TIMED_CALLS} "
+          f"calls each, on {smi}: " + ", ".join(f"{k} {v:.1f}" for k, v in us.items()),
+          flush=True)
+    ms = {"exact": [], "single-device": []}
+    for _ in range(MESH_TURNS):
+        for name, apf in (("exact", exact), ("single-device", local)):
+            gt = torch.Generator(device=dev).manual_seed(9)
+            c = carry
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(MESH_TURN_STEPS):
+                c, _ = apf.step(c, obs[t + 11], U[t + 10], U[t + 11], apf.draws(gt))
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / MESH_TURN_STEPS * 1e3)
+    print(f"  ms per step in turns from one carry ({MESH_TURNS} x {MESH_TURN_STEPS} steps "
+          f"each): " + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
+                                 for k, vs in ms.items()), flush=True)
+
+
+def part_done(label, t0):
+    """Prints a part's seconds; returns the clock for the next part."""
+    now = time.perf_counter()
+    print(f"  ({label}: {now - t0:.2f} s)", flush=True)
+    return now
 
 
 def apf_mesh_phase(dev, model, X, Y, U, osc, single_ess, smi):
@@ -3638,17 +3735,19 @@ def apf_mesh_phase(dev, model, X, Y, U, osc, single_ess, smi):
     size 1; ``global_particle_mesh``), destroyed at the end. The vehicle
     at the main path's width: (a) the exact scheme's full sweep with exact
     launches per step (#1 x 2, #3 x 2, #2 and #4 none), its ESS and RMSE,
-    ms per step, and 50 profiled steps (device busy, idle share), then #3
-    against its plain version on the path's redistributed statistics; (b)
-    the exact sweep against its plain version over paired seeds; (c) the
-    exact scheme against the local one on the same draws
-    (:func:`exact_against_local`); (d) the local scheme through the mesh
-    bit for bit the sweep without ``mesh=``. Then the oscillator's exact
-    sweep at 32768 x 749 (row 6 fp and du) and row 6 du against its
-    plain version. A failed NCCL init fails the phase: nothing falls back
-    to gloo or to the CPU. ``single_ess``: the median ESS of phases 4
-    and 10, the single-device sweeps on the exact sweeps' generators.
-    Returns the two exact paths' launches."""
+    ms per step, and ``MESH_PROFILE_STEPS`` profiled steps (device busy,
+    idle share), then #3 against its plain version on the path's
+    redistributed statistics; the host time of the collectives, the
+    slice and the ring (:func:`mesh_host_times`); (b) the exact sweep
+    against its plain version over paired seeds; (c) the exact scheme
+    against the local one on the same draws (:func:`exact_against_local`);
+    (d) the local scheme through the mesh bit for bit the sweep without
+    ``mesh=``. Then the oscillator's exact sweep at 32768 x 749 (row 6 fp
+    and du) and row 6 du against its plain version. A failed NCCL init
+    fails the phase: nothing falls back to gloo or to the CPU.
+    ``single_ess``: the median ESS of phases 4 and 10, the single-device
+    sweeps on the exact sweeps' generators. Returns the two exact paths'
+    launches."""
     import torch.distributed as dist
 
     from bipk_tpu_torch.parallel.distributed import global_particle_mesh, init_distributed
@@ -3664,36 +3763,45 @@ def apf_mesh_phase(dev, model, X, Y, U, osc, single_ess, smi):
                     f"mesh {mesh}")
             print(f"  process group: {dist.get_backend()}, world size {mesh.size}, rank "
                   f"{mesh.rank} on {mesh.device}", flush=True)
+            tp = time.perf_counter()
 
             # (a)
             counts = exact_main_path("vehicle APF, exact scheme", dev, mesh, model, X, Y, U,
                                      WARP24_KEYS, 2, single_ess[0], smi)
+            tp = part_done("a, sweep", tp)
             print("  profile, vehicle APF, exact scheme:", flush=True)
-            profile_apf_steps(dev, model, Y, U, N, steps=50, mesh=mesh,
+            profile_apf_steps(dev, model, Y, U, N, steps=MESH_PROFILE_STEPS, mesh=mesh,
                               resampling_scheme="exact")
+            mesh_host_times(dev, mesh, model, Y, U, smi)
+            tp = part_done("a, profile and host times", tp)
             # (b)
             apf_path_vs_plain(dev, model, Y, U, steps=MESH_PAIRED_STEPS,
                               seeds=MESH_PAIRED_SEEDS, label="path-vs-plain, exact scheme",
                               mesh=mesh, resampling_scheme="exact")
+            tp = part_done("b", tp)
             # (c)
             exact_against_local(dev, mesh, model, Y, U)
+            tp = part_done("c", tp)
             # (d)
             runs = {}
             for name, kw in (("mesh", dict(mesh=mesh)), ("no mesh", dict(device=dev))):
                 apf = build_sharded_apf(model.ssm, model.gps, N, forgetting_factor=LAM,
                                         dtype=torch.float32, **kw)
                 runs[name] = _result_leaves(apf(torch.Generator(device=dev).manual_seed(6),
-                                                Y[:MESH_SAME_STEPS + 1], U[:MESH_SAME_STEPS + 1],
-                                                model.x0, model.p0))
+                                                Y[:MESH_BITWISE_STEPS + 1],
+                                                U[:MESH_BITWISE_STEPS + 1], model.x0, model.p0))
             equal = [k for k, v in runs["no mesh"].items() if bitwise(runs["mesh"][k], v)]
-            print(f"  local scheme through the mesh against no mesh, {MESH_SAME_STEPS} steps: "
-                  f"{len(equal)} of {len(runs['no mesh'])} leaves bit for bit", flush=True)
+            print(f"  local scheme through the mesh against no mesh, {MESH_BITWISE_STEPS} "
+                  f"steps: {len(equal)} of {len(runs['no mesh'])} leaves bit for bit",
+                  flush=True)
             require(len(equal) == len(runs["no mesh"]), "the one-rank local mesh is not the "
                     "sweep without a mesh, bit for bit")
+            tp = part_done("d", tp)
             # the oscillator, exact: row 6 fp and du
             o_model, o_X, o_Y, o_U, _ = osc
             osc_counts = exact_main_path("oscillator APF, exact scheme", dev, mesh, o_model,
                                          o_X, o_Y, o_U, WARP_KEYS, 1, single_ess[1], smi)
+            part_done("oscillator", tp)
         finally:
             dist.destroy_process_group()
     return {"apf_exact": counts, "osc_apf_exact": osc_counts}
