@@ -32,7 +32,15 @@ the same :class:`CSMCDraws`.
 Each step keeps every value on the device: the reference's ancestor is a
 0-d device tensor, never read back. Random draws are inputs
 (:class:`CSMCDraws`), so the tests can feed the JAX package's draws.
-The GSPMD ``mesh=`` is not ported (ROADMAP Queue A item 8b).
+
+The direct step is one body for one device and for a particle mesh: it
+takes the operations that differ (the softmax, the resampling, the
+reference's categorical, the move of the particles to their ancestors,
+the sum over ranks, and whether this sweep holds the pinned slot) from
+``ops``, the sweep itself on one device and a
+:class:`~bipk_tpu_torch.parallel.sharded_csmc.ShardedCSMC` on a mesh.
+``build_csmc(mesh=)`` builds that sharded sweep: PyTorch has no GSPMD, and
+the JAX package's GSPMD sweep samples the same posterior.
 """
 
 from __future__ import annotations
@@ -115,23 +123,25 @@ class CSMC:
         u_ref = torch.rand((1,), generator=generator, dtype=k.dtype, device=k.device)
         return CSMCDraws(d.u_res, u_ref, d.z, d.uvs)
 
-    def pin_initial(self, particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats):
+    def pin_initial(self, particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats, pin=True):
         """Pin the last initial particle to the reference at t = 0 and
         start the reference's future statistics (its summed statistics
         without t = 0). ``particles`` is ``APFKernel.init_particles``'
-        carry, ``ref_T0`` the reference's contribution at t = 0 per GP.
-        Returns the carry ``(log_weights, state, int_vars, Ss,
-        ref_stats)``."""
+        carry, ``ref_T0`` the reference's contribution at t = 0 per GP;
+        ``pin=False`` (a rank without the pinned slot) leaves the
+        particles as they are. Returns the carry ``(log_weights, state,
+        int_vars, Ss, ref_stats)``."""
         log_w0, state0, iv0, Ss0 = particles
-        state0 = state0.clone()
-        state0[:, -1] = ref_x0
-        iv0 = tuple(iv.clone() for iv in iv0)
-        Ss0 = tuple(S.clone() for S in Ss0)
-        for i in range(self.kern.n_gp):
-            iv0[i][:, -1] = ref_iv0[i]
-            Ss0[i][:, -1] = mniw.pack_stats_bl(
-                mniw.MNIW(*(leaf[..., None] for leaf in ref_T0[i]))
-            )[:, 0]
+        if pin:
+            state0 = state0.clone()
+            state0[:, -1] = ref_x0
+            iv0 = tuple(iv.clone() for iv in iv0)
+            Ss0 = tuple(S.clone() for S in Ss0)
+            for i in range(self.kern.n_gp):
+                iv0[i][:, -1] = ref_iv0[i]
+                Ss0[i][:, -1] = mniw.pack_stats_bl(
+                    mniw.MNIW(*(leaf[..., None] for leaf in ref_T0[i]))
+                )[:, 0]
         ref_stats = tuple(
             mniw.MNIW(*(s - t for s, t in zip(ref_summed_stats[i], ref_T0[i])))
             for i in range(self.kern.n_gp)
@@ -139,11 +149,11 @@ class CSMC:
         return log_w0, state0, iv0, Ss0, ref_stats
 
     def init(self, generator, inputs0, init_mean, init_cov, ref_x0, ref_iv0,
-             ref_T0, ref_summed_stats):
+             ref_T0, ref_summed_stats, pin=True):
         particles = self.kern.init_particles(
             generator, self.n_particles, inputs0, init_mean, init_cov
         )
-        return self.pin_initial(particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats)
+        return self.pin_initial(particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats, pin)
 
     def _transition_logpdf_to_ref(self, aux_state, ref_x):
         """Gaussian transition density from each look-ahead state to the
@@ -153,25 +163,74 @@ class CSMC:
         return mvn_logpdf_chol(ref_x[:, None], aux_state, self.kern.process_chol,
                                log_det_chol=self._q_logdet)
 
+    # -- the operations a step takes from ``ops``: one device's ------------
+
+    holds_pinned = True  # the pinned particle is this sweep's last slot
+    mesh = None  # one device
+
+    @staticmethod
+    def softmax(x):
+        """The normalized weights of the log weights ``x``."""
+        return torch.softmax(x, 0)
+
+    @staticmethod
+    def psum(x):
+        """The sum of per-rank partials: on one device, ``x``."""
+        return x
+
+    def resample(self, w, u):
+        """Sorted systematic ancestors of the weights ``w``: #2."""
+        return self.kern.resample(w, u)
+
+    @staticmethod
+    def categorical(w, u):
+        """The reference's ancestor: one inverse-CDF draw from ``w``."""
+        return resampling.categorical_from_weights(w, u)
+
+    def move(self, state, int_vars, ll_aux, Ss, ancestors):
+        """The particles' small payloads at their ``ancestors`` (one
+        gather); the statistics stay where they are, for the draw kernel's
+        own gather (#4). Returns ``(state, int_vars, ll_aux, None)``."""
+        state_g, *iv_g, ll_aux_g = self.kern.packed_gather([state, *int_vars, ll_aux],
+                                                           ancestors)
+        return state_g, tuple(iv_g), ll_aux_g, None
+
+    # -- the step ----------------------------------------------------------
+
     def step(self, carry, obs, inp_prev, inp_cur, ref_x, ref_iv, ref_T,
-             draws: CSMCDraws):
+             draws: CSMCDraws, ops=None):
         """One step; ``ref_x (dx,)``, ``ref_iv`` per GP ``(n_i,)`` and
-        ``ref_T`` per GP the reference's contribution at this step.
-        Returns ``(carry, (ancestors, ess))`` with the reference's ancestor
-        patched into ``ancestors``."""
+        ``ref_T`` per GP the reference's contribution at this step;
+        ``ops`` the sweep whose operations it takes (this one by
+        default). Returns ``(carry, (ancestors, ess))`` with the
+        reference's ancestor patched into ``ancestors``: :meth:`lookahead`,
+        :meth:`select`, ``ops.move``, :meth:`advance`, :meth:`close`."""
+        ops = self if ops is None else ops
+        _, state, int_vars, Ss, ref_stats = carry
+        lw_aux, ll_aux, lw_as, lws = self.lookahead(carry, obs, inp_prev, inp_cur, ref_x)
+        ancestors_sorted, ancestors, ref_idx = self.select(lw_aux, lw_as, draws, ops)
+        moved = ops.move(state, int_vars, ll_aux, Ss, ancestors)
+        new = self.advance(moved, Ss, ancestors_sorted, ref_idx, obs, inp_prev, inp_cur,
+                           ref_x, ref_iv, draws.z, draws.uvs, lws, ops.holds_pinned)
+        return self.close(new, ref_stats, ref_T, ancestors, ops)
+
+    def lookahead(self, carry, obs, inp_prev, inp_cur, ref_x):
+        """A step's first phase on the particles of ``carry`` (all of them,
+        or a chunk): the look-ahead (#1 per GP; with ``reuse_factor`` it
+        also emits the factor of ``kern.priors + 1.0 * S``, which the draw
+        reuses) and the reference's ancestor weights: the marginal
+        likelihood without the reference's future statistics minus with
+        them (prior + future folded into #5's prior), plus the transition
+        density to the reference, on the time-(t-1) weights. Returns
+        ``(lw_aux, ll_aux, lw_as, lws)``: the first-stage log weights, the
+        look-ahead log-likelihoods, the ancestor log weights and the
+        factors (None without ``reuse_factor``)."""
         kern = self.kern
         log_weights, state, int_vars, Ss, ref_stats = carry
-        # with reuse_factor the look-ahead also emits the factor of
-        # kern.priors + 1.0 * S, which the draw below reuses
         aux_state, _, lw_aux, ll_aux, fps, lws = kern.auxiliary_fused_packed_f(
             Ss, 1.0, state, int_vars, inp_prev, inp_cur, obs, log_weights,
             emit_factor=kern.reuse_factor,
         )
-        ancestors_sorted = kern.resample(torch.softmax(lw_aux, 0), draws.u_res)
-
-        # ancestor weights: the marginal likelihood without the reference's
-        # future statistics minus with them (prior + future folded into
-        # the kernel's prior), plus the transition density to the reference
         g_diff = torch.zeros_like(lw_aux)
         for i in range(kern.n_gp):
             prior_eff = mniw.MNIW(*(p + r for p, r in zip(kern.priors[i], ref_stats[i])))
@@ -181,44 +240,70 @@ class CSMC:
             without_future = mniw.log_base_measure_from_projected_bl(fp, kern.ms[i])
             g_diff = g_diff + without_future - with_future
         h_x = self._transition_logpdf_to_ref(aux_state, ref_x)
-        ref_idx = resampling.categorical_from_weights(
-            torch.softmax(log_weights + g_diff + h_x, 0), draws.u_ref
-        )
-        # the kernel gathers with the sorted ancestors: patch a copy
-        ancestors = ancestors_sorted.clone()
-        ancestors[-1:] = ref_idx.view(1)
+        return lw_aux, ll_aux, log_weights + g_diff + h_x, lws
 
-        state_g, *iv_g, ll_aux_g = kern.packed_gather(
-            [state, *int_vars, ll_aux], ancestors
-        )
-        new_state = kern.propagate_all(draws.z, state_g, inp_prev, iv_g)
-        new_state[:, -1] = ref_x
-        Ss_new, new_iv, new_basis, _ = kern.draw_update_gather_all_packed(
-            draws.uvs, Ss, ancestors_sorted, 1.0, new_state, inp_cur, factors=lws,
-        )
-        # the reference's column: its ancestor's statistics plus its datum,
-        # written into the kernel's fresh output (never into Ss)
-        for i in range(kern.n_gp):
-            pinned = torch.atleast_1d(ref_iv[i])
-            Ss_new[i][:, -1] = (
-                Ss[i].index_select(1, ref_idx.view(1))[:, 0]
-                + mniw.pack_suff_col(pinned, new_basis[i][:, -1])
+    @staticmethod
+    def select(lw_aux, lw_as, draws: CSMCDraws, ops):
+        """The resampling on the first-stage weights and the reference's
+        ancestor on the ancestor weights, by ``ops``. Returns
+        ``(ancestors_sorted, ancestors, ref_idx)``: ``ancestors`` is a copy
+        of the sorted ones with ``ref_idx`` in the pinned slot."""
+        ancestors_sorted = ops.resample(ops.softmax(lw_aux), draws.u_res)
+        ref_idx = ops.categorical(ops.softmax(lw_as), draws.u_ref)
+        ancestors = ancestors_sorted.clone()
+        if ops.holds_pinned:
+            ancestors[-1:] = ref_idx.view(1)
+        return ancestors_sorted, ancestors, ref_idx
+
+    def advance(self, moved, Ss, ancestors_sorted, ref_idx, obs, inp_prev, inp_cur,
+                ref_x, ref_iv, z, uvs, lws, pin):
+        """A step's second phase on the moved particles (all, or a chunk):
+        the propagation, the matrix-t draw and rank-1 update, the pinned
+        slot (the last, where ``pin``) and the new log weights. ``moved``
+        is ``ops.move``'s result: where it holds no statistics (one
+        device), #4 gathers them with the sorted, unpatched ancestors (or
+        the opt-in kernels with ``lws`` / dedup); where it does (the
+        statistics moved with the particles), #3 draws on them. The
+        pinned column is its ancestor's statistics plus the reference's
+        datum, written into the kernel's fresh output (never into
+        ``Ss``). Returns ``(log_weights, state, int_vars, Ss)``."""
+        kern = self.kern
+        state_m, iv_m, ll_aux_m, Ss_m = moved
+        new_state = kern.propagate_all(z, state_m, inp_prev, iv_m)
+        if pin:
+            new_state[:, -1] = ref_x
+        if Ss_m is None:
+            Ss_new, new_iv, new_basis, _ = kern.draw_update_gather_all_packed(
+                uvs, Ss, ancestors_sorted, 1.0, new_state, inp_cur, factors=lws,
             )
-            new_iv[i][:, -1] = pinned
-        new_log_weights = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_g
+        else:
+            Ss_new, new_iv, new_basis, _ = kern.draw_update_all_packed(
+                uvs, Ss_m, 1.0, new_state, inp_cur)
+        if pin:
+            for i in range(kern.n_gp):
+                pinned = torch.atleast_1d(ref_iv[i])
+                src = (Ss[i].index_select(1, ref_idx.view(1))[:, 0] if Ss_m is None
+                       else Ss_m[i][:, -1])
+                Ss_new[i][:, -1] = src + mniw.pack_suff_col(pinned, new_basis[i][:, -1])
+                new_iv[i][:, -1] = pinned
+        new_log_weights = kern.log_lik_all(obs, new_state, inp_cur, new_iv) - ll_aux_m
+        return new_log_weights, new_state, new_iv, Ss_new
+
+    def close(self, new, ref_stats, ref_T, ancestors, ops):
+        """The step's end: the reference's contribution at this step leaves
+        its future statistics, and the ESS of the new weights (a sum over
+        ``ops``' ranks). Returns ``(carry, (ancestors, ess))``."""
         new_ref_stats = tuple(
             mniw.MNIW(*(s - t for s, t in zip(ref_stats[i], ref_T[i])))
-            for i in range(kern.n_gp)
+            for i in range(self.kern.n_gp)
         )
-        norm_w = torch.softmax(new_log_weights, 0)
-        carry = (new_log_weights, new_state, new_iv, Ss_new, new_ref_stats)
-        return carry, (ancestors, 1.0 / (norm_w * norm_w).sum())
+        norm_w = ops.softmax(new[0])
+        return (*new, new_ref_stats), (ancestors, 1.0 / ops.psum((norm_w * norm_w).sum()))
 
-    def trace(
-        self, generator, observations, inputs, init_state_mean,
-        init_state_cov, ref_state, ref_int_vars, ref_summed_stats,
-    ) -> CSMCTrace:
-        """One sweep with its batch-last traces."""
+    def prepare(self, observations, inputs, ref_state, ref_int_vars, ref_summed_stats):
+        """A sweep's data on the kernel's device: ``(obs (T, dy), inputs,
+        ref_state, ref_ivs (each (T, n_i)), ref_summed, ref_T)``, ``ref_T``
+        the reference's contributions (:func:`ref_contributions`)."""
         k = self.kern
         obs = as_tensor(observations, k.dtype, k.device)
         obs = obs.reshape(obs.shape[0], -1)
@@ -233,6 +318,15 @@ class CSMC:
             for st in ref_summed_stats
         )
         ref_T = ref_contributions(k.gps, ref_state, ref_ivs, inputs)
+        return obs, inputs, ref_state, ref_ivs, ref_summed, ref_T
+
+    def trace(
+        self, generator, observations, inputs, init_state_mean,
+        init_state_cov, ref_state, ref_int_vars, ref_summed_stats,
+    ) -> CSMCTrace:
+        """One sweep with its batch-last traces."""
+        obs, inputs, ref_state, ref_ivs, ref_summed, ref_T = self.prepare(
+            observations, inputs, ref_state, ref_int_vars, ref_summed_stats)
         carry = self.init(
             generator, inputs[0], init_state_mean, init_state_cov,
             ref_state[0], tuple(r[0] for r in ref_ivs), _at(ref_T, 0), ref_summed,
@@ -240,16 +334,19 @@ class CSMC:
         draws = (self.draws(generator) for _ in range(obs.shape[0] - 1))
         return self.run(carry, obs, inputs, ref_state, ref_ivs, ref_T, draws)
 
-    def run(self, carry, obs, inputs, ref_state, ref_ivs, ref_T, draws) -> CSMCTrace:
+    def run(self, carry, obs, inputs, ref_state, ref_ivs, ref_T, draws,
+            step=None) -> CSMCTrace:
         """The sweep from the pinned initial ``carry``, on tensors of the
         kernel's device: ``obs (T, dy)``, ``inputs (T, du)``, the reference
         ``ref_state (T, dx)`` and ``ref_ivs`` (each ``(T, n_i)``), its
         contributions ``ref_T`` (:func:`ref_contributions`), and one
-        :class:`CSMCDraws` per step from the iterable ``draws``."""
+        :class:`CSMCDraws` per step from the iterable ``draws``; ``step``
+        (default :meth:`step`) takes each step."""
         k = self.kern
+        step = self.step if step is None else step
         states, ivs, ancestors, ess = [carry[1]], [carry[2]], [], []
         for t, step_draws in zip(range(obs.shape[0] - 1), draws):
-            carry, (anc, e) = self.step(
+            carry, (anc, e) = step(
                 carry, obs[t + 1], inputs[t], inputs[t + 1], ref_state[t + 1],
                 tuple(r[t + 1] for r in ref_ivs), _at(ref_T, t + 1), step_draws,
             )
@@ -265,6 +362,17 @@ class CSMC:
             carry[0],
         )
 
+    def result(self, tr: CSMCTrace, u) -> CSMCResult:
+        """The sweep's result from its trace: one trajectory by backward
+        ancestry from the final weights, drawn with the uniform ``u``."""
+        idx = resampling.categorical_from_weights(
+            torch.softmax(tr.final_log_weights, 0), u
+        )
+        (state_traj, iv_traj), _ = resampling.reconstruct_trajectory_bl(
+            (tr.states, tr.int_vars), tr.ancestors, idx
+        )
+        return CSMCResult(state_traj, iv_traj, tr.ess, tr.final_log_weights)
+
     def __call__(
         self, generator, observations, inputs, init_state_mean,
         init_state_cov, ref_state, ref_int_vars, ref_summed_stats,
@@ -273,16 +381,9 @@ class CSMC:
             generator, observations, inputs, init_state_mean, init_state_cov,
             ref_state, ref_int_vars, ref_summed_stats,
         )
-        # one trajectory by backward ancestry from the final weights
         u = torch.rand((1,), generator=generator, dtype=self.kern.dtype,
                        device=self.kern.device)
-        idx = resampling.categorical_from_weights(
-            torch.softmax(tr.final_log_weights, 0), u
-        )
-        (state_traj, iv_traj), _ = resampling.reconstruct_trajectory_bl(
-            (tr.states, tr.int_vars), tr.ancestors, idx
-        )
-        return CSMCResult(state_traj, iv_traj, tr.ess, tr.final_log_weights)
+        return self.result(tr, u)
 
 
 class CSMCRank1(CSMC):
@@ -294,11 +395,11 @@ class CSMCRank1(CSMC):
     run as :class:`CSMC`; the step ignores ``ref_T`` (the reference's
     datum enters as a vector, ``[phi(ref_x); ref_iv]``)."""
 
-    def pin_initial(self, particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats):
+    def pin_initial(self, particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats, pin=True):
         """:meth:`CSMC.pin_initial`, then the two augmented factors per GP
         of the pinned statistics (with the dtype's jitter, once)."""
         log_w0, state0, iv0, Ss0, ref_stats = super().pin_initial(
-            particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats)
+            particles, ref_x0, ref_iv0, ref_T0, ref_summed_stats, pin)
         kern = self.kern
         Fs, dfs, Fps, dfps = [], [], [], []
         for i in range(kern.n_gp):
@@ -317,7 +418,8 @@ class CSMCRank1(CSMC):
 
     def step(self, carry, obs, inp_prev, inp_cur, ref_x, ref_iv, ref_T,
              draws: CSMCDraws):
-        """One rank-1 step; the arguments and result of :meth:`CSMC.step`."""
+        """One rank-1 step on one device; the arguments (but ``ops``) and
+        result of :meth:`CSMC.step`."""
         kern = self.kern
         n_gp, ms = kern.n_gp, kern.ms
         log_weights, state, int_vars, Fs, dfs, Fps, dfps = carry
@@ -390,11 +492,11 @@ def build_csmc(
     dtype=torch.float32,
     mesh=None,
     rank1: bool | None = None,
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
     reference: bool = False,
     reuse_factor: bool = False,
     dedup_gather: bool = False,
-) -> CSMC:
+):
     """Build the conditional-SMC-with-ancestor-sampling sweep on one
     device: the direct formulation, or with ``rank1=True`` the rank-1
     factor-carry one (:class:`CSMCRank1`; opt-in, as in the JAX package).
@@ -408,16 +510,29 @@ def build_csmc(
     carries no packed statistics and launches neither kernel, so
     ``rank1=True`` with either raises ``ValueError``; on the card without
     ``reference`` it raises unless the dtype is float32 and every GP has
-    m <= 48 and n <= 2, as the direct step's kernels do. ``mesh`` is not
-    ported.
+    m <= 48 and n <= 2, as the direct step's kernels do.
+
+    ``mesh`` (a :class:`~bipk_tpu_torch.parallel.mesh.ParticleMesh`) builds
+    the particle-sharded sweep instead (:func:`~bipk_tpu_torch.parallel.
+    sharded_csmc.build_sharded_csmc`, on the mesh's device; ``device``,
+    if given, must be it): the JAX package's ``mesh=`` is GSPMD, which
+    PyTorch does not have, and samples the same posterior. Its step is the
+    direct one, so ``rank1=True`` with a mesh raises ``ValueError``;
+    ``reuse_factor`` and ``dedup_gather`` do not apply there (its draw,
+    #3, gathers nothing, and its look-ahead emits no factor).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-device) is not ported yet: ROADMAP Queue A item 8b")
     if rank1 and (reuse_factor or dedup_gather):
         raise ValueError("rank1=True carries augmented factors, not packed statistics: "
                          "reuse_factor and dedup_gather select kernels it never launches")
-    device = resolve_device(device)
+    if mesh is not None:
+        if rank1:
+            raise ValueError("rank1=True is a single-device sweep: the sharded cSMC "
+                             "(mesh=) runs the direct step")
+        from bipk_tpu_torch.parallel.sharded_csmc import build_sharded_csmc
+
+        return build_sharded_csmc(ssm, gps, n_particles, mesh, dtype=dtype, device=device,
+                                  reference=reference)
+    device = resolve_device("cuda" if device is None else device)
     kern = APFKernel(ssm, gps, dtype, device, reference=reference,
                      reuse_factor=reuse_factor, dedup_gather=dedup_gather)
     if rank1:

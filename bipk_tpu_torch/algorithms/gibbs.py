@@ -1,5 +1,5 @@
 """Algorithm 2: the PGAS Gibbs loop with marginalized GP parameters (port
-of ``bipk_tpu/algorithms/gibbs.py``, one device).
+of ``bipk_tpu/algorithms/gibbs.py``).
 
 Each Gibbs iteration runs the cSMC sweep (Algorithm 3) conditioned on the
 previous draw, its interface variables and its summed statistics, and
@@ -12,8 +12,11 @@ chains from the same host loop, one sweep per chain in each iteration
 ``checkpoint_path`` the host loop saves the chain state (iteration, the
 generators' states, the draws so far) every ``checkpoint_every`` sweeps
 and resumes from an existing file, bit for bit the uninterrupted run (the
-JAX ``run_host``, ``fused=False``). The sharded sweeps and the chain mesh
-are not ported (ROADMAP Queue A item 8b).
+JAX ``run_host``, ``fused=False``). ``shard_mesh=`` (and ``mesh=``) runs
+each sweep as the particle-sharded cSMC on the ranks of a particle mesh
+(:mod:`~bipk_tpu_torch.parallel.sharded_csmc`): every rank runs the same
+host loop and draws the same references, and only rank 0 writes the
+checkpoint. The chain mesh is not ported (ROADMAP Queue A item 2).
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from bipk_tpu_torch._device import resolve_device
 from bipk_tpu_torch.algorithms.apf import as_tensor
 from bipk_tpu_torch.algorithms.csmc import build_csmc
 from bipk_tpu_torch.models.ssm import GPNode, SSM
@@ -70,7 +72,10 @@ class Gibbs:
     the generator's state and every reference so far (the current one
     last); an existing file resumes the chain: the generator takes the
     saved state, so the resumed run is bit for bit the uninterrupted one.
-    The refusals are the JAX ``run_host``'s (``gibbs.py:384-432``)."""
+    The refusals are the JAX ``run_host``'s (``gibbs.py:384-432``). On a
+    particle mesh of W ranks only rank 0 writes the file and every rank
+    reads it: the shared generator's state is all a rank needs, since the
+    rank generators are drawn from it at each sweep's start."""
 
     def __init__(self, csmc, n_iterations: int):
         self.csmc = csmc
@@ -143,8 +148,11 @@ class Gibbs:
         checkpoint_path: str | None = None, checkpoint_every: int = 50,
     ) -> GibbsResult:
         obs, inputs = self.data(observations, inputs)
+        mesh = self.csmc.mesh
         saver = (None if checkpoint_path is None
                  else checkpoint.PeriodicCheckpointer(checkpoint_path, checkpoint_every))
+        if mesh is not None and mesh.rank != 0:
+            saver = None
         restored = self.restore(checkpoint_path, obs.shape[0])
         if restored is None:
             start, refs = 1, [self.initial_ref(init_ref_state, init_ref_int_vars, inputs)]
@@ -297,11 +305,11 @@ def build_gibbs(
     shard_mesh=None,
     n_chains: int | None = None,
     chain_mesh=None,
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
     reuse_factor: bool = False,
     dedup_gather: bool = False,
 ) -> Gibbs | ParallelGibbs:
-    """Build the marginalized-PGAS Gibbs sampler on one device.
+    """Build the marginalized-PGAS Gibbs sampler.
 
     ``n_iterations`` counts the initial reference, as in the JAX package:
     the sampler runs ``n_iterations - 1`` sweeps. ``fused`` is accepted
@@ -309,8 +317,15 @@ def build_gibbs(
     defaults to CUDA and raises if no card is present. ``reuse_factor``
     and ``dedup_gather`` go to the cSMC sweep (:func:`~bipk_tpu_torch.
     algorithms.csmc.build_csmc`). ``n_chains=C`` (C >= 2) runs C
-    independent chains (:class:`ParallelGibbs`). ``mesh``, ``shard_mesh``
-    and ``chain_mesh`` are not ported (ROADMAP Queue A item 8b); the
+    independent chains (:class:`ParallelGibbs`).
+
+    ``shard_mesh`` (a :class:`~bipk_tpu_torch.parallel.mesh.ParticleMesh`)
+    runs each sweep as the particle-sharded cSMC over its ranks, as JAX
+    ``gibbs.py:128-137`` does; ``mesh`` builds the same sweep
+    (``build_csmc(mesh=)``: the JAX package's GSPMD, which PyTorch does not
+    have, samples the same posterior). On a mesh ``device``, if given,
+    must be the mesh's, and ``reuse_factor`` and ``dedup_gather`` do not
+    apply. ``chain_mesh`` is not ported (ROADMAP Queue A item 2); the
     combinations the JAX package refuses raise ``ValueError`` first.
     """
     if chain_mesh is not None and n_chains is None:
@@ -321,14 +336,15 @@ def build_gibbs(
                              "chain_mesh=; per-chain execution stays single-device")
         if n_chains < 2:
             raise ValueError(f"n_chains must be >= 2, got {n_chains}")
-    if any(a is not None for a in (mesh, shard_mesh, chain_mesh)):
+    if chain_mesh is not None:
         raise NotImplementedError(
-            "mesh=, shard_mesh= and chain_mesh= (multi-device) are not ported yet: "
-            "ROADMAP Queue A item 8b"
-        )
+            "chain_mesh= (one group of chains per device) is not ported yet: "
+            "ROADMAP Queue A item 2")
+    if mesh is not None and shard_mesh is not None:
+        raise ValueError("pass either mesh= (GSPMD) or shard_mesh=, not both")
     del fused
-    device = resolve_device(device)
     csmc = build_csmc(ssm, gps, n_particles, dtype=dtype, device=device,
+                      mesh=shard_mesh if shard_mesh is not None else mesh,
                       reuse_factor=reuse_factor, dedup_gather=dedup_gather)
     gibbs = Gibbs(csmc, n_iterations)
     return gibbs if n_chains is None else ParallelGibbs(gibbs, n_chains)

@@ -77,7 +77,7 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _backward_indices(ancestry: torch.Tensor, final_index) -> torch.Tensor:
+def backward_indices(ancestry: torch.Tensor, final_index) -> torch.Tensor:
     """``(T,)`` particle indices of one ancestral line: ``idx[T-1] =
     final_index``, ``idx[t] = ancestry[t, idx[t+1]]``."""
     idx = torch.as_tensor(final_index, device=ancestry.device).reshape(1).long()
@@ -95,7 +95,7 @@ def reconstruct_trajectory(particles, ancestry: torch.Tensor, final_index):
     ``ancestry (T-1, N)`` holds the time-``t`` ancestor of each time-``t+1``
     particle. Returns the same structure of ``(T, ...)`` trajectories and
     the ``(T,)`` indices."""
-    indices = _backward_indices(ancestry, final_index)
+    indices = backward_indices(ancestry, final_index)
     steps = torch.arange(indices.shape[0], device=indices.device)
     return _tree_map(lambda tr: tr[steps, indices], particles), indices
 
@@ -103,7 +103,7 @@ def reconstruct_trajectory(particles, ancestry: torch.Tensor, final_index):
 def reconstruct_trajectory_bl(particles, ancestry: torch.Tensor, final_index):
     """:func:`reconstruct_trajectory` of batch-last ``(T, ..., N)``
     traces."""
-    indices = _backward_indices(ancestry, final_index)
+    indices = backward_indices(ancestry, final_index)
     steps = torch.arange(indices.shape[0], device=indices.device)
     return (
         _tree_map(lambda tr: tr.movedim(-1, 1)[steps, indices], particles),

@@ -22,7 +22,7 @@ its collectives are identities and make no call into ``torch.distributed``.
 ``particle_sharding`` and ``replicated`` (``NamedSharding`` objects) have no
 counterpart: a rank holds its slice of the particle axis as plain tensors.
 ``chain_mesh`` and ``chain_sharding`` (one group of Gibbs chains per device)
-are not ported yet and raise (ROADMAP Queue A item 8b).
+are not ported yet and raise (ROADMAP Queue A item 2).
 """
 
 from __future__ import annotations
@@ -98,6 +98,18 @@ class ParticleMesh:
             req.wait()
         return out
 
+    def rank_generator(self, generator: torch.Generator) -> torch.Generator:
+        """This rank's generator, the counterpart of JAX's ``fold_in(key,
+        shard)``: ``generator`` itself on one rank; on W ranks a new
+        generator on its device, seeded by this rank's entry of W seeds
+        drawn from ``generator`` (seeded alike on every rank)."""
+        if self.size == 1:
+            return generator
+        seeds = torch.randint(1 << 62, (self.size,), generator=generator,
+                              device=generator.device)
+        g = torch.Generator(device=generator.device)
+        return g.manual_seed(int(seeds[self.rank]))
+
 
 def _local_cuda() -> torch.device:
     """``cuda:LOCAL_RANK`` (torchrun's variable), else the current card."""
@@ -146,12 +158,25 @@ def particle_mesh(n_devices: int | None = None, group: dist.ProcessGroup | None 
     return ParticleMesh(group, rank, size, resolve_device(device))
 
 
+def mesh_on(mesh: ParticleMesh | None, device: str | torch.device | None) -> ParticleMesh:
+    """The mesh a sharded sweep runs on: ``mesh``, or without one a
+    one-rank mesh on ``device`` (default CUDA, which raises without a
+    card). A ``device`` given beside a mesh must be the mesh's."""
+    if mesh is None:  # one rank, whatever process group there is
+        return ParticleMesh(None, 0, 1, resolve_device("cuda" if device is None else device))
+    if device is not None:
+        d = resolve_device(device)
+        if d.type != mesh.device.type or d.index not in (None, mesh.device.index):
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh
+
+
 def chain_mesh(*args, **kwargs):
     """One group of Gibbs chains per device: not ported yet."""
     raise NotImplementedError("chain_mesh (one group of chains per device) is not ported "
-                              "yet: ROADMAP Queue A item 8b")
+                              "yet: ROADMAP Queue A item 2")
 
 
 def chain_sharding(*args, **kwargs):
     """Leading-axis (chain) placement on a chain mesh: not ported yet."""
-    raise NotImplementedError("chain_sharding is not ported yet: ROADMAP Queue A item 8b")
+    raise NotImplementedError("chain_sharding is not ported yet: ROADMAP Queue A item 2")

@@ -42,13 +42,33 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from bipk_tpu_torch._device import resolve_device
 from bipk_tpu_torch.algorithms.apf import APF, APFKernel, StepDraws, as_tensor
 from bipk_tpu_torch.models.ssm import GPNode, SSM
 from bipk_tpu_torch.ops import mniw
 from bipk_tpu_torch.parallel import global_resampling
-from bipk_tpu_torch.parallel.mesh import ParticleMesh
+from bipk_tpu_torch.parallel.mesh import ParticleMesh, mesh_on
 from bipk_tpu_torch.utils.matio import map_leaves, to_host
+
+
+def rank_width(n_particles: int, mesh: ParticleMesh) -> int:
+    """The particles per rank, ``n_particles / W``; raises unless W
+    divides ``n_particles``."""
+    if n_particles % mesh.size:
+        raise ValueError(f"n_particles={n_particles} not divisible by mesh size {mesh.size}")
+    return n_particles // mesh.size
+
+
+def rank_chunk(chunk_size: int | None, n_loc: int) -> int | None:
+    """A sweep's chunk of the rank's ``n_loc`` particles: None (unchunked)
+    for None or a chunk of ``n_loc`` or more; raises unless the chunk
+    divides ``n_loc``."""
+    if chunk_size is None or chunk_size >= n_loc:
+        return None
+    if chunk_size <= 0 or n_loc % chunk_size:
+        raise ValueError(
+            f"per-shard particle count {n_loc} not divisible by chunk_size {chunk_size}"
+        )
+    return chunk_size
 
 
 # No automatic chunking on the 80 GB card. The JAX package chunks by
@@ -81,8 +101,8 @@ class ShardedAPF:
     draws everything, in the order of the single-device sweep. On W ranks
     each rank draws its particles' randomness (the initial particles, the
     process noise, the matrix-t uniforms) from its own generator
-    (:meth:`rank_generator`), the counterpart of JAX's ``fold_in(key,
-    shard)``; the resampling uniform ``u_res`` comes from ``generator``
+    (:meth:`~bipk_tpu_torch.parallel.mesh.ParticleMesh.rank_generator`),
+    the counterpart of JAX's ``fold_in(key, shard)``; the resampling uniform ``u_res`` comes from ``generator``
     in the exact scheme (so it is the same on every rank) and from the
     rank's generator in the local one (JAX's ``fold_in(key_res, shard)``).
 
@@ -106,17 +126,6 @@ class ShardedAPF:
         # the single-device sweep: one rank, local scheme
         self.single = mesh.size == 1 and not self.exact
         self._filter = APF(kern, self.n_loc, forgetting_factor)
-
-    def rank_generator(self, generator: torch.Generator) -> torch.Generator:
-        """This rank's generator: ``generator`` itself on one rank; on W
-        ranks a new generator on its device, seeded by this rank's entry
-        of W seeds drawn from ``generator``."""
-        if self.mesh.size == 1:
-            return generator
-        seeds = torch.randint(1 << 62, (self.mesh.size,), generator=generator,
-                              device=generator.device)
-        g = torch.Generator(device=generator.device)
-        return g.manual_seed(int(seeds[self.mesh.rank]))
 
     def draws(self, generator: torch.Generator,
               rank_generator: torch.Generator | None = None) -> StepDraws:
@@ -295,7 +304,7 @@ class ShardedAPF:
         obs = as_tensor(observations, k.dtype, k.device)
         obs = obs.reshape(obs.shape[0], -1)
         inputs = as_tensor(inputs, k.dtype, k.device)
-        rank_gen = self.rank_generator(generator)
+        rank_gen = self.mesh.rank_generator(generator)
         carry = self.init(rank_gen, inputs[0], init_state_mean, init_state_cov)
         moments = [self.moments(self.softmax(carry[0]), *carry[1:])]
         # the chunked step's two carries, allocated once per sweep
@@ -388,27 +397,14 @@ def build_sharded_apf(
         raise ValueError(
             f"resampling_scheme must be 'local' or 'exact', got {resampling_scheme!r}"
         )
-    if mesh is None:  # one rank, whatever process group there is
-        mesh = ParticleMesh(None, 0, 1, resolve_device("cuda" if device is None else device))
-    elif device is not None:
-        d = resolve_device(device)
-        if d.type != mesh.device.type or d.index not in (None, mesh.device.index):
-            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
-    if n_particles % mesh.size:
-        raise ValueError(f"n_particles={n_particles} not divisible by mesh size {mesh.size}")
-    n_loc = n_particles // mesh.size
-    if chunk_size is not None and chunk_size >= n_loc:
-        chunk_size = None
-    if chunk_size is not None:
-        if resampling_scheme != "local":
-            raise ValueError(
-                "chunked execution supports the local resampling scheme only (at multi-chip "
-                "scale the per-shard slice is small enough not to need chunking)"
-            )
-        if chunk_size <= 0 or n_loc % chunk_size:
-            raise ValueError(
-                f"per-shard particle count {n_loc} not divisible by chunk_size {chunk_size}"
-            )
+    mesh = mesh_on(mesh, device)
+    n_loc = rank_width(n_particles, mesh)
+    if chunk_size is not None and chunk_size < n_loc and resampling_scheme != "local":
+        raise ValueError(
+            "chunked execution supports the local resampling scheme only (at multi-chip "
+            "scale the per-shard slice is small enough not to need chunking)"
+        )
+    chunk_size = rank_chunk(chunk_size, n_loc)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if chunk_size is not None or resampling_scheme == "exact":

@@ -30,7 +30,7 @@ def add_gibbs_flags(p: argparse.ArgumentParser) -> None:
 def check_gibbs_flags(args: argparse.Namespace) -> None:
     if args.mesh:
         raise NotImplementedError(
-            "--mesh (multi-device) is not ported yet: ROADMAP Queue A item 8b")
+            "--mesh (multi-device) is not ported yet: ROADMAP Queue A item 2")
 
 
 def simulation_generator(g: torch.Generator) -> torch.Generator:

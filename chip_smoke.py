@@ -126,7 +126,7 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     the same draws in f32 over 100 steps, to the first step where their
     ancestors differ (both halved for phase 27's time);
 20. rank-1 Gibbs: the Gibbs host loop on the rank-1 cSMC at 10240 x 1499
-    (a warm-up and one timed sweep) with exact launches per sweep (4 x 1499 of
+    (one sweep) with exact launches per sweep (4 x 1499 of
     the projection, 1499 resamplings, nothing else), no non-finite
     ancestor weight and phase 6's trajectory gate; 50 rank-1 cSMC steps
     under the sync check and profiled beside phase 17's 50 direct ones;
@@ -202,11 +202,24 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     pairs of an f32 ``torch.cumsum`` of the weights counted); the local
     scheme through the mesh bit for bit the sweep without it (20 steps);
     then the oscillator's exact sweep at 32768 x 749 (row 6 fp and du)
-    and row 6 du against its plain version.
+    and row 6 du against its plain version;
+28. csmc-mesh: the particle-sharded cSMC (``build_gibbs(shard_mesh=)``,
+    ``build_csmc(mesh=)``) on a one-rank NCCL group as in phase 27. The
+    vehicle at 10240 x 1499: one Gibbs sweep from phase 6's reference with
+    exact launches per step (#1, #5 and #3 x 2, no #2 or #4), its seconds
+    beside phase 6's, its ESS and phase 6's trajectory gate; 20 profiled
+    steps; the sharded step against the single-device one in turns; the
+    sharded sweep against its plain version over 10 paired seeds of 15
+    steps; the sharded step against the single-device step from one carry
+    on the same draws over 50 steps (the slots at rounding ties between
+    the slice and #2 counted and at most 1%, the steps whose reference
+    ancestor differs counted, the other particles bit for bit, the pinned
+    column within 1e-4); then one sharded sweep of the oscillator at 200
+    x 749 (row 6 fp, lbm and du once per step).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the
-twenty-six main paths, error against the plain version, times and bound; for
+twenty-eight main paths, error against the plain version, times and bound; for
 the warp kernels (rows 1, 3-7, the factor pair, rows 1e and 8, the dedup
 gather, row 9, and the unpacked rows 10-13) also the per-thread kernels'
 times from the same turns, and both at the Gibbs paths' widths, 10240
@@ -238,7 +251,7 @@ import numpy as np
 import torch
 
 from bipk_tpu_torch.algorithms.apf import APFKernel, build_apf
-from bipk_tpu_torch.algorithms.csmc import build_csmc, ref_contributions
+from bipk_tpu_torch.algorithms.csmc import _at, build_csmc, ref_contributions
 from bipk_tpu_torch.algorithms.gibbs import (Gibbs, build_gibbs, chain_generators, select_chain,
                                              summed_reference_stats)
 from bipk_tpu_torch.algorithms.pgas import build_pgas, build_pgas_csmc
@@ -631,10 +644,12 @@ def counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles, n_iterati
     marks = [time.perf_counter()]
     res = gibbs(g, Y, U, model.x0, model.p0, ref_state, ref_iv, callback=on_sweep)
     torch.cuda.synchronize()
-    timed = seconds[1:]
+    timed = seconds[1:] or seconds  # one sweep: itself, no warm-up
+    warm_up = (f"after a warm-up sweep of {seconds[0]:.3f} s" if len(seconds) > 1
+               else "without a warm-up sweep")
     print(f"  {n_particles} particles x {Y.shape[0] - 1} steps: seconds per sweep best "
           f"{min(timed):.3f} median {statistics.median(timed):.3f} over {len(timed)} sweeps "
-          f"after a warm-up sweep of {seconds[0]:.3f} s, on {smi}", flush=True)
+          f"{warm_up}, on {smi}", flush=True)
     finite = all(bool(torch.isfinite(t).all()) for t in (
         res.states, *res.int_vars, res.outputs, res.log_likelihood,
         *(leaf for st in res.stats for leaf in st)))
@@ -643,15 +658,21 @@ def counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles, n_iterati
 
 
 def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, smi,
-               rank1=False, **options):
+               rank1=False, reference=None, **options):
     """The vehicle Gibbs main path as a user runs it: a ``n_apf``-particle
     APF sweep, a reference draw from it, then ``build_gibbs`` (``options``
     its keywords; with ``rank1`` the rank-1 cSMC in the Gibbs host loop)
-    with ``n_iterations - 1`` cSMC sweeps. Checks the launch counts of
-    every sweep, times the sweeps, and holds the last drawn trajectory
-    against the simulated one. Returns the kernels' launches over the
-    Gibbs run."""
-    g, ref_state, ref_iv = seed_reference(dev, model, Y, U, n_apf, seed=5)
+    with ``n_iterations - 1`` cSMC sweeps; ``reference``, a generator and
+    a reference ``(state, int_vars)`` from an earlier call, stands in for
+    the APF sweep. Checks the launch counts of every sweep (with
+    ``shard_mesh``: the sharded cSMC's, #1, #5 and #3 per GP and step),
+    times the sweeps, and holds the last drawn trajectory against the
+    simulated one. Returns the kernels' launches over the Gibbs run, the
+    reference and the seconds of each sweep."""
+    if reference is None:
+        g, ref_state, ref_iv = seed_reference(dev, model, Y, U, n_apf, seed=5)
+    else:
+        g, (ref_state, ref_iv) = reference
     steps = Y.shape[0] - 1
     reuse = options.get("reuse_factor", False)
     expected = {
@@ -662,8 +683,10 @@ def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, 
     }
     if rank1:  # two projections per GP and step (look-ahead mean, draw)
         expected = {"project_blocks<24w>": 4 * steps, "systematic_ancestors_blocks": steps}
-    res, totals, _ = counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles,
-                                   n_iterations, expected, smi, rank1=rank1, **options)
+    if options.get("shard_mesh") is not None:  # the slice and the ring: no #2, no #4
+        expected = {WARP24_KEYS[k]: 2 * steps for k in ("fp", "lbm", "du")}
+    res, totals, seconds = counted_gibbs(dev, g, model, Y, U, ref_state, ref_iv, n_particles,
+                                         n_iterations, expected, smi, rank1=rank1, **options)
     draw, mu_draw = res.states[:, -1], res.int_vars[0][:, -1, 0]
     rmse = ((draw - X) ** 2).mean(0).sqrt()
     rms = (X ** 2).mean(0).sqrt()
@@ -680,7 +703,7 @@ def gibbs_path(dev, model, X, Y, U, mu_front, n_particles, n_apf, n_iterations, 
     # data, whose RMSE is of the order of the RMS itself.
     require(bool((rmse <= 0.5 * rms).all()) and rmse_mu.item() <= 0.5 * rms_mu.item(),
             f"Gibbs draw RMSE {rmse.tolist()} / {rmse_mu.item()} above half the RMS")
-    return totals
+    return totals, (ref_state, ref_iv), seconds
 
 
 def profile_csmc_steps(dev, model, Y, U, ref_state, ref_ivs, n_particles, steps,
@@ -1913,8 +1936,8 @@ def reuse_csmc_phase(dev, model, X, Y, U, MU_F, ref_ivs, o_model, o_Y, o_U, smi)
     csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS, steps=50, seeds=10,
                        label="reuse cSMC", reuse_factor=True)
     cut = REUSE_GIBBS_STEPS + 1
-    counts = gibbs_path(dev, model, X[:cut], Y[:cut], U[:cut], MU_F[:cut], N_GIBBS, n_apf=256,
-                        n_iterations=3, smi=smi, reuse_factor=True)
+    counts, _, _ = gibbs_path(dev, model, X[:cut], Y[:cut], U[:cut], MU_F[:cut], N_GIBBS,
+                              n_apf=256, n_iterations=3, smi=smi, reuse_factor=True)
     prof = {name: profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS,
                                      steps=REUSE_PROFILE_STEPS, **opts)
             for name, opts in (("default", {}), ("reuse", dict(reuse_factor=True)))}
@@ -1947,6 +1970,7 @@ UNPACKED_FILTER_STEPS = 100  # vehicle filtering steps before phase 18's statist
 RANK1_DIVERGENCE_STEPS = 100  # phase 19: rank-1 against direct, same draws, f32
 RANK1_PAIRED_STEPS = 25  # phase 19: the rank-1 cSMC path-vs-plain
 RANK1_PROFILE_STEPS = 50  # phase 20: profiled rank-1 cSMC steps
+RANK1_GIBBS_ITERATIONS = 2  # phase 20: one sweep, cut from two for phase 28's time
 
 
 def bitwise(a, b):
@@ -2611,8 +2635,8 @@ def rank1_against_direct(dev, model, Y, U, X, ref_ivs, n_particles, steps):
 
 def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
     """Phase 20: the rank-1 Gibbs main path at full width, the vehicle
-    (two GPs, m = 20), 10240 x 1499, seeded as phase 6; a warm-up sweep
-    and one more (cut from two for the run's time). Launches per
+    (two GPs, m = 20), 10240 x 1499, seeded as phase 6; one sweep (cut
+    from three, then two, for the run's time). Launches per
     sweep exactly 4 x 1499 of #12 and 1499 of
     #2 and nothing else; every weight an ancestor (or the trajectory) is
     drawn from finite (the hyperbolic downdate's sqrt in f32 for 1499
@@ -2631,8 +2655,8 @@ def rank1_gibbs_phase(dev, model, X, Y, U, MU_F, ref_ivs, direct_prof, smi):
 
     resampling.categorical_from_weights = counting
     try:
-        counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=3,
-                            smi=smi, rank1=True)
+        counts, _, _ = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256,
+                                  n_iterations=RANK1_GIBBS_ITERATIONS, smi=smi, rank1=True)
     finally:
         resampling.categorical_from_weights = real
     bad = int(nonfinite)
@@ -3807,6 +3831,241 @@ def apf_mesh_phase(dev, model, X, Y, U, osc, single_ess, smi):
     return {"apf_exact": counts, "osc_apf_exact": osc_counts}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 28: the particle-sharded cSMC (build_gibbs(shard_mesh=),
+# build_csmc(mesh=)) on one rank of an NCCL process group, as phase 27.
+# ---------------------------------------------------------------------------
+
+CSMC_MESH_PAIRED_STEPS = 15  # the sharded sweep against its plain version
+CSMC_MESH_PAIRED_SEEDS = 10
+CSMC_MESH_PROFILE_STEPS = 20
+CSMC_MESH_SAME_STEPS = 50  # the sharded step against the single-device one
+CSMC_MESH_PIN_TOL = 1e-4  # the pinned column, phase 2's S_new tolerance
+
+
+def csmc_step_args(csmc, Y, U, ref_state, ref_ivs, steps):
+    """A cSMC sweep's data over ``steps`` steps of the vehicle, conditioned
+    on ``(ref_state, ref_ivs)`` (their summed statistics over those
+    steps): ``(data, step_args)``, ``data`` as ``csmc.prepare`` returns it
+    and ``step_args(t)`` the arguments of step ``t`` but the carry and the
+    draws."""
+    T = steps + 1
+    ref = (ref_state[:T], tuple(iv[:T] for iv in ref_ivs))
+    summed = summed_reference_stats(csmc.kern.gps, *ref, U[:T], torch.float32)
+    data = csmc.prepare(Y[:T], U[:T], *ref, summed)
+    obs, inputs, r_state, r_ivs, _, ref_T = data
+
+    def step_args(t):
+        return (obs[t + 1], inputs[t], inputs[t + 1], r_state[t + 1],
+                tuple(r[t + 1] for r in r_ivs), _at(ref_T, t + 1))
+
+    return data, step_args
+
+
+def sharded_against_single(dev, mesh, model, Y, U, X, ref_ivs):
+    """From one pinned carry, each of ``CSMC_MESH_SAME_STEPS`` steps of
+    the sharded cSMC on ``mesh`` is taken again by the single-device step
+    on the same draws. The slice's ancestors (an f64 CDF) and #2's (f32) on
+    the same first-stage weights may differ only at rounding ties: at most
+    ``MESH_TIE_SHARE`` of the slots. The reference's ancestors (two
+    softmaxes and two f64 categorical draws) are counted where they
+    differ. Every other particle must be bit for bit (#3 on the moved
+    statistics and #4 on the same columns are one warp mode); the pinned
+    column within ``CSMC_MESH_PIN_TOL`` of its largest entry where the
+    reference's ancestors agree. The sweep goes on from the sharded
+    step's carry."""
+    sharded = build_csmc(model.ssm, model.gps, N_GIBBS, dtype=torch.float32, mesh=mesh)
+    single = build_csmc(model.ssm, model.gps, N_GIBBS, dtype=torch.float32, device=dev)
+    (_, inputs, r_state, r_ivs, summed, ref_T), step_args = csmc_step_args(
+        single, Y, U, X, ref_ivs, CSMC_MESH_SAME_STEPS)
+    g = torch.Generator(device=dev).manual_seed(11)
+    carry = single.init(g, inputs[0], model.x0, model.p0, r_state[0],
+                        tuple(r[0] for r in r_ivs), _at(ref_T, 0), summed)
+    ties, ref_differs, worst_pin = [], 0, 0.0
+    for t in range(CSMC_MESH_SAME_STEPS):
+        draws = single.draws(g)  # a one-rank mesh's draws have the same layout
+        new_s, (anc_s, _) = sharded.step(carry, *step_args(t), draws)
+        new_1, (anc_1, _) = single.step(carry, *step_args(t), draws)
+        same = anc_s == anc_1.to(anc_s.dtype)
+        same_ref = bool(same[-1])
+        ref_differs += not same_ref
+        same[-1] = False  # the pinned slot: held below
+        n_tie = N_GIBBS - 1 - int(same.sum())
+        ties.append(n_tie)
+        require(n_tie <= MESH_TIE_SHARE * N_GIBBS, f"sharded against single-device cSMC, "
+                f"step {t + 1}: {n_tie} of {N_GIBBS} slots take another ancestor")
+        pairs = [(new_s[0], new_1[0]), (new_s[1], new_1[1]), *zip(new_s[2], new_1[2]),
+                 *zip(new_s[3], new_1[3])]
+        differ = [i for i, (a, b) in enumerate(pairs) if not bitwise(a[..., same], b[..., same])]
+        require(not differ, f"sharded against single-device cSMC, step {t + 1}: leaves "
+                f"{differ} differ off the ties")
+        if same_ref:
+            for a, b in zip(new_s[3], new_1[3]):
+                pin = float((a[:, -1] - b[:, -1]).abs().max() / b[:, -1].abs().max())
+                worst_pin = max(worst_pin, pin)
+                require(pin <= CSMC_MESH_PIN_TOL, f"sharded against single-device cSMC, "
+                        f"step {t + 1}: the pinned column differs by {pin:.3e} of its largest "
+                        f"entry")
+        carry = new_s
+    ts = torch.tensor(ties, dtype=torch.float64)
+    print(f"  sharded against single-device cSMC on the same draws, {CSMC_MESH_SAME_STEPS} "
+          f"steps from one carry at {N_GIBBS} particles: slots at rounding ties per step min "
+          f"{int(ts.min())} median {ts.median().item():.0f} max {int(ts.max())} (total "
+          f"{int(ts.sum())}); steps whose reference ancestor differs {ref_differs}; the other "
+          f"particles bit for bit in all {CSMC_MESH_SAME_STEPS} steps; the pinned column within {worst_pin:.3e} of its largest entry (bound "
+          f"{CSMC_MESH_PIN_TOL}) where the reference's ancestors agree", flush=True)
+
+
+def csmc_steps_in_turns(dev, mesh, model, Y, U, X, ref_ivs, smi):
+    """The sharded cSMC step on ``mesh`` against the single-device one,
+    ``MESH_TURNS`` turns of ``MESH_TURN_STEPS`` steps each from one carry
+    after 10 steps, on the host's clock: ms per step."""
+    sweeps = {"sharded": build_csmc(model.ssm, model.gps, N_GIBBS, dtype=torch.float32,
+                                    mesh=mesh),
+              "single-device": build_csmc(model.ssm, model.gps, N_GIBBS, dtype=torch.float32,
+                                          device=dev)}
+    single = sweeps["single-device"]
+    (_, inputs, r_state, r_ivs, summed, ref_T), step_args = csmc_step_args(
+        single, Y, U, X, ref_ivs, 10 + MESH_TURN_STEPS)
+    g = torch.Generator(device=dev).manual_seed(12)
+    carry = single.init(g, inputs[0], model.x0, model.p0, r_state[0],
+                        tuple(r[0] for r in r_ivs), _at(ref_T, 0), summed)
+    for t in range(10):
+        carry, _ = single.step(carry, *step_args(t), single.draws(g))
+    ms = {name: [] for name in sweeps}
+    for _ in range(MESH_TURNS):
+        for name, csmc in sweeps.items():
+            gt = torch.Generator(device=dev).manual_seed(13)
+            c = carry
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(10, 10 + MESH_TURN_STEPS):
+                c, _ = csmc.step(c, *step_args(t), csmc.draws(gt))
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / MESH_TURN_STEPS * 1e3)
+    print(f"  cSMC ms per step in turns from one carry at {N_GIBBS} particles ({MESH_TURNS} x "
+          f"{MESH_TURN_STEPS} steps each, on {smi}): " + "; ".join(
+              f"{k} " + ", ".join(f"{v:.3f}" for v in vs) for k, vs in ms.items()), flush=True)
+
+
+def osc_sharded_sweep(dev, mesh, osc_data, smi):
+    """One sharded cSMC sweep of the oscillator (m = 41) at
+    ``N_CS_GIBBS`` x 749 on ``mesh``, conditioned on the simulated
+    trajectory and force: one launch each of row 6 fp, lbm and du per
+    step and nothing else; a finite trajectory, the ESS in [1, N].
+    Returns the launches."""
+    model, X, Y, U, ivs = osc_data
+    csmc = build_csmc(model.ssm, model.gps, N_CS_GIBBS, dtype=torch.float32, mesh=mesh)
+    summed = summed_reference_stats(model.gps, X, ivs, U, torch.float32)
+    steps = Y.shape[0] - 1
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    ts = time.perf_counter()
+    res = csmc(torch.Generator(device=dev).manual_seed(14), Y, U, model.x0, model.p0, X, ivs,
+               summed)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - ts
+    counts = ck.launch_counts()
+    print(f"  launches { {k: c for k, c in counts.items() if c} }", flush=True)
+    expect_counts("oscillator sharded cSMC", counts,
+                  {WARP_KEYS[k]: steps for k in ("fp", "lbm", "du")})
+    finite = all(bool(torch.isfinite(t).all()) for t in (res.state_traj, *res.int_var_traj,
+                                                         res.ess))
+    require(finite, "oscillator sharded cSMC: non-finite result")
+    require(bool((res.ess >= 1.0 - 1e-5).all()) and bool((res.ess <= N_CS_GIBBS * (1 + 1e-5)).all()),
+            f"oscillator sharded cSMC: ESS outside [1, N]")
+    print(f"  oscillator sharded cSMC: {N_CS_GIBBS} particles x {steps} steps in {elapsed:.3f} s, "
+          f"{elapsed / steps * 1e3:.4f} ms per step on {smi}; ESS median "
+          f"{res.ess.median().item():.2f}; launches per step: row 6 fp, lbm and du 1 each",
+          flush=True)
+    return counts
+
+
+def csmc_mesh_phase(dev, model, X, Y, U, MU_F, ref_ivs, gibbs_ref, gibbs_seconds, osc_data,
+                    smi):
+    """Phase 28: the particle-sharded cSMC on one rank of an NCCL process
+    group (``init_distributed`` through a file store, world size 1,
+    ``global_particle_mesh``), destroyed at the end. The vehicle at
+    ``bench_gibbs.py``'s 10240 x 1499: (a) ``build_gibbs(shard_mesh=)``,
+    one sweep from phase 6's reference (``gibbs_ref``) with exact
+    launches (#1, #5 and #3 x 2 per step, no #2 or #4), its seconds beside
+    phase 6's (``gibbs_seconds``), the sweep's ESS median and phase 6's
+    trajectory gate; (b) ``CSMC_MESH_PROFILE_STEPS`` profiled steps
+    (device busy, idle share, launches); (c) the sharded step against the
+    single-device one in turns; (d) the sharded sweep against its plain
+    version over paired seeds (phase 5's gate); (e) the sharded step
+    against the single-device step on the same draws
+    (:func:`sharded_against_single`). Then one sharded sweep of the
+    oscillator (:func:`osc_sharded_sweep`). A failed NCCL init fails the
+    phase: nothing falls back to gloo or to the CPU. Returns the launches
+    of the two sharded paths."""
+    import torch.distributed as dist
+
+    from bipk_tpu_torch.parallel.distributed import global_particle_mesh, init_distributed
+    from bipk_tpu_torch.parallel.sharded_csmc import ShardedCSMC
+
+    with tempfile.TemporaryDirectory() as store:
+        init_distributed(init_method=f"file://{store}/store", world_size=1, rank=0,
+                         device=dev)
+        try:
+            want = "nccl" if dev.type == "cuda" else "gloo"
+            require(dist.get_backend() == want, f"process group {dist.get_backend()}, not {want}")
+            mesh = global_particle_mesh()
+            require(mesh.size == 1 and mesh.group is not None and mesh.device.type == dev.type,
+                    f"mesh {mesh}")
+            print(f"  process group: {dist.get_backend()}, world size {mesh.size}, rank "
+                  f"{mesh.rank} on {mesh.device}", flush=True)
+            tp = time.perf_counter()
+
+            # (a): the sweep's ESS kept off its result
+            ess, real = [], ShardedCSMC.result
+
+            def keep_ess(self, tr, u):
+                res = real(self, tr, u)
+                ess.append(res.ess)
+                return res
+
+            ShardedCSMC.result = keep_ess
+            try:
+                counts, _, seconds = gibbs_path(
+                    dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256, n_iterations=2, smi=smi,
+                    reference=(torch.Generator(device=dev).manual_seed(5), gibbs_ref),
+                    shard_mesh=mesh)
+            finally:
+                ShardedCSMC.result = real
+            (e,) = ess
+            require(bool((e >= 1.0 - 1e-5).all()) and bool((e <= N_GIBBS * (1 + 1e-5)).all()),
+                    f"sharded Gibbs: ESS outside [1, N]: {e.min().item()} {e.max().item()}")
+            print(f"  sharded Gibbs sweep {seconds[0]:.3f} s against phase 6's "
+                  f"{', '.join(f'{v:.3f}' for v in gibbs_seconds)} s on one device; its ESS "
+                  f"min {e.min().item():.2f} median {e.median().item():.2f} max "
+                  f"{e.max().item():.2f}; launches per step: look-ahead 2, log-determinants 2, "
+                  f"draw/update 2, resampler 0, gathering draw 0", flush=True)
+            tp = part_done("a, Gibbs sweep", tp)
+            # (b)
+            print("  profile, sharded cSMC:", flush=True)
+            profile_csmc_steps(dev, model, Y, U, X, ref_ivs, N_GIBBS,
+                               steps=CSMC_MESH_PROFILE_STEPS, mesh=mesh)
+            tp = part_done("b", tp)
+            # (c)
+            csmc_steps_in_turns(dev, mesh, model, Y, U, X, ref_ivs, smi)
+            tp = part_done("c", tp)
+            # (d)
+            csmc_path_vs_plain(dev, model, Y, U, X, ref_ivs, N_GIBBS,
+                               steps=CSMC_MESH_PAIRED_STEPS, seeds=CSMC_MESH_PAIRED_SEEDS,
+                               label="sharded cSMC", mesh=mesh)
+            tp = part_done("d", tp)
+            # (e)
+            sharded_against_single(dev, mesh, model, Y, U, X, ref_ivs)
+            tp = part_done("e", tp)
+            osc_counts = osc_sharded_sweep(dev, mesh, osc_data, smi)
+            part_done("oscillator", tp)
+        finally:
+            dist.destroy_process_group()
+    return {"gibbs_shard": counts, "osc_csmc_shard": osc_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4144,8 +4403,8 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 6
     t0 = time.perf_counter()
-    gibbs_counts = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS, n_apf=256,
-                              n_iterations=5, smi=smi)
+    gibbs_counts, gibbs_ref, gibbs_seconds = gibbs_path(dev, model, X, Y, U, MU_F, N_GIBBS,
+                                                        n_apf=256, n_iterations=5, smi=smi)
     phase_done("gibbs-path", t0)
 
     # ---------------------------------------------------------------- 7
@@ -4292,6 +4551,12 @@ def main() -> int:
     mesh_counts = apf_mesh_phase(dev, model, X, Y, U, cs["osc"], (apf_ess, osc_ess), smi)
     phase_done("apf-mesh", t0)
 
+    # --------------------------------------------------------------- 28
+    t0 = time.perf_counter()
+    csmc_mesh_counts = csmc_mesh_phase(dev, model, X, Y, U, MU_F, ref_ivs, gibbs_ref,
+                                       gibbs_seconds, cs["osc"], smi)
+    phase_done("csmc-mesh", t0)
+
     # one entry per kernel: rows 1, 3, 4 and 5 are the warp kernels at
     # m <= 24 (the per-thread <24> kernels they replace timed beside them),
     # 2 the resampler, rows 6 and 7 the warp kernels at m <= 48 (the TPU's
@@ -4307,13 +4572,14 @@ def main() -> int:
     # log-determinants (kLogdetsUnpacked, unpacked_mniw_kernel<24, kLogdets>
     # beside it, cholesky_ex on its augmented matrices, and at m = 41 the
     # <48w> against <48>, keys ending in _48w). launches: over the
-    # twenty-six main paths' runs, each counted from zero
+    # twenty-eight main paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
              "apf_reuse": reuse_counts, "apf_dedup": dedup_counts,
              "gibbs_reuse": gibbs_reuse_counts, "entry_points": entry_counts,
              "gibbs_rank1": gibbs_rank1_counts, **pgas_counts, **emps_counts,
-             **chains_counts, **script_counts, **apf_1m_counts, **mesh_counts}
+             **chains_counts, **script_counts, **apf_1m_counts, **mesh_counts,
+             **csmc_mesh_counts}
     mniw_src, sys_src = "bipk_tpu_torch/csrc/packed_mniw.cu", "bipk_tpu_torch/csrc/systematic.cu"
     warp_src = "bipk_tpu_torch/csrc/warp_mniw.cu"
     pk = "bipk_tpu/ops/pallas_kernels.py"

@@ -28,11 +28,15 @@ import torch.distributed as dist
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from bipk_tpu_torch import convert  # noqa: E402
+from bipk_tpu_torch.algorithms.csmc import CSMCDraws, _at, build_csmc  # noqa: E402
+from bipk_tpu_torch.algorithms.gibbs import build_gibbs  # noqa: E402
 from bipk_tpu_torch.parallel import global_resampling as gr  # noqa: E402
 from bipk_tpu_torch.parallel.distributed import (global_particle_mesh,  # noqa: E402
                                                  init_distributed)
+from bipk_tpu_torch.parallel.mesh import ParticleMesh  # noqa: E402
 from bipk_tpu_torch.parallel.sharded import (StepDraws, build_sharded_apf,  # noqa: E402
                                              gather_final)
+from bipk_tpu_torch.parallel.sharded_csmc import build_sharded_csmc  # noqa: E402
 
 F64 = torch.float64
 
@@ -153,7 +157,122 @@ def run_ranks(world: int, cases: dict, tmp_dir, timeout: float = 120.0) -> list:
     return [dict(np.load(tmp_dir / f"out.{r}.npz")) for r in range(world)]
 
 
-RUNNERS = {"inject": run_inject, "sweeps": run_sweeps, "resampling": run_resampling}
+def csmc_setup(case, mesh):
+    """The sweep of a cSMC case on ``mesh`` (with ``single``: ``build_csmc``
+    without a mesh, on one rank): ``(sweep, pinned initial carry of this
+    rank's particles, the sweep's data, the injected draws sliced to this
+    rank's columns, the final uniform, gather)``, ``gather`` taking this
+    rank's columns to full width."""
+    model = model_from_case(case)
+    if case.get("single"):
+        csmc = build_csmc(model.ssm, model.gps, case["n"], dtype=F64, device="cpu")
+        core, cols, gather = csmc, slice(None), lambda x: x
+    else:
+        csmc = build_sharded_csmc(model.ssm, model.gps, case["n"], mesh, dtype=F64,
+                                  chunk_size=case.get("chunk_size"))
+        core, gather = csmc.csmc, mesh.all_gather_last
+        cols = slice(mesh.rank * csmc.n_loc, (mesh.rank + 1) * csmc.n_loc)
+    lw, state, ivs, stats = case["particles"]
+    particles = convert.packed_carry_from_arrays(
+        lw[cols], state[:, cols], [iv[:, cols] for iv in ivs],
+        [tuple(a[..., cols] for a in st) for st in stats], F64, "cpu")
+    data = core.prepare(case["Y"], case["U"], *case["ref"])
+    obs, U, ref_state, ref_ivs, ref_summed, ref_T = data
+    carry = csmc.pin_initial(particles, ref_state[0], tuple(r[0] for r in ref_ivs),
+                             _at(ref_T, 0), ref_summed)
+    d = case["draws"]
+    draws = [CSMCDraws(t(d["u_res"][s]).reshape(1), t(d["u_ref"][s]).reshape(1),
+                       None if d["z"] is None else t(d["z"][s][:, cols]),
+                       tuple((t(u[s][:, cols]), t(v[s][:, cols])) for u, v in d["uvs"]))
+             for s in range(obs.shape[0] - 1)]
+    return csmc, carry, data, draws, t(case["u_final"]).reshape(1), gather
+
+
+def run_csmc(case, mesh):
+    """The cSMC sweep with an injected full-width initial population and
+    draws, sliced per rank: its result and traces, gathered to full
+    width."""
+    csmc, carry, (obs, U, ref_state, ref_ivs, _, ref_T), draws, u_final, gather = \
+        csmc_setup(case, mesh)
+    tr = csmc.run(carry, obs, U, ref_state, ref_ivs, ref_T, draws)
+    res = csmc.result(tr, u_final)
+    out = {"state_traj": res.state_traj, "ess": res.ess, "log_weights": gather(res.log_weights),
+           "ancestors": gather(tr.ancestors), "states": gather(tr.states)}
+    out.update({f"int_var_traj{i}": v for i, v in enumerate(res.int_var_traj)})
+    out.update({f"int_vars{i}": gather(v) for i, v in enumerate(tr.int_vars)})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+COLLECTIVES = ("psum", "pmax", "pmin", "all_gather_scalar", "all_gather_last", "rotate")
+
+
+def run_csmc_count(case, mesh):
+    """The calls of each collective of the mesh (``COLLECTIVES``) in each
+    step of a cSMC case's sweep (``step/<name>``, one count per step) and
+    in its result, the backward draw (``result/<name>``)."""
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    real = {name: getattr(ParticleMesh, name) for name in COLLECTIVES}
+
+    def counting(name):
+        def call(self, *args, **kwargs):
+            counts[name] += 1
+            return real[name](self, *args, **kwargs)
+        return call
+
+    csmc, carry, (obs, U, ref_state, ref_ivs, _, ref_T), draws, u_final, _ = \
+        csmc_setup(case, mesh)
+    seen = []
+
+    def counted(draws):  # the sweep takes one step's draws just before the step
+        for d in draws:
+            seen.append(dict(counts))
+            yield d
+
+    for name in COLLECTIVES:
+        setattr(ParticleMesh, name, counting(name))
+    try:
+        tr = csmc.run(carry, obs, U, ref_state, ref_ivs, ref_T, counted(draws))
+        seen.append(dict(counts))
+        csmc.result(tr, u_final)
+    finally:
+        for name in COLLECTIVES:
+            setattr(ParticleMesh, name, real[name])
+    out = {f"step/{k}": np.array([b[k] - a[k] for a, b in zip(seen, seen[1:])])
+           for k in COLLECTIVES}
+    out.update({f"result/{k}": np.asarray(counts[k] - seen[-1][k]) for k in COLLECTIVES})
+    return out
+
+
+def run_csmc_gibbs(case, mesh):
+    """``build_gibbs(shard_mesh=mesh)`` for ``case["iterations"]``
+    iterations (``full/<leaf>``), then the same sampler stopped after
+    iteration 1 with a checkpoint at ``case["checkpoint"]`` (rank 0 writes
+    it) and resumed from it to the end (``resumed/<leaf>``)."""
+    model = model_from_case(case)
+    X, ivs, _ = case["ref"]
+
+    def gibbs(n_iterations, **kw):
+        g = build_gibbs(model.ssm, model.gps, case["n"], n_iterations, dtype=F64,
+                        shard_mesh=mesh)
+        res = g(torch.Generator().manual_seed(case["seed"]), case["Y"], case["U"], model.x0,
+                model.p0, X, ivs, **kw)
+        leaves = {"states": res.states, "outputs": res.outputs,
+                  "log_likelihood": res.log_likelihood}
+        leaves.update({f"int_vars{i}": v for i, v in enumerate(res.int_vars)})
+        leaves.update({f"stats{i}.{k}": leaf for i, st in enumerate(res.stats)
+                       for k, leaf in zip(st._fields, st)})
+        return leaves
+
+    out = {f"full/{k}": v for k, v in gibbs(case["iterations"]).items()}
+    ckpt = dict(checkpoint_path=case["checkpoint"], checkpoint_every=1)
+    gibbs(2, **ckpt)
+    dist.barrier(mesh.group)  # rank 0's checkpoint is on disk before any rank resumes
+    out.update({f"resumed/{k}": v for k, v in gibbs(case["iterations"], **ckpt).items()})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+RUNNERS = {"inject": run_inject, "sweeps": run_sweeps, "resampling": run_resampling,
+           "csmc": run_csmc, "csmc_count": run_csmc_count, "csmc_gibbs": run_csmc_gibbs}
 
 
 def main():

@@ -173,8 +173,8 @@ def test_rhat_on_mixed_chains(chain_run):
 
 
 def test_build_gibbs_chain_guards():
-    """The JAX package's refusals raise ``ValueError``; the mesh keywords
-    themselves are not ported and raise ``NotImplementedError``."""
+    """The JAX package's refusals raise ``ValueError``; the chain mesh
+    itself is not ported and raises ``NotImplementedError``."""
     cfg = jtoy.ToyConfig(n_particles=8, n_steps=4)
     model = convert.toy_model_from_arrays(dataclasses.asdict(cfg),
                                           convert.toy_arrays(jtoy.make_model(cfg)))
@@ -189,6 +189,6 @@ def test_build_gibbs_chain_guards():
     for mesh in ("mesh", "shard_mesh"):
         with pytest.raises(ValueError, match="chain_mesh"):
             build(n_chains=2, **{mesh: object()})
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         build(n_chains=2, chain_mesh=object())
     assert isinstance(build(n_chains=2), ParallelGibbs)

@@ -242,6 +242,6 @@ def test_entry_point_runs_parallel_chains(tmp_path, capsys):
 
 
 def test_entry_point_raises_on_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         emps_script.parse_args(["--cpu", "--mesh", "2"])
 

@@ -197,7 +197,7 @@ def test_oscillator_checkpoint_resumes_two_chains(tmp_path):
 
 @pytest.mark.parametrize("name", ["single_mass_oscillator", "vehicle"])
 def test_mesh_raises_naming_item_8(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
         SCRIPTS[name].parse_args(["--cpu", "--mesh", "2"])
 
 

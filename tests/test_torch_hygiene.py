@@ -22,6 +22,7 @@ from bipk_tpu_torch.algorithms.apf import build_apf
 from bipk_tpu_torch.algorithms.csmc import build_csmc
 from bipk_tpu_torch.algorithms.gibbs import build_gibbs
 from bipk_tpu_torch.parallel.sharded import build_sharded_apf
+from bipk_tpu_torch.parallel.sharded_csmc import build_sharded_csmc
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "bipk_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
@@ -49,7 +50,7 @@ def test_port_imports_with_jax_absent():
         "import bipk_tpu_torch, bipk_tpu_torch.convert\n"
         "import bipk_tpu_torch.parallel.sharded, bipk_tpu_torch.ops.cuda_kernels\n"
         "import bipk_tpu_torch.parallel.mesh, bipk_tpu_torch.parallel.distributed\n"
-        "import bipk_tpu_torch.parallel.global_resampling\n"
+        "import bipk_tpu_torch.parallel.global_resampling, bipk_tpu_torch.parallel.sharded_csmc\n"
         "import bipk_tpu_torch.algorithms.gibbs, bipk_tpu_torch.utils.matio\n"
         "import bipk_tpu_torch.models.oscillator, bipk_tpu_torch.models.toy\n"
         "import bipk_tpu_torch.ops.cholup, bipk_tpu_torch.algorithms.csmc\n"
@@ -82,7 +83,8 @@ def test_gibbs_slice_entry_points_raise_without_a_card(monkeypatch):
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
     for build in (lambda: build_apf(model.ssm, model.gps, 64),
                   lambda: build_csmc(model.ssm, model.gps, 64),
-                  lambda: build_gibbs(model.ssm, model.gps, 64, 3)):
+                  lambda: build_gibbs(model.ssm, model.gps, 64, 3),
+                  lambda: build_sharded_csmc(model.ssm, model.gps, 64)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()  # default device: cuda
 
@@ -176,25 +178,33 @@ def test_launches_count_per_instantiation():
 
 
 def test_gibbs_slice_unported_modes_raise():
-    """``n_chains=4`` builds the chain-parallel sampler; the mesh keywords
-    still raise, ``NotImplementedError`` naming Queue A item 8, and the
+    """``n_chains=4`` builds the chain-parallel sampler; ``mesh=`` and
+    ``shard_mesh=`` build the particle-sharded cSMC; the chain mesh still
+    raises, ``NotImplementedError`` naming Queue A item 2, and the
     combinations the JAX package refuses raise ``ValueError``."""
-    from bipk_tpu_torch.algorithms.gibbs import ParallelGibbs
+    from bipk_tpu_torch.algorithms.gibbs import Gibbs, ParallelGibbs
+    from bipk_tpu_torch.parallel.mesh import ParticleMesh
+    from bipk_tpu_torch.parallel.sharded_csmc import ShardedCSMC
 
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
-    for kwargs in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError):
-            build_csmc(model.ssm, model.gps, 64, device="cpu", **kwargs)
+    one = ParticleMesh(None, 0, 1, torch.device("cpu"))
+    assert isinstance(build_csmc(model.ssm, model.gps, 64, mesh=one), ShardedCSMC)
     chains = build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", n_chains=4)
     assert isinstance(chains, ParallelGibbs) and chains.n_chains == 4
-    for kwargs in (dict(mesh=object()), dict(shard_mesh=object()),
-                   dict(n_chains=4, chain_mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", **kwargs)
-    for kwargs in (dict(chain_mesh=object()), dict(n_chains=4, mesh=object()),
-                   dict(n_chains=4, shard_mesh=object()), dict(n_chains=1)):
+    for kwargs in (dict(mesh=one), dict(shard_mesh=one)):
+        gibbs = build_gibbs(model.ssm, model.gps, 64, 3, **kwargs)
+        assert isinstance(gibbs, Gibbs) and isinstance(gibbs.csmc, ShardedCSMC)
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+        build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", n_chains=4,
+                    chain_mesh=object())
+    for kwargs in (dict(chain_mesh=object()), dict(n_chains=4, mesh=one),
+                   dict(n_chains=4, shard_mesh=one), dict(n_chains=1),
+                   dict(mesh=one, shard_mesh=one)):
         with pytest.raises(ValueError):
             build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", **kwargs)
+    with pytest.raises(ValueError, match="single-device"):
+        build_csmc(model.ssm, model.gps, 64, mesh=one, rank1=True)
+    assert sum(ck.launch_counts().values()) == 0
 
 
 def test_rank1_csmc_is_a_build_csmc_option_only():
@@ -698,7 +708,7 @@ def test_unpacked_launches_count_per_instantiation():
 
 
 def test_unported_modes_raise():
-    """The chain mesh raises, naming ROADMAP Queue A item 8b; W ranks, the
+    """The chain mesh raises, naming ROADMAP Queue A item 2; W ranks, the
     exact scheme, the chunked and the windowed modes are ported
     (``tests/test_torch_sharded_apf.py``, ``tests/test_torch_chunked_apf.py``)
     and build."""
@@ -706,7 +716,7 @@ def test_unported_modes_raise():
 
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
     for fn in (chain_mesh, chain_sharding):
-        with pytest.raises(NotImplementedError, match="Queue A item 8b"):
+        with pytest.raises(NotImplementedError, match="Queue A item 2"):
             fn()
     four = ParticleMesh(None, 0, 4, torch.device("cpu"))
     for kwargs in (dict(mesh=four), dict(resampling_scheme="exact"), dict(chunk_size=32),

@@ -191,7 +191,7 @@ def test_argument_checks():
     with pytest.raises(ValueError, match="nothing else"):
         init_distributed(backend="nccl", device="cpu")
     for fn in (chain_mesh, chain_sharding):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
             fn(2)
 
 
