@@ -16,7 +16,10 @@ JAX ``run_host``, ``fused=False``). ``shard_mesh=`` (and ``mesh=``) runs
 each sweep as the particle-sharded cSMC on the ranks of a particle mesh
 (:mod:`~bipk_tpu_torch.parallel.sharded_csmc`): every rank runs the same
 host loop and draws the same references, and only rank 0 writes the
-checkpoint. The chain mesh is not ported (ROADMAP Queue A item 2).
+checkpoint. ``chain_mesh=`` (with ``n_chains=C``) splits the chains over
+the ranks of a chain mesh (:func:`~bipk_tpu_torch.parallel.mesh.chain_mesh`):
+C / W chains per rank, no collective inside a sweep, the result gathered
+once at the end.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from bipk_tpu_torch.algorithms.apf import as_tensor
 from bipk_tpu_torch.algorithms.csmc import build_csmc
 from bipk_tpu_torch.models.ssm import GPNode, SSM
 from bipk_tpu_torch.ops import mniw
+from bipk_tpu_torch.parallel.mesh import (CHAIN_AXIS, ChainSharding, ParticleMesh,
+                                          chain_sharding, mesh_on)
 from bipk_tpu_torch.utils import checkpoint
 from bipk_tpu_torch.utils.matio import map_leaves
 
@@ -243,13 +248,29 @@ class ParallelGibbs:
     references stacked along a leading ``C``. A checkpoint holds every
     chain's generator state and the references stacked along a leading
     ``C``: the chains' generators are seeded from the caller's once, so
-    the caller's state alone could not resume them."""
+    the caller's state alone could not resume them.
 
-    def __init__(self, gibbs: Gibbs, n_chains: int):
+    With ``sharding`` (a chain mesh's :class:`~bipk_tpu_torch.parallel.
+    mesh.ChainSharding`, W ranks; by default one rank on the sampler's
+    device, which holds every chain) each rank runs its block of C / W chains
+    in the same loop, with no collective inside a sweep. Every rank draws
+    all C generators from the caller's (seeded alike on every rank) and
+    keeps its block, and cuts a per-chain initial reference to it, so
+    chain ``c`` is chain ``c`` on one device, bit for bit. The result is
+    gathered once at the end: every rank returns all C chains.
+    ``callback`` receives this rank's chains only. At each checkpoint
+    every rank gathers the chains' references and generator states and
+    rank 0 writes them in the one-device format; every rank reads the
+    file and keeps its block, so a checkpoint resumes on any number of
+    ranks."""
+
+    def __init__(self, gibbs: Gibbs, n_chains: int, sharding: ChainSharding | None = None):
         self.gibbs = gibbs
         self.kern = gibbs.kern
         self.n_iterations = gibbs.n_iterations
         self.n_chains = n_chains
+        self.sharding = sharding or chain_sharding(
+            ParticleMesh(None, 0, 1, gibbs.kern.device, CHAIN_AXIS))
 
     def chain_refs(self, init_ref_state, init_ref_int_vars):
         """The initial reference of each chain: ``[(state, int_vars)] * C``."""
@@ -261,6 +282,21 @@ class ParallelGibbs:
                              f"{init_ref_state.shape[0]}, expected n_chains={C}")
         return [(init_ref_state[c], tuple(v[c] for v in init_ref_int_vars)) for c in range(C)]
 
+    def _gather(self, tree):
+        """A tree of this rank's chains (leading ``(C / W,)``) -> all C."""
+        return map_leaves(self.sharding.gather, [tree])
+
+    def _rng_states(self, gens) -> list:
+        """Every chain's generator state (CPU byte tensors), all C."""
+        stacked = torch.stack([g.get_state() for g in gens]).to(self.sharding.mesh.device)
+        return list(self.sharding.gather(stacked).cpu())
+
+    def _history(self, refs) -> list:
+        """Every iteration's references so far, each stacked along a
+        leading ``(C,)`` of all C chains."""
+        both = self._gather(stack_chains([stack_chains(chain) for chain in refs]))
+        return [map_leaves(lambda leaf: leaf[:, k], [both]) for k in range(len(refs[0]))]
+
     def __call__(
         self, generator, observations, inputs, init_state_mean,
         init_state_cov, init_ref_state, init_ref_int_vars,
@@ -270,18 +306,20 @@ class ParallelGibbs:
         gibbs, C = self.gibbs, self.n_chains
         gens = chain_generators(generator, C)
         obs, inputs = gibbs.data(observations, inputs)
-        saver = (None if checkpoint_path is None
-                 else checkpoint.PeriodicCheckpointer(checkpoint_path, checkpoint_every))
+        keep = self.sharding.keep
+        saver = (None if checkpoint_path is None else checkpoint.PeriodicCheckpointer(
+            checkpoint_path, checkpoint_every, write=self.sharding.mesh.rank == 0))
         restored = gibbs.restore(checkpoint_path, obs.shape[0], C)
         if restored is None:
             start = 1
-            refs = [[gibbs.initial_ref(state, ivs, inputs)]
-                    for state, ivs in self.chain_refs(init_ref_state, init_ref_int_vars)]
+            refs = [[gibbs.initial_ref(state, ivs, inputs)] for state, ivs in
+                    keep(self.chain_refs(init_ref_state, init_ref_int_vars))]
         else:  # the chains' own generators continue from their saved states
             start, rng_states, stacked = restored
             for g, rng_state in zip(gens, rng_states):
                 g.set_state(rng_state)
-            refs = [[select_chain(r, c) for r in stacked] for c in range(C)]
+            refs = [[select_chain(r, c) for r in stacked] for c in keep(range(C))]
+        gens = keep(gens)
         for k in range(start, self.n_iterations):
             for g, chain in zip(gens, refs):
                 chain.append(gibbs.sweep(g, obs, inputs, init_state_mean, init_state_cov,
@@ -289,9 +327,8 @@ class ParallelGibbs:
             if callback is not None:
                 callback(k, stack_chains([chain[-1] for chain in refs]))
             if saver is not None:
-                saver(k, lambda: [g.get_state() for g in gens],
-                      lambda: {"refs": [stack_chains(its) for its in zip(*refs)]})
-        return stack_chains([gibbs.result(obs, inputs, chain) for chain in refs])
+                saver(k, lambda: self._rng_states(gens), lambda: {"refs": self._history(refs)})
+        return self._gather(stack_chains([gibbs.result(obs, inputs, chain) for chain in refs]))
 
 
 def build_gibbs(
@@ -325,8 +362,14 @@ def build_gibbs(
     (``build_csmc(mesh=)``: the JAX package's GSPMD, which PyTorch does not
     have, samples the same posterior). On a mesh ``device``, if given,
     must be the mesh's, and ``reuse_factor`` and ``dedup_gather`` do not
-    apply. ``chain_mesh`` is not ported (ROADMAP Queue A item 2); the
-    combinations the JAX package refuses raise ``ValueError`` first.
+    apply.
+
+    ``chain_mesh`` (a :func:`~bipk_tpu_torch.parallel.mesh.chain_mesh` of
+    W ranks, with ``n_chains=C``, C divisible by W) runs C / W of the
+    chains on each rank (:class:`ParallelGibbs` with the mesh's
+    :func:`~bipk_tpu_torch.parallel.mesh.chain_sharding`), each sweep on
+    the rank's device as on one device. The combinations the JAX package
+    refuses (``gibbs.py:111-126``) raise ``ValueError``.
     """
     if chain_mesh is not None and n_chains is None:
         raise ValueError("chain_mesh= requires n_chains=")
@@ -336,15 +379,19 @@ def build_gibbs(
                              "chain_mesh=; per-chain execution stays single-device")
         if n_chains < 2:
             raise ValueError(f"n_chains must be >= 2, got {n_chains}")
-    if chain_mesh is not None:
-        raise NotImplementedError(
-            "chain_mesh= (one group of chains per device) is not ported yet: "
-            "ROADMAP Queue A item 2")
+        if chain_mesh is not None and n_chains % chain_mesh.size:
+            raise ValueError(f"n_chains={n_chains} must be divisible by the chain mesh's "
+                             f"{chain_mesh.size} devices")
     if mesh is not None and shard_mesh is not None:
         raise ValueError("pass either mesh= (GSPMD) or shard_mesh=, not both")
     del fused
+    if chain_mesh is not None:
+        device = mesh_on(chain_mesh, device).device
     csmc = build_csmc(ssm, gps, n_particles, dtype=dtype, device=device,
                       mesh=shard_mesh if shard_mesh is not None else mesh,
                       reuse_factor=reuse_factor, dedup_gather=dedup_gather)
     gibbs = Gibbs(csmc, n_iterations)
-    return gibbs if n_chains is None else ParallelGibbs(gibbs, n_chains)
+    if n_chains is None:
+        return gibbs
+    return ParallelGibbs(gibbs, n_chains,
+                         None if chain_mesh is None else chain_sharding(chain_mesh))

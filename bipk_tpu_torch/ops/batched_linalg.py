@@ -1,10 +1,12 @@
-"""Batch-last small-matrix linear algebra (port of
-``bipk_tpu/ops/batched_linalg.py``, batch-last helpers only).
+"""Small-matrix linear algebra (port of ``bipk_tpu/ops/batched_linalg.py``).
 
-Matrices are ``(m, m, N)`` with the particle batch LAST, as in the JAX
-package, so the packed statistics and every per-particle tensor compare
-element for element. The loops run over the small matrix dimension and
-each iteration is one vectorized op over ``(·, N)``.
+The batch-last helpers take ``(m, m, N)`` matrices with the particle batch
+LAST, as in the JAX package, so the packed statistics and every
+per-particle tensor compare element for element. The loops run over the
+small matrix dimension and each iteration is one vectorized op over
+``(·, N)``. The unbatched functions (``chol_lower``, ``solve_lower``,
+``solve_lower_t``, ``cho_solve``, ``logdet_from_chol``) take one matrix and
+run the same loops on a batch of one.
 """
 
 from __future__ import annotations
@@ -20,6 +22,32 @@ def _row_times(Lrow: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     elif X.dim() == 3:
         Lrow = Lrow[:, None, :]
     return (Lrow * X).sum(0)
+
+
+def chol_lower(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of one SPD ``(m, m)`` matrix (NaN where it fails, as
+    the JAX package's unrolled factorization)."""
+    return chol_lower_bl(A[..., None])[..., 0]
+
+
+def solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Forward substitution ``L x = b``; ``b`` is ``(m,)`` or ``(m, r)``."""
+    return solve_lower_bl(L, b[..., None])[..., 0]
+
+
+def solve_lower_t(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Back substitution ``L^T x = b``; ``b`` is ``(m,)`` or ``(m, r)``."""
+    return solve_lower_t_bl(L, b[..., None])[..., 0]
+
+
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``L L^T x = b`` from the lower factor."""
+    return solve_lower_t(L, solve_lower(L, b))
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """``log det(A) = 2 sum(log(diag(chol(A))))`` of one ``(m, m)`` factor."""
+    return 2.0 * torch.log(torch.diagonal(L, 0, -2, -1)).sum(-1)
 
 
 def chol_lower_bl(A: torch.Tensor) -> torch.Tensor:

@@ -14,3 +14,12 @@ def rk4_step(rhs: Callable, x: torch.Tensor, dt, *args) -> torch.Tensor:
     k3 = rhs(x + 0.5 * dt * k2, *args)
     k4 = rhs(x + dt * k3, *args)
     return x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def discretize_rk4(rhs: Callable, dt) -> Callable:
+    """The discrete-time map ``x -> rk4_step(rhs, x, dt, *args)``."""
+
+    def step(x, *args):
+        return rk4_step(rhs, x, dt, *args)
+
+    return step

@@ -150,6 +150,15 @@ def factorize(nat: MNIW) -> MNIWFactor:
     return MNIWFactor(L, white, nat.T2 - white.T @ white, nat.T3)
 
 
+def factor_mean_at(factor: MNIWFactor, phi: torch.Tensor) -> torch.Tensor:
+    """Posterior-mean prediction ``E[A] phi = white^T chol^{-1} phi`` from an
+    unbatched factorization, at ``phi (m,)`` -> ``(n,)`` (or ``(m, G)`` ->
+    ``(n, G)``)."""
+    v = torch.linalg.solve_triangular(factor.chol, phi.reshape(phi.shape[0], -1), upper=False)
+    mean = factor.white_T0.T @ v
+    return mean[:, 0] if phi.dim() == 1 else mean
+
+
 def factor_predictive(factor: MNIWFactor, phi: torch.Tensor) -> Predictive:
     """Matrix-t predictive at ``phi`` from an unbatched factorization, one
     triangular solve: ``v = chol^{-1} phi``, ``mean = white^T v``,
@@ -174,6 +183,38 @@ def predictive(mean, col_cov, row_scale, df, phi) -> Predictive:
     df_pred = df + 1.0 - row_scale.shape[0]
     col_scale = (phi * (col_cov @ phi)).sum(0) + 1.0
     return Predictive(mean @ phi, col_scale, row_scale / df_pred, df_pred)
+
+
+def sample_predictive(pred: Predictive, t: torch.Tensor) -> torch.Tensor:
+    """Draw from the matrix-t predictive at one basis vector: ``mean +
+    chol(row_scale) t sqrt(col_scale)`` with ``t (n,)`` iid Student-t draws
+    of ``pred.df`` degrees of freedom, an input
+    (:func:`predictive_t_draws` draws them from a generator)."""
+    chol_row = chol_spd(torch.atleast_2d(pred.row_scale))
+    return pred.mean + (chol_row @ t) * torch.sqrt(pred.col_scale)
+
+
+def predictive_t_draws(generator: torch.Generator, pred: Predictive) -> torch.Tensor:
+    """The ``(n,)`` Student-t draws that :func:`sample_predictive` takes,
+    each from two uniforms of ``generator`` by the polar method
+    (:func:`~bipk_tpu_torch.ops.gaussian.student_t`)."""
+    row = torch.atleast_2d(pred.row_scale)
+    u, v = (torch.rand((row.shape[0],), generator=generator, dtype=row.dtype,
+                       device=row.device) for _ in range(2))
+    return student_t(torch.as_tensor(pred.df, dtype=row.dtype, device=row.device), u, v)
+
+
+def log_base_measure(nat: MNIW) -> torch.Tensor:
+    """Log base measure (the marginal-likelihood normalizer) of unbatched
+    natural parameters, from the Cholesky log-determinants of ``sym(T1)``
+    and of ``sym(Psi)``, ``Psi = T2 - white^T white``."""
+    n, m = nat.T2.shape[-1], nat.T1.shape[-1]
+    L1 = chol_spd(0.5 * (nat.T1 + nat.T1.T))
+    white = torch.linalg.solve_triangular(L1, nat.T0, upper=False)
+    psi = nat.T2 - white.T @ white
+    L_psi = chol_spd(0.5 * (psi + psi.T))
+    nu = torch.as_tensor(nat.T3, dtype=nat.T1.dtype, device=nat.T1.device)
+    return _log_base_measure(bla.logdet_from_chol(L1), bla.logdet_from_chol(L_psi), nu, m, n)
 
 
 class ParameterDraws(NamedTuple):
@@ -287,6 +328,12 @@ def _tri_pack_idx(m: int):
     COLUMN-major order, plus the transposed entries' indices."""
     j, i = np.triu_indices(m)  # row <= col, row-major == lower col-major
     return i * m + j, j * m + i
+
+
+def tri_col_offset(j: int, m: int) -> int:
+    """Offset of column ``j``'s diagonal entry in the column-major packed
+    lower triangle: ``sum_{c<j} (m - c)``."""
+    return j * m - (j * (j - 1)) // 2
 
 
 def _tri_unpack_idx(m: int):
@@ -878,3 +925,13 @@ def log_base_measure_packed_bl(
     nu = S[-1] if prior_eff is None else S[-1] + prior_eff.T3
     ld1, ldp = logdets(S, jitter, blocks, m, n)
     return _log_base_measure(ld1, ldp, nu, m, n)
+
+
+def to_batch_last(nat: MNIW) -> MNIW:
+    """``(N, ...)`` leaves -> the batch-last layout (``T3`` as it is)."""
+    return MNIW(nat.T0.movedim(0, -1), nat.T1.movedim(0, -1), nat.T2.movedim(0, -1), nat.T3)
+
+
+def from_batch_last(nat: MNIW) -> MNIW:
+    """Batch-last leaves -> ``(N, ...)`` (``T3`` as it is)."""
+    return MNIW(nat.T0.movedim(-1, 0), nat.T1.movedim(-1, 0), nat.T2.movedim(-1, 0), nat.T3)

@@ -1,6 +1,7 @@
 """Particle resampling (port of ``bipk_tpu/ops/resampling.py``:
-``normalize_weights``, the closed-form-counts ``systematic``, the single
-categorical draw, the ESS and the backward ancestral reconstruction).
+``normalize_weights``, the closed-form-counts ``systematic`` and its
+``searchsorted`` cross-check, the single categorical draw, the ESS and the
+backward ancestral reconstruction).
 
 :func:`systematic` is the plain version of the CUDA kernel behind
 ``cuda_kernels.systematic_ancestors_blocks``. Every uniform is an input.
@@ -52,6 +53,20 @@ def systematic(weights: torch.Tensor, u) -> torch.Tensor:
     marker.index_add_(0, starts, torch.ones_like(starts))
     anc = torch.cumsum(marker[:n], 0) - 1
     return torch.clamp(anc, 0, n - 1).to(torch.int32)
+
+
+def systematic_searchsorted(weights: torch.Tensor, u) -> torch.Tensor:
+    """Systematic-resampling ancestors ``(N,)`` int32 by ``searchsorted``
+    of the grid ``(u + k) / n`` in the CDF, the reference's formulation,
+    which cross-checks :func:`systematic`. The CDF is summed in float64
+    (:func:`_cdf`) and clipped to ``[0, 1]``; ``u`` as :func:`systematic`
+    takes it."""
+    n = weights.shape[-1]
+    w = normalize_weights(weights)
+    u = torch.as_tensor(u, device=w.device).to(torch.float64).reshape(())
+    grid = (u + torch.arange(n, dtype=torch.float64, device=w.device)) / n
+    idx = torch.searchsorted(torch.clamp(_cdf(w), 0.0, 1.0), grid)
+    return torch.clamp(idx, 0, n - 1).to(torch.int32)
 
 
 def categorical_from_weights(weights: torch.Tensor, u) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The particle mesh over ``torch.distributed`` (port of
+"""The particle and chain meshes over ``torch.distributed`` (port of
 ``bipk_tpu/parallel/mesh.py``).
 
 A JAX mesh is a set of devices that one program drives through
@@ -19,16 +19,19 @@ JAX (``PARTICLE_AXIS``)          :class:`ParticleMesh`
 Without a process group the mesh has one rank (JAX ``particle_mesh(1)``):
 its collectives are identities and make no call into ``torch.distributed``.
 
+The chain mesh (JAX ``chain_mesh``, axis ``CHAIN_AXIS``) is the same
+object over the Gibbs-chain axis: one group of independent chains per
+rank, whose sweeps make no collective. :func:`chain_sharding` is the
+counterpart of its leading-axis ``NamedSharding``: it keeps a rank's block
+of the chain axis and gathers the blocks back, on the mesh's collectives.
 ``particle_sharding`` and ``replicated`` (``NamedSharding`` objects) have no
 counterpart: a rank holds its slice of the particle axis as plain tensors.
-``chain_mesh`` and ``chain_sharding`` (one group of Gibbs chains per device)
-are not ported yet and raise (ROADMAP Queue A item 2).
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.distributed as dist
@@ -36,18 +39,21 @@ import torch.distributed as dist
 from bipk_tpu_torch._device import resolve_device
 
 PARTICLE_AXIS = "p"
+CHAIN_AXIS = "c"
 
 
 @dataclass(frozen=True)
 class ParticleMesh:
-    """One rank's view of a 1-D mesh over the particle axis: the process
-    group (None for one rank without a group), this rank's number in it,
-    the number of ranks, and the rank's device."""
+    """One rank's view of a 1-D mesh over the particle axis (or, with
+    ``axis=CHAIN_AXIS``, the chain axis): the process group (None for one
+    rank without a group), this rank's number in it, the number of ranks,
+    and the rank's device."""
 
     group: dist.ProcessGroup | None
     rank: int
     size: int
     device: torch.device
+    axis: str = PARTICLE_AXIS
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         if self.group is None:
@@ -158,6 +164,47 @@ def particle_mesh(n_devices: int | None = None, group: dist.ProcessGroup | None 
     return ParticleMesh(group, rank, size, resolve_device(device))
 
 
+def chain_mesh(n_devices: int | None = None, group: dist.ProcessGroup | None = None,
+               device: str | torch.device | None = None) -> ParticleMesh:
+    """1-D mesh over the Gibbs-chain axis (JAX ``chain_mesh``): one group
+    of independent chains per rank, for
+    ``build_gibbs(..., n_chains=C, chain_mesh=chain_mesh(W))``. The ranks,
+    devices and refusals are :func:`particle_mesh`'s."""
+    return replace(particle_mesh(n_devices, group, device), axis=CHAIN_AXIS)
+
+
+@dataclass(frozen=True)
+class ChainSharding:
+    """The leading (chain) axis split over a mesh's ranks in blocks, rank
+    ``r`` holding rows ``[r C / W, (r + 1) C / W)``: the counterpart of
+    JAX's ``NamedSharding(mesh, P(axis))`` on a leading axis of C."""
+
+    mesh: ParticleMesh
+
+    def block(self, n: int) -> slice:
+        """This rank's rows of a leading axis of ``n``."""
+        W = self.mesh.size
+        if n % W:
+            raise ValueError(f"a leading axis of {n} is not divisible by the mesh's {W} ranks")
+        size = n // W
+        return slice(self.mesh.rank * size, (self.mesh.rank + 1) * size)
+
+    def keep(self, x):
+        """This rank's block of ``x``'s leading axis (a tensor or a list)."""
+        return x[self.block(len(x))]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's block ``x (C / W, ...)`` concatenated along the
+        leading axis in rank order -> ``(C, ...)``, on the mesh's
+        ``all_gather_last``."""
+        return self.mesh.all_gather_last(x.movedim(0, -1)).movedim(-1, 0)
+
+
+def chain_sharding(mesh: ParticleMesh) -> ChainSharding:
+    """Leading-axis (chain) placement on ``mesh``'s ranks."""
+    return ChainSharding(mesh)
+
+
 def mesh_on(mesh: ParticleMesh | None, device: str | torch.device | None) -> ParticleMesh:
     """The mesh a sharded sweep runs on: ``mesh``, or without one a
     one-rank mesh on ``device`` (default CUDA, which raises without a
@@ -169,14 +216,3 @@ def mesh_on(mesh: ParticleMesh | None, device: str | torch.device | None) -> Par
         if d.type != mesh.device.type or d.index not in (None, mesh.device.index):
             raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     return mesh
-
-
-def chain_mesh(*args, **kwargs):
-    """One group of Gibbs chains per device: not ported yet."""
-    raise NotImplementedError("chain_mesh (one group of chains per device) is not ported "
-                              "yet: ROADMAP Queue A item 2")
-
-
-def chain_sharding(*args, **kwargs):
-    """Leading-axis (chain) placement on a chain mesh: not ported yet."""
-    raise NotImplementedError("chain_sharding is not ported yet: ROADMAP Queue A item 2")

@@ -1,4 +1,4 @@
-"""EMPS experiment on one device: friction identification on (real or
+"""EMPS experiment: friction identification on (real or
 surrogate) data, the port of ``scripts/emps.py``'s default configuration.
 
     python -m bipk_tpu_torch.scripts.emps                 # 200 particles, 800 sweeps
@@ -16,7 +16,10 @@ reference APF run; the friction's split R-hat and bulk ESS over the
 second half of the sweeps are printed, and chain 0 goes into the ``.mat``
 file. ``--checkpoint PATH`` saves the Gibbs chain every
 ``--checkpoint-every`` sweeps and resumes it from an existing file, bit
-for bit. Runs on CUDA unless ``--cpu`` is given; one ``torch.Generator``
+for bit. ``--mesh N`` runs the Gibbs sampler on the N ranks of a process
+group (torchrun's, or on one rank without one): with ``--chains`` the
+chain mesh, otherwise the particle-sharded cSMC; only rank 0 prints the
+Gibbs summary and writes the file. Runs on CUDA unless ``--cpu`` is given; one ``torch.Generator``
 seeded with the configuration's seed draws every random number.
 """
 
@@ -115,6 +118,9 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
     ``"pgas-sweep"`` (``k``), ``"pgas"``, ``"validation"``."""
     hook = hook or (lambda event, **info: None)
     device = resolve_device("cpu" if args.cpu else "cuda")
+    n_chains = max(1, args.chains)
+    # before anything is made on the device: torchrun's NCCL group binds the card
+    shard_mesh, chain_mesh = common.gibbs_meshes(args, n_chains, device)
     dtype = torch.float64 if args.f64 else torch.float32
     cfg = emps.EMPSConfig(n_particles=args.particles, n_gibbs=args.gibbs_iters)
     model = emps.make_model(cfg, data_dir=args.data_dir)
@@ -141,13 +147,12 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
 
     print("=== Offline Algorithm ===")
     ref_run = apf(g, Y, inputs, model.x0, model.p0)
-    n_chains = max(1, args.chains)
     ref_state, ref_iv = common.reference_trajectories(g, ref_run, n_chains)
     del ref_run
     hook("reference")
     gibbs = build_gibbs(model.ssm, model.gps, cfg.n_particles, cfg.n_gibbs, dtype=dtype,
-                        fused=False, device=device,
-                        n_chains=n_chains if n_chains > 1 else None)
+                        fused=False, device=device, shard_mesh=shard_mesh,
+                        n_chains=n_chains if n_chains > 1 else None, chain_mesh=chain_mesh)
     offline = common.offline_gibbs(gibbs, g, Y, inputs, model, ref_state, ref_iv, args,
                                    ("friction F",), hook)
 
@@ -193,8 +198,9 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
     dq_plot = np.linspace(-0.15, 0.15, 500)
     mdict["dq_plot"] = dq_plot
     mdict["basis_plot"] = model.basis.eigen_fn_bl(torch.as_tensor(dq_plot)).T
-    matio.save_mat(args.out, mdict)
-    print(f"saved {args.out}")
+    if common.lead_rank():
+        matio.save_mat(args.out, mdict)
+        print(f"saved {args.out}")
     return mdict
 
 

@@ -1,4 +1,4 @@
-"""Single-mass-oscillator experiment on one device: online APF and offline
+"""Single-mass-oscillator experiment: online APF and offline
 Gibbs sampler, the port of ``scripts/single_mass_oscillator.py``.
 
     python -m bipk_tpu_torch.scripts.single_mass_oscillator        # 200 particles, 800 sweeps
@@ -12,7 +12,11 @@ file with the JAX script's keys (those of the reference's
 sampler runs C chains, each from its own reference trajectory; the
 force's R-hat and bulk ESS are printed and chain 0 goes into the file.
 ``--checkpoint PATH`` saves the chain every ``--checkpoint-every`` sweeps
-and resumes it from an existing file, bit for bit. Runs on CUDA unless
+and resumes it from an existing file, bit for bit. ``--mesh N`` runs the Gibbs
+sampler on the N ranks of a process group (torchrun's, or on one rank
+without one): with ``--chains`` the chain mesh, otherwise the
+particle-sharded cSMC; only rank 0 prints the Gibbs summary and writes
+the file. Runs on CUDA unless
 ``--cpu`` is given; one ``torch.Generator`` seeded with the
 configuration's seed draws every random number (the simulated data from a
 CPU generator seeded by its first draw).
@@ -70,6 +74,9 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
     ``"online"``, ``"reference"``, ``"gibbs-sweep"`` (``k``), ``"gibbs"``."""
     hook = hook or (lambda event, **info: None)
     device = resolve_device("cpu" if args.cpu else "cuda")
+    n_chains = max(1, args.chains)
+    # before anything is made on the device: torchrun's NCCL group binds the card
+    shard_mesh, chain_mesh = common.gibbs_meshes(args, n_chains, device)
     dtype = torch.float64 if args.f64 else torch.float32
     cfg = smo.OscillatorConfig(n_particles=args.particles, n_gibbs=args.gibbs_iters,
                                t_end=args.t_end)
@@ -90,13 +97,12 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
 
     print("=== Offline Algorithm ===")
     ref_run = apf(g, Y, inputs, model.x0, model.p0)
-    n_chains = max(1, args.chains)
     ref_state, ref_iv = common.reference_trajectories(g, ref_run, n_chains)
     del ref_run
     hook("reference")
     gibbs = build_gibbs(model.ssm, model.gps, cfg.n_particles, cfg.n_gibbs, dtype=dtype,
-                        fused=False, device=device,
-                        n_chains=n_chains if n_chains > 1 else None)
+                        fused=False, device=device, shard_mesh=shard_mesh,
+                        n_chains=n_chains if n_chains > 1 else None, chain_mesh=chain_mesh)
     offline = common.offline_gibbs(gibbs, g, Y, inputs, model, ref_state, ref_iv, args,
                                    ("F_sd",), hook)
 
@@ -119,8 +125,9 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
         "Y": Y[:, 0],
         "F_sd": F_sd[:, 0],
     }
-    matio.save_mat(args.out, mdict)
-    print(f"saved {args.out}")
+    if common.lead_rank():
+        matio.save_mat(args.out, mdict)
+        print(f"saved {args.out}")
     return mdict
 
 

@@ -1,9 +1,10 @@
-"""Vehicle experiment on one device: front and rear tire-friction
+"""Vehicle experiment: front and rear tire-friction
 identification, the port of ``scripts/vehicle.py``.
 
     python -m bipk_tpu_torch.scripts.vehicle                      # 200 particles, 800 sweeps
     python -m bipk_tpu_torch.scripts.vehicle --quick --cpu
     python -m bipk_tpu_torch.scripts.vehicle --profile plots/vehicle_trace
+    torchrun --nproc-per-node=4 -m bipk_tpu_torch.scripts.vehicle --mesh 4 --chains 4
 
 Simulated data from the true (Pacejka) friction curves, the online APF
 with its two GPs (m = 20 each), the Gibbs sampler (Algorithm 2) seeded by
@@ -12,7 +13,11 @@ the reference's ``VehicleSimulation_Simulation.py``). With ``--chains C``
 the Gibbs sampler runs C chains, each from its own reference trajectory;
 both frictions' R-hat and bulk ESS are printed and chain 0 goes into the
 file. ``--checkpoint PATH`` saves the chain every ``--checkpoint-every``
-sweeps and resumes it from an existing file, bit for bit. ``--profile
+sweeps and resumes it from an existing file, bit for bit. ``--mesh N``
+runs the Gibbs sampler on the N ranks of a process group (torchrun's, or
+on one rank without one): with ``--chains`` the chain mesh, otherwise the
+particle-sharded cSMC; only rank 0 prints the Gibbs summary and writes
+the file. ``--profile
 DIR`` runs the online sweep once to warm up (its draws replayed, so the
 results do not change) and then under ``torch.profiler``, writing a
 Chrome trace to ``DIR/trace.json``. Runs on CUDA unless ``--cpu`` is
@@ -82,6 +87,9 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
     ``"online"``, ``"reference"``, ``"gibbs-sweep"`` (``k``), ``"gibbs"``."""
     hook = hook or (lambda event, **info: None)
     device = resolve_device("cpu" if args.cpu else "cuda")
+    n_chains = max(1, args.chains)
+    # before anything is made on the device: torchrun's NCCL group binds the card
+    shard_mesh, chain_mesh = common.gibbs_meshes(args, n_chains, device)
     dtype = torch.float64 if args.f64 else torch.float32
     cfg = veh.VehicleConfig(n_particles=args.particles, n_gibbs=args.gibbs_iters,
                             t_end=args.t_end)
@@ -100,7 +108,7 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
         block(apf(g, Y, inputs, model.x0, model.p0))
         g.set_state(state)
     t0 = timelib.perf_counter()
-    with profile_trace(args.profile):
+    with profile_trace(args.profile if common.lead_rank() else None):
         online = block(apf(g, Y, inputs, model.x0, model.p0))
     hook("online", result=online)
     print(f"online sweep: {timelib.perf_counter() - t0:.2f}s")
@@ -108,13 +116,12 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
 
     print("=== Offline Algorithm ===")
     ref_run = apf(g, Y, inputs, model.x0, model.p0)
-    n_chains = max(1, args.chains)
     ref_state, ref_iv = common.reference_trajectories(g, ref_run, n_chains)
     del ref_run
     hook("reference")
     gibbs = build_gibbs(model.ssm, model.gps, cfg.n_particles, cfg.n_gibbs, dtype=dtype,
-                        fused=False, device=device,
-                        n_chains=n_chains if n_chains > 1 else None)
+                        fused=False, device=device, shard_mesh=shard_mesh,
+                        n_chains=n_chains if n_chains > 1 else None, chain_mesh=chain_mesh)
     offline = common.offline_gibbs(gibbs, g, Y, inputs, model, ref_state, ref_iv, args,
                                    ("mu_f", "mu_r"), hook)
     offline_alpha_f, offline_alpha_r = side_slip_traces(offline.states, inputs)
@@ -146,8 +153,9 @@ def run(args: argparse.Namespace, hook: Callable | None = None) -> dict:
         "mu_f": mu_f,
         "mu_r": mu_r,
     }
-    matio.save_mat(args.out, mdict)
-    print(f"saved {args.out}")
+    if common.lead_rank():
+        matio.save_mat(args.out, mdict)
+        print(f"saved {args.out}")
     return mdict
 
 

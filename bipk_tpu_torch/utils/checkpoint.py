@@ -62,15 +62,20 @@ class PeriodicCheckpointer:
     stream from the start of the chain instead of continuing it. Either
     argument may be a function of no arguments instead, called only on an
     iteration that saves, so that a loop does not build what it does not
-    write."""
+    write. With ``write=False`` (the ranks of a mesh but rank 0) the
+    functions still run on those iterations, since they may gather over
+    the mesh, and nothing is written."""
 
-    def __init__(self, path: str, every: int = 50):
+    def __init__(self, path: str, every: int = 50, write: bool = True):
         if every <= 0:
             raise ValueError(f"checkpoint_every must be positive, got {every}")
         self.path = path
         self.every = every
+        self.write = write
 
     def __call__(self, step: int, rng_state, payload: Any) -> None:
         if step % self.every == 0:
-            save(self.path, step, rng_state() if callable(rng_state) else rng_state,
-                 payload() if callable(payload) else payload)
+            rng_state = rng_state() if callable(rng_state) else rng_state
+            payload = payload() if callable(payload) else payload
+            if self.write:
+                save(self.path, step, rng_state, payload)

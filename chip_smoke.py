@@ -154,15 +154,20 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     steps) through the kernels and through the plain versions on 10
     paired seeds at 200 particles; then phase 7 for 50 steps each of
     the EMPS cSMC and the classic-PGAS cSMC (m = 729);
-24. chains: the toy Gibbs sampler at 200 particles as four parallel
-    chains (``build_gibbs(n_chains=4)``) from phase 12's reference, 40
-    sweeps with exactly four times the single chain's launches per sweep;
-    each chain's first three sweeps bit for bit against the single-chain
-    sampler on that chain's generator; the split R-hat (under
-    ``tests/test_chains.py``'s 1.7) and bulk ESS of the trajectory-mean
-    interface variable over the second half; then the EMPS entry point
-    with ``--chains 2`` (300 steps, two sweeps): exact launches, the
-    friction's R-hat / ESS line, and its ``.mat`` file read back;
+24. chains: the chain mesh (``chain_mesh()``) on one rank of an NCCL
+    process group made through a file store, as in phase 27, destroyed
+    at the end. The toy Gibbs sampler at 200 particles as four chains on
+    it (``build_gibbs(n_chains=4, chain_mesh=)``) from phase 12's
+    reference, 40 sweeps with exactly four times the single chain's
+    launches per sweep and no collective inside a sweep (one gather per
+    leaf of the result after the last); each chain's first three sweeps
+    bit for bit against the single-chain sampler on that chain's
+    generator; the split R-hat (under ``tests/test_chains.py``'s 1.7) and
+    bulk ESS of the trajectory-mean interface variable over the second
+    half; then the EMPS entry point with ``--mesh 1 --chains 2`` (the
+    chain mesh of the same group; 300 steps, two sweeps): exact launches,
+    the gathers, the friction's R-hat / ESS line, and its ``.mat`` file
+    read back;
 25. scripts: the toy, oscillator and vehicle entry scripts
     (``bipk_tpu_torch.scripts.*``) through ``run()`` at 200 particles
     (m = 40, 41, and two GPs at m = 20), 3 Gibbs iterations, the vehicle
@@ -172,7 +177,10 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
     ``--profile``, whose trace must name the warp kernels of #1 and #4;
     then the toy Gibbs sampler (200 x 39, six sweeps, a checkpoint every
     two) interrupted after sweep 3 and resumed, bit for bit the
-    uninterrupted run, for one chain and for two;
+    uninterrupted run, for one chain and for two; then the vehicle script
+    with ``--mesh 1`` (the particle-sharded cSMC on a one-rank mesh
+    without a process group) at the same size: exact launches (#1, #5 and
+    #3 per GP and Gibbs step, no #2 or #4), its ``.mat`` read back;
 26. 2**20: the vehicle online APF at ``benchmarks/bench_1m.py``'s 2**20
     particles, unchunked and in windows of 100 steps over 200 steps, then
     in chunks of 32768 and chunks in windows of 15 over 20 steps (the
@@ -219,7 +227,8 @@ _build/``). Phases, each ending in a ``phase <name> ... <s> seconds`` line:
 
 The line before the last is ``{"kernels": [...]}`` (per kernel and
 template instantiation: its row in PERF.md's table, launches on the
-twenty-eight main paths, error against the plain version, times and bound; for
+twenty-nine main paths (the chain-mesh runs ``toy_chains_mesh`` and
+``emps_chains_mesh``, the ``--mesh`` run ``vehicle_script_mesh``), error against the plain version, times and bound; for
 the warp kernels (rows 1, 3-7, the factor pair, rows 1e and 8, the dedup
 gather, row 9, and the unpacked rows 10-13) also the per-thread kernels'
 times from the same turns, and both at the Gibbs paths' widths, 10240
@@ -3072,8 +3081,9 @@ CHAINS = 4  # phase 24's toy chains
 CHAINS_ITERATIONS = 41  # 40 sweeps, as phase 12's toy sampler
 CHAINS_SAME = 4  # iterations of each chain held bit for bit against the single-chain sampler
 CHAINS_RHAT_GATE = 1.7  # tests/test_chains.py's bound on the split R-hat
-# the EMPS chains' depth, cut from 600 steps for the script's time limit
-EMPS_CHAINS_ARGS = ("--chains", "2", "--skip-baseline", "--gibbs-iters", "3",
+# the EMPS chains' depth, cut from 600 steps for the script's time limit,
+# on the one-rank chain mesh of phase 24's process group
+EMPS_CHAINS_ARGS = ("--mesh", "1", "--chains", "2", "--skip-baseline", "--gibbs-iters", "3",
                     "--max-steps", "300", "--particles", "200")
 
 
@@ -3091,21 +3101,80 @@ class _Tee:
         self.out.flush()
 
 
+def tensor_leaves(tree) -> list:
+    """The tensors of a tree of tuples, lists and NamedTuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for part in tree for leaf in tensor_leaves(part)]
+
+
+class GatherCount:
+    """Counts the calls of ``ParticleMesh.all_gather_last`` (the chain
+    mesh's one collective) while it is entered."""
+
+    def __enter__(self):
+        from bipk_tpu_torch.parallel.mesh import ParticleMesh
+
+        self.calls, self.real = 0, ParticleMesh.all_gather_last
+
+        def counted(mesh, x):
+            self.calls += 1
+            return self.real(mesh, x)
+
+        ParticleMesh.all_gather_last = counted
+        return self
+
+    def __exit__(self, *exc):
+        from bipk_tpu_torch.parallel.mesh import ParticleMesh
+
+        ParticleMesh.all_gather_last = self.real
+
+
 def chains_phase(dev, cs, smi, out_dir):
-    """Phase 24: the toy Gibbs sampler at ``ToyConfig``'s width (200
-    particles, m = 40, 39 steps) as ``CHAINS`` parallel chains from phase
-    12's reference (the same seed), 40 sweeps with exact launches per
-    sweep: ``CHAINS`` times the single chain's. Each chain's first
-    ``CHAINS_SAME`` iterations (three sweeps) bit for bit against
-    ``build_gibbs`` without ``n_chains`` run on that chain's generator,
-    with the single chain's launches per sweep; the split R-hat and bulk
-    ESS of the trajectory-mean interface variable over the second half of
-    the sweeps, finite, the R-hat under ``CHAINS_RHAT_GATE``. Then the EMPS
-    entry point with ``EMPS_CHAINS_ARGS``: exact launches after every part
-    (two chains' worth per Gibbs sweep), the friction's summary line
-    printed, and its ``.mat`` file (chain 0) read back with the script's
-    keys but the baseline's four. Returns the launches of both chain
-    runs."""
+    """Phase 24: the chain mesh on one rank of an NCCL process group
+    (``init_distributed`` through a file store, world size 1,
+    ``chain_mesh()``), destroyed at the end; a failed NCCL init fails the
+    phase. The toy Gibbs sampler at ``ToyConfig``'s width (200 particles,
+    m = 40, 39 steps) as ``CHAINS`` chains on the mesh
+    (``build_gibbs(n_chains=CHAINS, chain_mesh=)``) from phase 12's
+    reference (the same seed), 40 sweeps with exact launches per sweep:
+    ``CHAINS`` times the single chain's; no collective inside a sweep,
+    one ``all_gather_last`` per leaf of the result at the end. Each
+    chain's first ``CHAINS_SAME`` iterations (three sweeps) bit for bit
+    against ``build_gibbs`` without ``n_chains`` run on that chain's
+    generator, with the single chain's launches per sweep; the split
+    R-hat and bulk ESS of the trajectory-mean interface variable over the
+    second half of the sweeps, finite, the R-hat under
+    ``CHAINS_RHAT_GATE``. Then the EMPS entry point with
+    ``EMPS_CHAINS_ARGS`` (``--mesh 1 --chains 2``: the chain mesh of the
+    same group): exact launches after every part (two chains' worth per
+    Gibbs sweep), the result gathered over the mesh, the friction's
+    summary line printed, and its ``.mat`` file (chain 0) read back with
+    the script's keys but the baseline's four. Returns the launches of
+    both chain runs."""
+    import torch.distributed as dist
+
+    from bipk_tpu_torch.parallel.distributed import init_distributed
+    from bipk_tpu_torch.parallel.mesh import CHAIN_AXIS, chain_mesh
+
+    with tempfile.TemporaryDirectory() as store:
+        init_distributed(init_method=f"file://{store}/store", world_size=1, rank=0,
+                         device=dev)
+        try:
+            want = "nccl" if dev.type == "cuda" else "gloo"
+            require(dist.get_backend() == want, f"process group {dist.get_backend()}, not {want}")
+            mesh = chain_mesh(1)
+            require(mesh.size == 1 and mesh.group is not None and mesh.axis == CHAIN_AXIS
+                    and mesh.device.type == dev.type, f"chain mesh {mesh}")
+            print(f"  process group: {dist.get_backend()}, world size {mesh.size}, chain mesh "
+                  f"rank {mesh.rank} on {mesh.device}", flush=True)
+            return chains_on_mesh(dev, cs, smi, out_dir, mesh)
+        finally:
+            dist.destroy_process_group()
+
+
+def chains_on_mesh(dev, cs, smi, out_dir, mesh):
+    """Phase 24's runs on the chain mesh ``mesh`` (:func:`chains_phase`)."""
     from bipk_tpu_torch.scripts import emps as emps_script
 
     model, X, Y, U, _ = cs["toy"]
@@ -3114,11 +3183,17 @@ def chains_phase(dev, cs, smi, out_dir):
     steps = Y.shape[0] - 1
     single = {WARP_KEYS["fp"]: steps, "systematic_ancestors_blocks": steps,
               WARP_KEYS["lbm"]: steps, WARP_KEYS["dug"]: steps}
-    print(f"  toy: {CHAINS} chains, {N_CS_GIBBS} particles, {steps} steps, "
+    print(f"  toy: {CHAINS} chains on the chain mesh, {N_CS_GIBBS} particles, {steps} steps, "
           f"{CHAINS_ITERATIONS - 1} sweeps", flush=True)
-    res, toy_launches, _ = counted_gibbs(
-        dev, g, model, Y, U, ref_state, ref_iv, N_CS_GIBBS, CHAINS_ITERATIONS,
-        {k: CHAINS * c for k, c in single.items()}, smi, n_chains=CHAINS)
+    with GatherCount() as gathers:
+        res, toy_launches, _ = counted_gibbs(
+            dev, g, model, Y, U, ref_state, ref_iv, N_CS_GIBBS, CHAINS_ITERATIONS,
+            {k: CHAINS * c for k, c in single.items()}, smi, n_chains=CHAINS, chain_mesh=mesh)
+    n_leaves = len(tensor_leaves(res))
+    print(f"  toy chains: {gathers.calls} gathers over the mesh, all after the last sweep "
+          f"(the result's {n_leaves} leaves)", flush=True)
+    require(gathers.calls == n_leaves, f"toy chains: {gathers.calls} gathers, expected "
+            f"{n_leaves}: a collective inside a sweep, or a result not gathered")
     g_again = torch.Generator(device=dev)
     g_again.set_state(g_state)
     for c, gen in enumerate(chain_generators(g_again, CHAINS)):
@@ -3175,11 +3250,14 @@ def chains_phase(dev, cs, smi, out_dir):
                          for t in (r.states, r.log_likelihood, r.int_vars[0], *r.stats[0]))
             require(r.states.shape[0] == args.chains and finite,
                     f"EMPS --chains {args.chains}: result not finite or not per chain")
+            require(gathers.calls == len(tensor_leaves(r)),
+                    f"EMPS --mesh 1 --chains {args.chains}: {gathers.calls} gathers over the "
+                    "chain mesh, expected one per leaf of the result")
 
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     tee = _Tee(sys.stdout)
-    with contextlib.redirect_stdout(tee):
+    with contextlib.redirect_stdout(tee), GatherCount() as gathers:
         emps_script.run(args, hook=hook)
     said = "".join(tee.kept).splitlines()
     line = next((ln for ln in said if "friction F:" in ln), None)
@@ -3191,9 +3269,10 @@ def chains_phase(dev, cs, smi, out_dir):
     require(keys == emps_script.MAT_KEYS - baseline,
             f"EMPS_chains.mat keys {sorted(keys)}, expected those of scripts/emps.py but "
             f"{sorted(baseline)}")
-    print(f"  EMPS --chains {args.chains} at {args.particles} particles x {args.max_steps} steps: "
-          f"summary {line.strip()!r}; .mat (chain 0) read back with {len(keys)} keys", flush=True)
-    return {"toy_chains": toy_launches, "emps_chains": emps_launches}
+    print(f"  EMPS --mesh 1 --chains {args.chains} at {args.particles} particles x "
+          f"{args.max_steps} steps: summary {line.strip()!r}; .mat (chain 0) read back with "
+          f"{len(keys)} keys", flush=True)
+    return {"toy_chains_mesh": toy_launches, "emps_chains_mesh": emps_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3210,14 +3289,16 @@ CKPT_ITERATIONS = 7  # phase 25's resume check: six sweeps, checkpoints every 2
 CKPT_EVERY, CKPT_CUT = 2, 3  # the interruption after sweep 3
 
 
-def counted_script(label, script, argv, keys, n_gp, online_runs=1, chains=1):
+def counted_script(label, script, argv, keys, n_gp, online_runs=1, chains=1, sharded=False):
     """An entry script's ``run()`` as a user calls it (``argv`` its flags),
     with exact launches after every part (the ``hook``): each APF run
     ``n_gp`` look-aheads and gather/draws (``keys`` the warp kernels of
     its m) and one resampling per step (``online_runs`` runs before the
     online part: the vehicle's ``--profile`` warms up first), each Gibbs
-    sweep also ``n_gp`` log-determinants per step (``chains`` times), each
-    classic-PGAS sweep one resampling per step. Then the ``.mat`` file read
+    sweep also ``n_gp`` log-determinants per step (``chains`` times; with
+    ``sharded``, the particle-sharded cSMC of ``--mesh``, ``n_gp``
+    look-aheads, log-determinants and draws per step and no resampling
+    or gathering draw), each classic-PGAS sweep one resampling per step. Then the ``.mat`` file read
     back: exactly ``MAT_KEYS``, every array finite. Returns the launches
     over the run, the seconds of each part and what the hook saw."""
     import scipy.io
@@ -3242,10 +3323,11 @@ def counted_script(label, script, argv, keys, n_gp, online_runs=1, chains=1):
             steps = seen["steps"] = info["data"][1].shape[0] - 1
             apf = {keys["fp"]: n_gp * steps, "systematic_ancestors_blocks": steps,
                    keys["dug"]: n_gp * steps}
+            sweep = ({keys[k]: n_gp * steps for k in ("fp", "lbm", "du")} if sharded
+                     else {**apf, keys["lbm"]: n_gp * steps})
             expected.update({
                 "online": {k: online_runs * c for k, c in apf.items()}, "reference": apf,
-                "gibbs-sweep": {k: chains * c for k, c in {**apf, keys["lbm"]: n_gp * steps}
-                                .items()},
+                "gibbs-sweep": {k: chains * c for k, c in sweep.items()},
                 "pgas-sweep": {"systematic_ancestors_blocks": steps},
             })
 
@@ -3325,8 +3407,10 @@ def scripts_phase(dev, cs, smi, out_dir):
     the toy with ``--no-plot`` (the card's machine has no matplotlib), once more with
     ``--chains 2``; the vehicle with ``--profile``, whose Chrome trace must
     name the warp kernels of #1 (``warp_mniw_kernel<0, 16>``) and #4
-    (``<1, 16>``); then :func:`checkpoint_resume`. Returns the launches
-    per script."""
+    (``<1, 16>``); then :func:`checkpoint_resume`; then the vehicle once
+    more with ``--mesh 1``, the particle-sharded cSMC through the entry
+    point on a one-rank mesh without a process group: #1, #5 and #3 per GP
+    and Gibbs step, no #2 or #4. Returns the launches per script."""
     from bipk_tpu_torch.scripts import single_mass_oscillator as osc_script
     from bipk_tpu_torch.scripts import toy_example as toy_script
     from bipk_tpu_torch.scripts import vehicle as veh_script
@@ -3363,6 +3447,11 @@ def scripts_phase(dev, cs, smi, out_dir):
         WARP_KEYS, 1, chains=2)
     require(seen["gibbs"]["result"].states.shape[0] == 2, "toy --chains 2: not two chains")
     checkpoint_resume(dev, cs, out_dir)
+    launches["vehicle_script_mesh"], _, _, _ = counted_script(
+        "vehicle --mesh 1", veh_script,
+        ["--t-end", str(VEHICLE_SCRIPT_T_END), "--mesh", "1",
+         "--out", os.path.join(out_dir, "Vehicle_mesh.mat"), *common],
+        WARP24_KEYS, 2, sharded=True)
     return launches
 
 
@@ -4572,7 +4661,7 @@ def main() -> int:
     # log-determinants (kLogdetsUnpacked, unpacked_mniw_kernel<24, kLogdets>
     # beside it, cholesky_ex on its augmented matrices, and at m = 41 the
     # <48w> against <48>, keys ending in _48w). launches: over the
-    # twenty-eight main paths' runs, each counted from zero
+    # twenty-nine main paths' runs, each counted from zero
     paths = {"apf": apf_counts, "gibbs": gibbs_counts, "osc_apf": osc_counts,
              "toy_gibbs": cs_counts["toy"], "osc_gibbs": cs_counts["osc"],
              "apf_reuse": reuse_counts, "apf_dedup": dedup_counts,

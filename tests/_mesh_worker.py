@@ -13,8 +13,10 @@ test kills at its time limit shows where it was. :func:`run_ranks` starts
 the ranks from a test.
 """
 
+import importlib
 import os
 import pickle
+import shutil
 import signal
 import subprocess
 import sys
@@ -33,10 +35,11 @@ from bipk_tpu_torch.algorithms.gibbs import build_gibbs  # noqa: E402
 from bipk_tpu_torch.parallel import global_resampling as gr  # noqa: E402
 from bipk_tpu_torch.parallel.distributed import (global_particle_mesh,  # noqa: E402
                                                  init_distributed)
-from bipk_tpu_torch.parallel.mesh import ParticleMesh  # noqa: E402
+from bipk_tpu_torch.parallel.mesh import ParticleMesh, chain_mesh  # noqa: E402
 from bipk_tpu_torch.parallel.sharded import (StepDraws, build_sharded_apf,  # noqa: E402
                                              gather_final)
 from bipk_tpu_torch.parallel.sharded_csmc import build_sharded_csmc  # noqa: E402
+from bipk_tpu_torch.utils import matio  # noqa: E402
 
 F64 = torch.float64
 
@@ -243,6 +246,16 @@ def run_csmc_count(case, mesh):
     return out
 
 
+def gibbs_leaves(res) -> dict:
+    """A ``GibbsResult``'s leaves by name."""
+    leaves = {"states": res.states, "outputs": res.outputs, "weights": res.weights,
+              "log_likelihood": res.log_likelihood}
+    leaves.update({f"int_vars{i}": v for i, v in enumerate(res.int_vars)})
+    leaves.update({f"stats{i}.{k}": leaf for i, st in enumerate(res.stats)
+                   for k, leaf in zip(st._fields, st)})
+    return leaves
+
+
 def run_csmc_gibbs(case, mesh):
     """``build_gibbs(shard_mesh=mesh)`` for ``case["iterations"]``
     iterations (``full/<leaf>``), then the same sampler stopped after
@@ -254,14 +267,8 @@ def run_csmc_gibbs(case, mesh):
     def gibbs(n_iterations, **kw):
         g = build_gibbs(model.ssm, model.gps, case["n"], n_iterations, dtype=F64,
                         shard_mesh=mesh)
-        res = g(torch.Generator().manual_seed(case["seed"]), case["Y"], case["U"], model.x0,
-                model.p0, X, ivs, **kw)
-        leaves = {"states": res.states, "outputs": res.outputs,
-                  "log_likelihood": res.log_likelihood}
-        leaves.update({f"int_vars{i}": v for i, v in enumerate(res.int_vars)})
-        leaves.update({f"stats{i}.{k}": leaf for i, st in enumerate(res.stats)
-                       for k, leaf in zip(st._fields, st)})
-        return leaves
+        return gibbs_leaves(g(torch.Generator().manual_seed(case["seed"]), case["Y"], case["U"],
+                              model.x0, model.p0, X, ivs, **kw))
 
     out = {f"full/{k}": v for k, v in gibbs(case["iterations"]).items()}
     ckpt = dict(checkpoint_path=case["checkpoint"], checkpoint_every=1)
@@ -271,8 +278,74 @@ def run_csmc_gibbs(case, mesh):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+def chain_gibbs(case, cmesh, n_iterations, **kw):
+    """``build_gibbs(n_chains=case["chains"], chain_mesh=cmesh)`` (None:
+    on one device) run from ``case["seed"]`` and the case's shared or
+    per-chain (``chain_ref``) initial reference; its leaves by name."""
+    model = model_from_case(case)
+    X, ivs = case["chain_ref"] if "chain_ref" in case else case["ref"][:2]
+    g = build_gibbs(model.ssm, model.gps, case["n"], n_iterations, dtype=F64, device="cpu",
+                    n_chains=case["chains"], chain_mesh=cmesh)
+    res = g(torch.Generator().manual_seed(case["seed"]), case["Y"], case["U"], model.x0,
+            model.p0, X, ivs, **kw)
+    return gibbs_leaves(res)
+
+
+def run_chain_gibbs(case, mesh):
+    """The chains on a chain mesh of every rank for ``case["iterations"]``
+    iterations (``full/<leaf>``, all C chains on every rank), the calls of
+    each of the mesh's collectives in each sweep (``sweep/<name>``) and
+    after the last (``end/<name>``); then the same sampler stopped after
+    sweep 1 with a checkpoint at ``case["checkpoint"]`` (rank 0 writes it
+    and keeps a copy at ``<checkpoint>.sweep1``) and resumed from it on
+    the ranks to the end (``resumed/<leaf>``)."""
+    cmesh = chain_mesh(mesh.size, device="cpu")
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    real = {name: getattr(ParticleMesh, name) for name in COLLECTIVES}
+
+    def counting(name):
+        def call(self, *args, **kwargs):
+            counts[name] += 1
+            return real[name](self, *args, **kwargs)
+        return call
+
+    seen = [dict(counts)]
+    for name in COLLECTIVES:
+        setattr(ParticleMesh, name, counting(name))
+    try:
+        full = chain_gibbs(case, cmesh, case["iterations"],
+                           callback=lambda k, ref: seen.append(dict(counts)))
+        seen.append(dict(counts))
+    finally:
+        for name in COLLECTIVES:
+            setattr(ParticleMesh, name, real[name])
+    out = {f"full/{k}": v for k, v in full.items()}
+    out.update({f"sweep/{k}": np.array([b[k] - a[k] for a, b in zip(seen[:-2], seen[1:-1])])
+                for k in COLLECTIVES})
+    out.update({f"end/{k}": np.asarray(seen[-1][k] - seen[-2][k]) for k in COLLECTIVES})
+    ckpt = dict(checkpoint_path=case["checkpoint"], checkpoint_every=1)
+    chain_gibbs(case, cmesh, 2, **ckpt)
+    dist.barrier(mesh.group)  # rank 0's checkpoint is on disk before any rank resumes
+    if mesh.rank == 0:
+        shutil.copy(case["checkpoint"], case["checkpoint"] + ".sweep1")
+    out.update({f"resumed/{k}": v
+                for k, v in chain_gibbs(case, cmesh, case["iterations"], **ckpt).items()})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def run_script(case, mesh):
+    """An entry script's ``run()`` with ``case["argv"]`` on every rank,
+    each rank naming its own ``--out`` (``<out>.rank<r>.mat``); the
+    ``.mat`` dictionary it returns."""
+    script = importlib.import_module(f"bipk_tpu_torch.scripts.{case['script']}")
+    out = f"{case['out']}.rank{mesh.rank}.mat"
+    mdict = script.run(script.parse_args([*case["argv"], "--out", out]))
+    return {k: np.asarray(matio.to_host(v)) for k, v in mdict.items()}
+
+
 RUNNERS = {"inject": run_inject, "sweeps": run_sweeps, "resampling": run_resampling,
-           "csmc": run_csmc, "csmc_count": run_csmc_count, "csmc_gibbs": run_csmc_gibbs}
+           "csmc": run_csmc, "csmc_count": run_csmc_count, "csmc_gibbs": run_csmc_gibbs,
+           "chain_gibbs": run_chain_gibbs, "script": run_script}
 
 
 def main():

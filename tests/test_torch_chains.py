@@ -25,6 +25,7 @@ from bipk_tpu.models import toy as jtoy
 from bipk_tpu_torch import convert
 from bipk_tpu_torch.algorithms.gibbs import (ParallelGibbs, build_gibbs, chain_generators,
                                              select_chain)
+from bipk_tpu_torch.parallel.mesh import CHAIN_AXIS, ParticleMesh, chain_mesh
 from bipk_tpu_torch.utils import diagnostics
 
 N_PARTICLES = 50
@@ -173,8 +174,9 @@ def test_rhat_on_mixed_chains(chain_run):
 
 
 def test_build_gibbs_chain_guards():
-    """The JAX package's refusals raise ``ValueError``; the chain mesh
-    itself is not ported and raises ``NotImplementedError``."""
+    """The JAX package's refusals raise ``ValueError``, a chain count the
+    chain mesh's ranks do not divide too; a chain mesh builds the chains
+    sharded over it (``tests/test_torch_chain_mesh.py`` runs them)."""
     cfg = jtoy.ToyConfig(n_particles=8, n_steps=4)
     model = convert.toy_model_from_arrays(dataclasses.asdict(cfg),
                                           convert.toy_arrays(jtoy.make_model(cfg)))
@@ -189,6 +191,10 @@ def test_build_gibbs_chain_guards():
     for mesh in ("mesh", "shard_mesh"):
         with pytest.raises(ValueError, match="chain_mesh"):
             build(n_chains=2, **{mesh: object()})
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        build(n_chains=2, chain_mesh=object())
+    two = ParticleMesh(None, 1, 2, torch.device("cpu"), CHAIN_AXIS)
+    with pytest.raises(ValueError, match="divisible by the chain mesh's 2 devices"):
+        build(n_chains=3, chain_mesh=two)
+    sharded = build(n_chains=4, chain_mesh=two)
+    assert isinstance(sharded, ParallelGibbs) and sharded.sharding.block(4) == slice(2, 4)
     assert isinstance(build(n_chains=2), ParallelGibbs)
+    assert build(n_chains=2, chain_mesh=chain_mesh(device="cpu")).sharding.mesh.size == 1

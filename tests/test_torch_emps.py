@@ -241,7 +241,22 @@ def test_entry_point_runs_parallel_chains(tmp_path, capsys):
     np.testing.assert_array_equal(mat["offline_T1"], chains.stats[0].T1[0].numpy())
 
 
-def test_entry_point_raises_on_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+def test_entry_point_raises_on_what_is_not_ported(tmp_path):
+    """``--mesh`` is ported: without a process group ``--mesh 1`` runs the
+    particle-sharded cSMC on one rank, and more ranks, or a negative
+    count, raise; ``tests/test_torch_mesh_scripts.py`` runs ``--mesh 2``
+    on two gloo ranks."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node=2"):
         emps_script.parse_args(["--cpu", "--mesh", "2"])
+    with pytest.raises(ValueError, match="number of ranks"):
+        emps_script.parse_args(["--cpu", "--mesh", "-1"])
+    seen = {}
+    args = emps_script.parse_args(["--cpu", "--particles", "24", "--gibbs-iters", "3",
+                                   "--max-steps", "40", "--skip-baseline", "--mesh", "1",
+                                   "--data-dir", str(tmp_path),
+                                   "--out", str(tmp_path / "EMPS.mat")])
+    emps_script.run(args, hook=lambda event, **info: seen.setdefault(event, info))
+    assert type(seen["gibbs"]["result"].states) is torch.Tensor
+    mat = scipy.io.loadmat(tmp_path / "EMPS.mat")
+    assert mat["offline_Sigma_X"].shape == (40, 3, 2) and np.isfinite(mat["offline_T1"]).all()
 

@@ -196,9 +196,21 @@ def test_oscillator_checkpoint_resumes_two_chains(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["single_mass_oscillator", "vehicle"])
-def test_mesh_raises_naming_item_8(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
+def test_mesh_without_a_process_group_runs_one_rank(name, tmp_path):
+    """``--mesh 1`` without a process group is a one-rank mesh: with
+    ``--chains 2`` the chain mesh writes what ``--chains 2`` alone writes,
+    bit for bit; without chains the particle-sharded cSMC writes the
+    script's keys, all finite. More ranks raise, naming torchrun
+    (``tests/test_torch_mesh_scripts.py`` runs them on gloo ranks)."""
+    with pytest.raises(ValueError, match="torchrun"):
         SCRIPTS[name].parse_args(["--cpu", "--mesh", "2"])
+    want, _ = _run(name, tmp_path, "--chains", "2", out=str(tmp_path / "a.mat"))
+    got, _ = _run(name, tmp_path, "--chains", "2", "--mesh", "1", out=str(tmp_path / "b.mat"))
+    for k in want:
+        np.testing.assert_array_equal(matio.to_host(got[k]), matio.to_host(want[k]), err_msg=k)
+    _, out = _run(name, tmp_path, "--mesh", "1", out=str(tmp_path / "c.mat"))
+    mat = _mat(out)
+    assert set(mat) == SCRIPTS[name].MAT_KEYS and all(np.isfinite(v).all() for v in mat.values())
 
 
 def _nat(rng, m, n):

@@ -58,6 +58,9 @@ def test_port_imports_with_jax_absent():
         "import bipk_tpu_torch.utils.profiling, bipk_tpu_torch.utils.plotting\n"
         "import bipk_tpu_torch.scripts.toy_example, bipk_tpu_torch.scripts.vehicle\n"
         "import bipk_tpu_torch.scripts.single_mass_oscillator, bipk_tpu_torch.scripts.emps\n"
+        "import bipk_tpu_torch.scripts.common, bipk_tpu_torch.scripts.figures\n"
+        "import bipk_tpu_torch.scripts.publication_figures, bipk_tpu_torch.ops.integrators\n"
+        "import bipk_tpu_torch.ops.batched_linalg, bipk_tpu_torch.ops.resampling\n"
         "assert 'matplotlib' not in sys.modules, 'matplotlib imported at import time'\n"
         "print('ok')"
     )
@@ -179,11 +182,11 @@ def test_launches_count_per_instantiation():
 
 def test_gibbs_slice_unported_modes_raise():
     """``n_chains=4`` builds the chain-parallel sampler; ``mesh=`` and
-    ``shard_mesh=`` build the particle-sharded cSMC; the chain mesh still
-    raises, ``NotImplementedError`` naming Queue A item 2, and the
+    ``shard_mesh=`` build the particle-sharded cSMC; a chain mesh
+    (``chain_mesh=``) builds the chains sharded over its ranks, and the
     combinations the JAX package refuses raise ``ValueError``."""
     from bipk_tpu_torch.algorithms.gibbs import Gibbs, ParallelGibbs
-    from bipk_tpu_torch.parallel.mesh import ParticleMesh
+    from bipk_tpu_torch.parallel.mesh import ParticleMesh, chain_mesh
     from bipk_tpu_torch.parallel.sharded_csmc import ShardedCSMC
 
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
@@ -194,10 +197,12 @@ def test_gibbs_slice_unported_modes_raise():
     for kwargs in (dict(mesh=one), dict(shard_mesh=one)):
         gibbs = build_gibbs(model.ssm, model.gps, 64, 3, **kwargs)
         assert isinstance(gibbs, Gibbs) and isinstance(gibbs.csmc, ShardedCSMC)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", n_chains=4,
-                    chain_mesh=object())
+    sharded = build_gibbs(model.ssm, model.gps, 64, 3, device="cpu", n_chains=4,
+                          chain_mesh=chain_mesh(device="cpu"))
+    assert isinstance(sharded, ParallelGibbs) and sharded.sharding.block(4) == slice(0, 4)
+    two = ParticleMesh(None, 0, 2, torch.device("cpu"), "c")
     for kwargs in (dict(chain_mesh=object()), dict(n_chains=4, mesh=one),
+                   dict(n_chains=3, chain_mesh=two),
                    dict(n_chains=4, shard_mesh=one), dict(n_chains=1),
                    dict(mesh=one, shard_mesh=one)):
         with pytest.raises(ValueError):
@@ -707,17 +712,21 @@ def test_unpacked_launches_count_per_instantiation():
     assert sum(ck.launch_counts().values()) == 0
 
 
-def test_unported_modes_raise():
-    """The chain mesh raises, naming ROADMAP Queue A item 2; W ranks, the
-    exact scheme, the chunked and the windowed modes are ported
-    (``tests/test_torch_sharded_apf.py``, ``tests/test_torch_chunked_apf.py``)
-    and build."""
+def test_unported_modes_raise(monkeypatch):
+    """Every mode is ported: W ranks, the exact scheme, the chunked and the
+    windowed modes build (``tests/test_torch_sharded_apf.py``,
+    ``tests/test_torch_chunked_apf.py``), and so does the chain mesh
+    (``tests/test_torch_chain_mesh.py``), which, as every entry point,
+    runs on the card unless the caller asks for the CPU and raises
+    without one."""
     from bipk_tpu_torch.parallel.mesh import ParticleMesh, chain_mesh, chain_sharding
 
     model = tveh.make_model(tveh.VehicleConfig(t_end=0.1))
-    for fn in (chain_mesh, chain_sharding):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            fn()
+    one = chain_mesh(device="cpu")
+    assert one.device.type == "cpu" and chain_sharding(one).mesh is one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chain_mesh()  # default device: cuda
     four = ParticleMesh(None, 0, 4, torch.device("cpu"))
     for kwargs in (dict(mesh=four), dict(resampling_scheme="exact"), dict(chunk_size=32),
                    dict(window=8)):

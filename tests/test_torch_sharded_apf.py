@@ -190,9 +190,13 @@ def test_argument_checks():
         init_distributed(device="cpu", local_device_count=8)
     with pytest.raises(ValueError, match="nothing else"):
         init_distributed(backend="nccl", device="cpu")
-    for fn in (chain_mesh, chain_sharding):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
-            fn(2)
+    # the chain mesh follows the particle mesh's rules, on the chain axis
+    with pytest.raises(ValueError, match="needs a process group"):
+        chain_mesh(2, device="cpu")
+    one = chain_mesh(device="cpu")
+    assert (one.size, one.axis) == (1, "c") and chain_sharding(one).block(4) == slice(0, 4)
+    with pytest.raises(ValueError, match="not divisible by the mesh's 2 ranks"):
+        chain_sharding(ParticleMesh(None, 0, 2, torch.device("cpu"), "c")).block(3)
 
 
 @pytest.mark.parametrize("options", [{}, {"chunk_size": 16}, {"window": 5}],

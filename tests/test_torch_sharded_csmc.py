@@ -40,7 +40,7 @@ import _sharded_apf_cases as apf_cases
 import _sharded_csmc_cases as cases
 from bipk_tpu_torch.algorithms.csmc import build_csmc
 from bipk_tpu_torch.algorithms.gibbs import build_gibbs
-from bipk_tpu_torch.parallel.mesh import ParticleMesh, particle_mesh
+from bipk_tpu_torch.parallel.mesh import ParticleMesh, chain_mesh, particle_mesh
 from bipk_tpu_torch.parallel.sharded_csmc import ShardedCSMC, build_sharded_csmc
 
 N = 64
@@ -185,5 +185,10 @@ def test_argument_checks(setups):
     for kw in (dict(mesh=one), dict(shard_mesh=one)):
         with pytest.raises(ValueError, match="chain_mesh"):
             build_gibbs(model.ssm, model.gps, 64, 3, n_chains=2, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
-        build_gibbs(model.ssm, model.gps, 64, 3, n_chains=2, chain_mesh=object(), device="cpu")
+    # chains go on a chain mesh, whose ranks each run whole chains
+    chains = build_gibbs(model.ssm, model.gps, 64, 3, n_chains=2,
+                         chain_mesh=chain_mesh(device="cpu"), device="cpu")
+    assert not isinstance(chains.gibbs.csmc, ShardedCSMC) and chains.sharding.mesh.axis == "c"
+    with pytest.raises(ValueError, match="chain_mesh"):
+        build_gibbs(model.ssm, model.gps, 64, 3, n_chains=2, shard_mesh=one,
+                    chain_mesh=chain_mesh(device="cpu"))
