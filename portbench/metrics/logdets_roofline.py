@@ -1,0 +1,7 @@
+"""The logdets kernel's share of its roofline, in %."""
+
+from portbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "logdets")

@@ -1,0 +1,7 @@
+"""The resample kernel's share of its roofline, in %."""
+
+from portbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "resample")
